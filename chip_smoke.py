@@ -1,0 +1,460 @@
+#!/usr/bin/env python3
+"""Drives the PyTorch/CUDA port (deepconsensus_tpu_torch) on one GPU.
+
+  python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero (nothing is caught):
+
+1. Print the card's name and power limit, then build every CUDA kernel
+   from csrc/ (one nvcc per source, all at once).
+2. Hold each kernel (K1 embed-condense-attention, K2 encoder block, K3
+   output plane) against its plain PyTorch version on the card at the
+   main path's shapes (1024 windows x 100 positions, full width), in
+   float32 (rtol = atol = 1e-4) and bfloat16 (rtol = atol = 2e-2; K3
+   exact), and time kernel, plain version and a library yardstick with
+   CUDA events.
+3. The main path: synthetic BAMs (128 ZMWs x 2,000 bp x 10 subreads,
+   from a seed), full-width seeded weights with non-zero ReZero
+   alphas, through the port's `cli run` in bfloat16 and float32, with
+   every kernel's launch count reset just before each run and read just
+   after; then the float32 run again through the plain versions on the
+   card. Gates: all counts > 0, one read per ZMW, float32 kernels vs
+   plain base ids differ at <= 1e-4 of positions and qualities by <= 1,
+   bfloat16 vs float32 ids agree on >= 99% of positions and qualities
+   within BF16_QV_GATE where they agree.
+4. A `{"kernels": [...]}` line, the card line again, and the last line
+   `{"ok": true, "device": {...}}`.
+
+`--kernels-only` stops after phase 2 and prints no result (a first
+check of newly written kernels). Without a CUDA device, or away from the repository, it exits 2 and
+prints no result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(REPO, 'build', 'chip_smoke')
+SEED = 20
+BATCH, LENGTH = 1024, 100
+N_ZMWS, SEQ_LEN, N_SUBREADS = 128, 2000, 10
+# H100 SXM peaks (NVIDIA data sheet, dense): float32 on the CUDA cores,
+# bfloat16 on the tensor cores, and device memory bandwidth.
+PEAK_FLOPS = {'float32': 67e12, 'bfloat16': 989e12}
+PEAK_BYTES = 3.35e12
+TOL = {'float32': 1e-4, 'bfloat16': 2e-2}
+
+
+def card_line() -> str:
+  return subprocess.run(
+      ['nvidia-smi', '--query-gpu=name,power.limit',
+       '--format=csv,noheader'],
+      check=True, capture_output=True, text=True).stdout.strip()
+
+
+def cuda_ms(fn, iters=10, warmup=2) -> float:
+  import torch
+
+  for _ in range(warmup):
+    fn()
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(iters):
+    fn()
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float, dtype: str):
+  t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+  t_bytes = nbytes / PEAK_BYTES * 1e3
+  return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def max_err(a, b, tol: float) -> float:
+  """Max |a - b|; raises unless allclose(a, b, rtol=atol=tol)."""
+  import torch
+
+  a, b = a.float(), b.float()
+  err = float((a - b).abs().max())
+  if not torch.allclose(a, b, rtol=tol, atol=tol):
+    raise AssertionError(f'kernel disagrees with plain: max |err| {err}')
+  return err
+
+
+def make_params(dtype: str):
+  from deepconsensus_tpu_torch.models import config
+
+  params = config.get_config('transformer_learn_values+custom')
+  config.finalize_params(params)
+  params.dtype = dtype
+  return params
+
+
+def fake_rows(params, rng):
+  """[B, R, L] float32 pileup rows in the model's value ranges."""
+  import numpy as np
+
+  mp = params.max_passes
+  rows = np.zeros((BATCH, params.total_rows, LENGTH), np.float32)
+  rows[:, :mp] = rng.integers(0, 5, rows[:, :mp].shape)
+  rows[:, mp:3 * mp] = rng.integers(0, 256, rows[:, mp:3 * mp].shape)
+  rows[:, 3 * mp:4 * mp] = rng.integers(0, 3, rows[:, :mp].shape)
+  rows[:, 4 * mp] = rng.integers(0, 5, rows[:, 4 * mp].shape)
+  rows[:, 4 * mp + 1:] = rng.uniform(0, 500, rows[:, 4 * mp + 1:].shape)
+  return rows
+
+
+def band_pairs(length: int, win: int) -> int:
+  return sum(min(length - 1, i + win) - max(0, i - win) + 1
+             for i in range(length))
+
+
+def check_kernels(dtype: str, device: str = 'cuda') -> dict:
+  """Phase 2 for one dtype: each kernel vs its plain version."""
+  import numpy as np
+  import torch
+  import torch.nn.functional as F
+
+  from deepconsensus_tpu_torch.models import model as model_lib
+  from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
+  from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
+  from deepconsensus_tpu_torch.ops import output_plane
+  from deepconsensus_tpu_torch.calibration import lib as calibration_lib
+
+  dev = torch.device(device)
+  params = make_params(dtype)
+  dt = fwa.resolve_dtype(dtype)
+  isz = 4 if dtype == 'float32' else 2
+  model = model_lib.DeepConsensusModel(params, device=dev)
+  model.init_weights(torch.Generator().manual_seed(SEED))
+  rng = np.random.default_rng(SEED)
+  rows = torch.from_numpy(fake_rows(params, rng)).to(dev)
+  h, heads, win = params.hidden_size, params.num_heads, params.attn_win_size
+  f = params.filter_size
+  m = BATCH * LENGTH
+  pairs = band_pairs(LENGTH, win) * BATCH
+  tables, keys = model.tables()
+  a0 = model.encoder.layer('self_attention', 0)
+  pos = model._position_encoding(LENGTH, dt, dev)
+  k1_args = (rows, tables, model.condenser.matrix(), a0.query.matrix(),
+             a0.key.matrix(), a0.value.matrix(),
+             a0.output_transform.matrix(), pos)
+  k1_kw = dict(specs=model.specs, table_keys=keys, num_heads=heads,
+               attn_win_size=win, compute_dtype=dt)
+  out = {}
+
+  # K1
+  got = fwa.fused_embed_condense_attention(*k1_args, **k1_kw)
+  want = fwa.fused_embed_condense_attention_plain(*k1_args, **k1_kw)
+  torch.cuda.synchronize()
+  err = max(max_err(g, w, TOL[dtype]) for g, w in zip(got, want))
+  cond_in = model.condenser.kernel.shape[0]
+  flops = 2 * m * cond_in * h + 2 * m * h * 4 * h + 4 * pairs * h
+  nbytes = (rows.numel() * 4 + sum(t.numel() for t in tables.values()) * isz
+            + (cond_in * h + 4 * h * h + LENGTH * h) * isz + 2 * m * h * isz)
+  wq, wk, wv, wo = (w.to(dt) for w in k1_args[3:7])
+  band = (torch.arange(LENGTH, device=dev)[:, None]
+          - torch.arange(LENGTH, device=dev)[None, :]).abs() <= win
+
+  def k1_library():
+    ids = fwa.prepare_ids(rows, model.specs).long()
+    emb = torch.cat([
+        (tables[keys[s.table_idx]].to(dt).float()
+         * s.width ** 0.5)[ids[:, s.row_start:s.row_start + s.n_rows]]
+        .permute(0, 2, 1, 3).reshape(BATCH, LENGTH, -1)
+        for s in model.specs], -1)
+    x = emb @ model.condenser.matrix().to(dt).float() + pos.float()
+    qkv = [(x @ w.float()).view(BATCH, LENGTH, heads, -1).transpose(1, 2)
+           for w in (wq, wk, wv)]
+    o = F.scaled_dot_product_attention(*qkv, attn_mask=band)
+    return o.transpose(1, 2).reshape(BATCH, LENGTH, h) @ wo.float()
+
+  t_bound, by = bound(flops, nbytes, dtype)
+  out['K1'] = dict(
+      max_abs_err=err, ms=cuda_ms(
+          lambda: fwa.fused_embed_condense_attention(*k1_args, **k1_kw)),
+      plain_ms=cuda_ms(lambda: fwa.fused_embed_condense_attention_plain(
+          *k1_args, **k1_kw)),
+      library_ms=cuda_ms(k1_library), bound_ms=t_bound, bound_by=by,
+      flops=flops, bytes=nbytes)
+
+  # K2: a full block (attention + FFN) on realistic activations, and the
+  # layer-0 FFN-only block.
+  alpha0 = model.encoder.layer('attention_wrapper', 0).alpha
+  x = (want[0] + alpha0.to(dt) * want[1]).contiguous()
+  blocks = model.encoder.kernel_blocks()
+  k2_kw = dict(num_heads=heads, attn_win_size=win, compute_dtype=dt)
+  errs = []
+  for block in (blocks[1], blocks[0]):
+    got = feb.fused_encoder_stack(x, [block], **k2_kw)
+    want2 = feb.fused_encoder_stack_plain(x, [block], **k2_kw)
+    torch.cuda.synchronize()
+    errs.append(max_err(got, want2, TOL[dtype]))
+  b1 = blocks[1]
+  flops = 2 * m * h * 4 * h + 4 * pairs * h + 4 * m * h * f
+  nbytes = (2 * m * h + 4 * h * h + 2 * h * f) * isz + (f + h + 2) * 4
+
+  def k2_library():
+    xf = x.float()
+    qkv = [(xf @ w.to(dt).float()).view(BATCH, LENGTH, heads, -1)
+           .transpose(1, 2) for w in (b1.wq, b1.wk, b1.wv)]
+    o = F.scaled_dot_product_attention(*qkv, attn_mask=band)
+    y = xf + b1.attn_alpha * (o.transpose(1, 2).reshape(BATCH, LENGTH, h)
+                              @ b1.wo.to(dt).float())
+    hh = torch.relu(F.linear(y, b1.w_filter.to(dt).float().t(), b1.b_filter))
+    return y + b1.ffn_alpha * F.linear(hh, b1.w_output.to(dt).float().t(),
+                                       b1.b_output)
+
+  t_bound, by = bound(flops, nbytes, dtype)
+  out['K2'] = dict(
+      max_abs_err=max(errs), ms=cuda_ms(
+          lambda: feb.fused_encoder_stack(x, [b1], **k2_kw)),
+      plain_ms=cuda_ms(lambda: feb.fused_encoder_stack_plain(
+          x, [b1], **k2_kw)),
+      library_ms=cuda_ms(k2_library), bound_ms=t_bound, bound_by=by,
+      ffn_only_ms=cuda_ms(
+          lambda: feb.fused_encoder_stack(x, [blocks[0]], **k2_kw)),
+      flops=flops, bytes=nbytes)
+
+  # K3 (float32 preds in both runs; exact), with tied maxima and
+  # probabilities placed exactly on thresholds.
+  thr = output_plane.quality_thresholds(
+      calibration_lib.parse_calibration_string('skip'), 93)
+  logits = torch.from_numpy(rng.normal(0, 3, (BATCH, LENGTH, 5))
+                            .astype(np.float32)).to(dev)
+  preds = torch.softmax(logits, -1)
+  preds[0, :, :] = 0.2
+  preds[1, :, 1] = preds[1, :, 3] = 0.45
+  on = torch.from_numpy(thr[rng.integers(0, len(thr), LENGTH)]).to(dev)
+  preds[2, :, 2] = on
+  thr_dev = torch.from_numpy(thr).to(dev)
+  got = output_plane.phred_epilogue(preds, thr_dev)
+  want3 = output_plane.phred_epilogue_plain(preds, thr_dev)
+  torch.cuda.synchronize()
+  for g, w in zip(got, want3):
+    if not torch.equal(g, w):
+      raise AssertionError('K3 disagrees with its plain version')
+  nbytes = preds.numel() * 4 + thr.size * 4 + 2 * m
+
+  def k3_library():
+    mx, ids = preds.max(-1)
+    return ids, torch.searchsorted(thr_dev, mx, right=True)
+
+  t_bound, _ = bound(m * (5 + len(thr)), nbytes, 'float32')
+  out['K3'] = dict(
+      max_abs_err=0.0,
+      ms=cuda_ms(lambda: output_plane.phred_epilogue(preds, thr_dev)),
+      plain_ms=cuda_ms(
+          lambda: output_plane.phred_epilogue_plain(preds, thr_dev)),
+      library_ms=cuda_ms(k3_library), bound_ms=t_bound, bound_by='bytes',
+      flops=m * (5 + len(thr)), bytes=nbytes)
+  return out
+
+
+def counted_modules():
+  from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
+  from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
+  from deepconsensus_tpu_torch.ops import output_plane
+
+  return {'K1': fwa, 'K2': feb, 'K3': output_plane}
+
+
+def run_main_path(bams, weights, dtype: str, plain: bool = False):
+  """One `run` over the synthetic BAMs; returns (counters, launch
+  counts, per-pack (ids, quals) planes, seconds, peak bytes)."""
+  import numpy as np
+  import torch
+
+  from deepconsensus_tpu_torch import cli
+  from deepconsensus_tpu_torch.inference import runner as runner_lib
+
+  params_path = os.path.join(WORK, f'params_{dtype}.json')
+  with open(params_path, 'w') as f:
+    json.dump(make_params(dtype).to_dict(), f)
+  out = os.path.join(WORK, f'out_{dtype}{"_plain" if plain else ""}.fastq')
+  planes = []
+  finalize = runner_lib.ModelRunner.finalize
+
+  def recording_finalize(self, dispatched):
+    ids, quals = finalize(self, dispatched)
+    planes.append((np.array(ids), np.array(quals)))
+    return ids, quals
+
+  argv = ['run', '--subreads_to_ccs', bams[0], '--ccs_bam', bams[1],
+          '--weights', weights, '--params', params_path, '--output', out,
+          '--batch_size', str(BATCH), '--batch_zmws', str(N_ZMWS),
+          '--min_quality', '0', '--skip_windows_above', '0']
+  runner_lib.ModelRunner.finalize = recording_finalize
+  torch.cuda.reset_peak_memory_stats()
+  modules = counted_modules()
+  for mod in modules.values():
+    mod.n_launches = 0
+  t0 = time.perf_counter()
+  try:
+    if plain:
+      from deepconsensus_tpu_torch.models import config as config_lib
+      from deepconsensus_tpu_torch.models import weights as weights_lib
+
+      params = config_lib.read_params_from_json(params_path)
+      options = runner_lib.InferenceOptions(
+          batch_size=BATCH, batch_zmws=N_ZMWS, min_quality=0,
+          skip_windows_above=0)
+      runner = runner_lib.ModelRunner(
+          params, weights_lib.from_flax_params(
+              weights_lib.load_npz(weights), params),
+          options, plain=True)
+      runner_lib.run_inference(bams[0], bams[1], out, runner)
+    elif cli.main(argv) != 0:
+      raise AssertionError(f'cli run failed ({dtype})')
+  finally:
+    runner_lib.ModelRunner.finalize = finalize
+  seconds = time.perf_counter() - t0
+  launches = {k: mod.n_launches for k, mod in modules.items()}
+  with open(out + '.inference.json') as f:
+    counters = json.load(f)
+  ids = np.concatenate([p[0] for p in planes])
+  quals = np.concatenate([p[1] for p in planes]).astype(np.int32)
+  return (counters, launches, ids, quals, seconds,
+          torch.cuda.max_memory_allocated())
+
+
+def main(argv) -> int:
+  kernels_only = '--kernels-only' in argv
+  try:
+    import torch
+  except ImportError:
+    print('chip_smoke: torch is not installed', file=sys.stderr)
+    return 2
+  if not torch.cuda.is_available():
+    print('chip_smoke: no CUDA device', file=sys.stderr)
+    return 2
+  if not os.path.isdir(os.path.join(REPO, 'deepconsensus_tpu_torch')):
+    print('chip_smoke: run from a checkout of the repository',
+          file=sys.stderr)
+    return 2
+  sys.path.insert(0, REPO)
+  import numpy as np
+
+  card = card_line()
+  print(card, flush=True)
+
+  from deepconsensus_tpu_torch.models import config as config_lib
+  from deepconsensus_tpu_torch.models import model as model_lib
+  from deepconsensus_tpu_torch.models import weights as weights_lib
+  from deepconsensus_tpu_torch.ops import _build
+  from deepconsensus_tpu_torch.testing import synthetic
+
+  t0 = time.perf_counter()
+  paths = _build.build_all()
+  print(json.dumps({'phase': 'build', 'seconds': time.perf_counter() - t0}))
+  for name, path in paths.items():
+    log = path.with_suffix('.log')
+    if log.exists():
+      for line in log.read_text().splitlines():
+        if 'registers' in line or 'spill' in line:
+          print(f'ptxas {name}: {line.strip()}')
+
+  kernels = {}
+  for dtype in ('float32', 'bfloat16'):
+    result = check_kernels(dtype)
+    for name, r in result.items():
+      print(json.dumps({'phase': 'kernel', 'kernel': name, 'dtype': dtype,
+                        **r}), flush=True)
+    kernels[dtype] = result
+  if kernels_only:
+    return 0
+
+  os.makedirs(WORK, exist_ok=True)
+  bams = synthetic.write_synthetic_zmw_bams(
+      os.path.join(WORK, 'bams'), n_zmws=N_ZMWS, n_subreads=N_SUBREADS,
+      seq_len=SEQ_LEN, seed=SEED)
+  model = model_lib.DeepConsensusModel(make_params('float32'), device='cpu')
+  model.init_weights(torch.Generator().manual_seed(SEED))
+  weights = os.path.join(WORK, 'weights.npz')
+  weights_lib.save_npz(weights, weights_lib.to_flax_params(
+      model.state_dict()))
+
+  runs = {}
+  for dtype, plain in (('bfloat16', False), ('float32', False),
+                       ('float32', True)):
+    counters, launches, ids, quals, seconds, peak = run_main_path(
+        bams, weights, dtype, plain)
+    label = dtype + ('_plain' if plain else '')
+    runs[label] = (counters, launches, ids, quals)
+    n_win = counters['n_windows_to_model']
+    print(json.dumps({
+        'phase': 'main_path', 'run': label, 'launches': launches,
+        'reads': counters['success'], 'windows': n_win,
+        'packs': counters['n_model_packs'], 'seconds': seconds,
+        'windows_per_s': n_win / counters['total_seconds'],
+        'model_windows_per_s': n_win / counters['model_seconds'],
+        'model_seconds': counters['model_seconds'],
+        'featurize_seconds': counters['featurize_seconds'],
+        'peak_bytes': peak}), flush=True)
+    if counters['success'] != N_ZMWS:
+      raise AssertionError(f'{label}: {counters["success"]} reads, want '
+                           f'{N_ZMWS}')
+    if not plain and not all(launches.values()):
+      raise AssertionError(f'{label}: a kernel never launched: {launches}')
+
+  _, _, ids32, q32 = runs['float32']
+  _, _, idsp, qp = runs['float32_plain']
+  _, _, ids16, q16 = runs['bfloat16']
+  same = ids32 == idsp
+  agree16 = ids16 == ids32
+  gates = {
+      'f32_vs_plain_id_mismatch': float(1 - same.mean()),
+      'f32_vs_plain_max_qual_diff': int(np.abs(q32 - qp)[same].max()),
+      'bf16_vs_f32_id_agreement': float(agree16.mean()),
+      'bf16_vs_f32_max_qv_diff': int(np.abs(q16 - q32)[agree16].max()),
+  }
+  print(json.dumps({'phase': 'gates', **gates}), flush=True)
+  if gates['f32_vs_plain_id_mismatch'] > 1e-4:
+    raise AssertionError('f32 kernels vs plain: too many id mismatches')
+  if gates['f32_vs_plain_max_qual_diff'] > 1:
+    raise AssertionError('f32 kernels vs plain: qualities differ by > 1')
+  if gates['bf16_vs_f32_id_agreement'] < 0.99:
+    raise AssertionError('bf16 vs f32: ids agree on < 99% of positions')
+  if gates['bf16_vs_f32_max_qv_diff'] > config_lib.BF16_QV_GATE:
+    raise AssertionError('bf16 vs f32: QV differs by > BF16_QV_GATE')
+
+  sources = {
+      'K1': ('deepconsensus_tpu_torch/csrc/embed_condense.cu',
+             'deepconsensus_tpu/ops/fused_window_attention.py:349'),
+      'K2': ('deepconsensus_tpu_torch/csrc/gemm.cu',
+             'deepconsensus_tpu/ops/fused_encoder_block.py:264'),
+      'K3': ('deepconsensus_tpu_torch/csrc/phred_epilogue.cu',
+             'deepconsensus_tpu/ops/output_plane.py:236'),
+  }
+  main_launches = runs['bfloat16'][1]
+  line = []
+  for name, (source, replaces) in sources.items():
+    r = kernels['bfloat16'][name]
+    line.append({
+        'name': name, 'route': 'cuda', 'source': source,
+        'replaces': replaces, 'launches': main_launches[name],
+        'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+        'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+        'bound_by': r['bound_by'], 'library_ms': r['library_ms'],
+        'dtype': 'bfloat16', 'status': 'ported',
+        'float32_ms': kernels['float32'][name]['ms'],
+        'float32_max_abs_err': kernels['float32'][name]['max_abs_err'],
+    })
+  print(json.dumps({'kernels': line}))
+  print(card_line())
+  print(json.dumps({'ok': True, 'device': {
+      'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+      'count': torch.cuda.device_count()}}))
+  return 0
+
+
+if __name__ == '__main__':
+  sys.exit(main(sys.argv[1:]))

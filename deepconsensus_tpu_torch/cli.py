@@ -1,0 +1,85 @@
+"""Command line of the port: `run` (BAMs -> polished FASTQ).
+
+  python -m deepconsensus_tpu_torch.cli run \\
+      --subreads_to_ccs subreads_to_ccs.bam --ccs_bam ccs.bam \\
+      --weights weights.npz --params params.json --output out.fastq
+
+Runs on the card unless --device cpu is given; without a card the
+default raises. Weights are a `models/weights.save_npz` file (see the
+README for the one-liner that writes one from a JAX checkpoint).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import List, Optional
+
+
+def _add_run(sub) -> None:
+  p = sub.add_parser('run', help='Run inference: BAMs -> polished FASTQ.')
+  p.add_argument('--subreads_to_ccs', required=True)
+  p.add_argument('--ccs_bam', required=True)
+  p.add_argument('--weights', required=True,
+                 help='Params tree as .npz with "/"-joined keys.')
+  p.add_argument('--params', required=True, help='params.json of the model.')
+  p.add_argument('--output', required=True)
+  p.add_argument('--batch_size', type=int, default=1024)
+  p.add_argument('--batch_zmws', type=int, default=100)
+  p.add_argument('--min_length', type=int, default=0)
+  p.add_argument('--min_quality', type=int, default=20)
+  p.add_argument('--skip_windows_above', type=int, default=45)
+  p.add_argument('--ins_trim', type=int, default=5)
+  p.add_argument('--max_base_quality', type=int, default=93)
+  p.add_argument('--dc_calibration', default=None)
+  p.add_argument('--ccs_calibration', default='skip')
+  p.add_argument('--limit', type=int, default=0)
+  p.add_argument('--dtype', default=None, choices=['float32', 'bfloat16'],
+                 help='Compute dtype (default: params.json "dtype").')
+  p.add_argument('--device', default=None,
+                 help='cuda (default) or cpu.')
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+  parser = argparse.ArgumentParser(prog='deepconsensus_tpu_torch')
+  sub = parser.add_subparsers(dest='command', required=True)
+  _add_run(sub)
+  args = parser.parse_args(argv)
+
+  from deepconsensus_tpu_torch.calibration import lib as calibration_lib
+  from deepconsensus_tpu_torch.devices import resolve_device
+  from deepconsensus_tpu_torch.inference import runner as runner_lib
+  from deepconsensus_tpu_torch.models import config as config_lib
+  from deepconsensus_tpu_torch.models import weights as weights_lib
+
+  device = resolve_device(args.device)
+  params = config_lib.read_params_from_json(args.params)
+  if args.dtype:
+    params.dtype = args.dtype
+  dc_cal = args.dc_calibration or params.get('dc_calibration') or 'skip'
+  options = runner_lib.InferenceOptions(
+      batch_size=args.batch_size,
+      batch_zmws=args.batch_zmws,
+      min_length=args.min_length,
+      min_quality=args.min_quality,
+      skip_windows_above=args.skip_windows_above,
+      ins_trim=args.ins_trim,
+      max_base_quality=args.max_base_quality,
+      limit=args.limit,
+      dc_calibration_values=calibration_lib.parse_calibration_string(dc_cal),
+      ccs_calibration_values=calibration_lib.parse_calibration_string(
+          args.ccs_calibration),
+  )
+  state = weights_lib.from_flax_params(
+      weights_lib.load_npz(args.weights), params)
+  runner = runner_lib.ModelRunner(params, state, options, device=device)
+  counters = runner_lib.run_inference(
+      args.subreads_to_ccs, args.ccs_bam, args.output, runner)
+  print(json.dumps({k: counters[k] for k in (
+      'success', 'n_windows_to_model', 'n_model_packs', 'model_seconds',
+      'total_seconds') if k in counters}))
+  return 0 if counters.get('success', 0) > 0 else 1
+
+
+if __name__ == '__main__':
+  sys.exit(main())

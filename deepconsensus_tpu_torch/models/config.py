@@ -1,0 +1,208 @@
+"""Model/hparam configuration for the port (no ml_collections).
+
+The reference package keeps its presets in an ml_collections
+ConfigDict. The port carries the subset that inference reads, in
+`Params`: a plain dict whose keys are also attributes, so code written
+against `params.max_length` and `params.get('dtype')` reads the same.
+`params.json` files written by the reference package load unchanged
+(unknown keys are kept).
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Optional
+
+from deepconsensus_tpu_torch.preprocess.pileup import total_rows as _total_rows
+
+# Canonical window geometry (reference: model_configs.py max_length=100).
+DEFAULT_MAX_LENGTH = 100
+# Longest window the fused kernels take (whole-window attention tiles).
+FUSED_MAX_WINDOW_LEN = 128
+# bf16 acceptance gate: per-base Phred QVs within this many units of
+# f32 on argmax-agreeing positions (same value as the reference).
+BF16_QV_GATE = 3
+
+# Transformer size presets (reference: transformer_basic_params.py).
+TRANSFORMER_SIZE_PARAMS = {
+    'tiny': dict(num_hidden_layers=6, num_heads=4, filter_size=256),
+    'base': dict(num_hidden_layers=6, num_heads=8, filter_size=2048),
+    'big': dict(num_hidden_layers=6, num_heads=16, filter_size=4096),
+}
+
+
+class Params(dict):
+  """Attribute-access dict standing in for ml_collections.ConfigDict."""
+
+  def __getattr__(self, name: str) -> Any:
+    try:
+      return self[name]
+    except KeyError:
+      raise AttributeError(name) from None
+
+  def __setattr__(self, name: str, value: Any) -> None:
+    self[name] = value
+
+  def to_dict(self) -> dict:
+    return dict(self)
+
+
+def _set_base_transformer_hparams(params: Params) -> None:
+  params.model_name = 'transformer'
+  params.add_pos_encoding = True
+  params.num_heads = 2
+  params.layer_norm = False
+  params.rezero = True
+  params.condense_transformer_input = False
+  params.transformer_model_size = 'base'
+  # Band half-width; full band is 2*attn_win_size+1 columns.
+  params.attn_win_size = 12
+  params.num_channels = 1
+  params.per_base_hidden_size = 1
+  params.pw_hidden_size = 1
+  params.ip_hidden_size = 1
+  params.sn_hidden_size = 1
+  params.ccs_bq_hidden_size = 1
+  params.strand_hidden_size = 1
+  params.batch_size = 256
+
+
+def _set_transformer_learned_embeddings_hparams(params: Params) -> None:
+  _set_base_transformer_hparams(params)
+  params.model_name = 'transformer_learn_values'
+  params.per_base_hidden_size = 8
+  params.pw_hidden_size = 8
+  params.ip_hidden_size = 8
+  params.strand_hidden_size = 2
+  params.sn_hidden_size = 8
+  params.ccs_bq_hidden_size = 8
+  params.condense_transformer_input = True
+  params.transformer_input_size = 280
+
+
+def _set_transformer_learned_embeddings_distill_hparams(params: Params):
+  _set_transformer_learned_embeddings_hparams(params)
+  params.model_name = 'transformer_learn_values_distill'
+  params.num_hidden_layers = 5
+  params.filter_size = 2048
+
+
+def get_config(config_name: Optional[str] = None) -> Params:
+  """Builds Params for '{model}+{dataset}' preset names."""
+  params = Params()
+  params.rezero = False
+  params.PW_MAX = 255
+  params.IP_MAX = 255
+  params.SN_MAX = 500
+  params.CCS_BQ_MAX = 95
+  params.STRAND_MAX = 2
+  params.use_bases = True
+  params.use_pw = True
+  params.use_ip = True
+  params.use_strand = True
+  params.use_sn = True
+  params.use_ccs = True
+  params.use_ccs_bq = False
+  params.per_base_hidden_size = 1
+  params.pw_hidden_size = 1
+  params.ip_hidden_size = 1
+  params.sn_hidden_size = 1
+  params.strand_hidden_size = 1
+  params.ccs_bq_hidden_size = 1
+  params.total_rows = None
+  params.vocab_size = 5
+  params.max_length = DEFAULT_MAX_LENGTH
+  params.model_config_name = 'transformer_learn_values'
+  params.dataset_config_name = 'ccs'
+  params.dtype = 'bfloat16'  # compute dtype; params stay float32
+  params.attn_softmax_dtype = None
+  params.use_fused_hotpath = False
+  params.quantize_matmuls = None
+  if config_name is None:
+    return params
+
+  model_config_name, dataset_config_name = config_name.split('+')
+  params.model_config_name = model_config_name
+  params.dataset_config_name = dataset_config_name
+  if model_config_name == 'transformer_learn_values':
+    _set_transformer_learned_embeddings_hparams(params)
+  elif model_config_name == 'transformer_learn_values_distill':
+    _set_transformer_learned_embeddings_distill_hparams(params)
+  else:
+    raise NotImplementedError(
+        f'model config {model_config_name!r} is not ported yet; the port '
+        'serves the transformer_learn_values family (ROADMAP: tail '
+        'modules)')
+  if dataset_config_name in ('test', 'custom', 'ccs'):
+    params.max_passes = 20
+  elif dataset_config_name == 'test_bq':
+    params.max_passes = 20
+    params.use_ccs_bq = True
+  else:
+    raise ValueError(
+        f'dataset_config_name is {dataset_config_name}. Must be one of: '
+        'test, test_bq, custom'
+    )
+  return params
+
+
+def finalize_params(
+    params: Params,
+    max_length: Optional[int] = None,
+) -> None:
+  """Derives dependent parameters (reference modify_params)."""
+  if max_length is not None:
+    params.max_length = max_length
+  if 'max_length' not in params:
+    raise ValueError('No params.max_length provided.')
+  params.total_rows = _total_rows(params.max_passes, params.use_ccs_bq)
+  if 'transformer_learn_values' in params.model_name:
+    dim = (
+        params.use_bases * params.per_base_hidden_size
+        + params.use_pw * params.pw_hidden_size
+        + params.use_ip * params.ip_hidden_size
+        + params.use_strand * params.strand_hidden_size
+        + params.use_ccs_bq * params.ccs_bq_hidden_size
+    )
+    params.hidden_size = (
+        params.max_passes * dim
+        + params.use_ccs * params.per_base_hidden_size
+        + params.use_ccs_bq * params.ccs_bq_hidden_size
+        + params.use_sn * params.sn_hidden_size * 4
+    )
+  else:
+    params.hidden_size = params.total_rows
+  if 'transformer' in params.model_name and params.hidden_size % 2 != 0:
+    params.hidden_size += 1
+  if ('transformer_learn_values' in params.model_name
+      and params.condense_transformer_input):
+    params.hidden_size = params.transformer_input_size
+  if 'transformer' in params.model_name:
+    size = params.get('transformer_model_size', 'base')
+    for name, value in TRANSFORMER_SIZE_PARAMS[size].items():
+      if name not in params:
+        params[name] = value
+
+
+def read_params_from_json(path: str) -> Params:
+  """Loads params.json: a file, or a directory (or file prefix) at or
+  up to two levels below the one holding it. Unknown keys are kept."""
+  if os.path.isfile(path) and path.endswith('.json'):
+    json_path = path
+  else:
+    candidates = []
+    base = path if os.path.isdir(path) else os.path.dirname(path)
+    for _ in range(3):
+      candidates.append(os.path.join(base, 'params.json'))
+      base = os.path.dirname(base)
+    for json_path in candidates:
+      if os.path.exists(json_path):
+        break
+    else:
+      raise FileNotFoundError(
+          f'params.json not found near {path!r}; looked in {candidates}')
+  with open(json_path) as f:
+    loaded = json.load(f)
+  params = get_config()
+  params.update(loaded)
+  return params

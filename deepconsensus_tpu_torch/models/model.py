@@ -1,0 +1,385 @@
+"""The condensed learned-values transformer, inference forward only.
+
+Port of deepconsensus_tpu/models/model.py (DeepConsensusModel for the
+transformer_learn_values family). Parameter names and layouts follow
+the reference's Flax tree, so `weights.from_flax_params` is a rename:
+`encoder.self_attention_0.query.kernel` is [H, heads, head_dim] as in
+Flax's DenseGeneral, `output_transform.kernel` [heads, head_dim, H].
+
+Two routes, as in the reference:
+
+* the fused route (K1 -> K2 -> final LayerNorm, logits, softmax)
+  through ops/fused_window_attention.py and ops/fused_encoder_block.py.
+  It always runs on the card, where those wrappers launch the CUDA
+  kernels, and on the CPU when params.use_fused_hotpath is set, where
+  they run their plain versions;
+* the module route (MaskedEmbed, condenser, BandedSelfAttention,
+  FeedForward, ReZero ResidualWrapper, LayerNorm), the counterpart of
+  the reference's XLA path, on the CPU only.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from deepconsensus_tpu_torch import constants
+from deepconsensus_tpu_torch.devices import resolve_device
+from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
+from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
+
+_LN_EPS = 1e-6
+
+
+def sinusoidal_position_encoding(
+    length: int, hidden_size: int, min_timescale: float = 1.0,
+    max_timescale: float = 1.0e4) -> np.ndarray:
+  """Transformer timing signal: [sin | cos] halves."""
+  position = np.arange(length, dtype=np.float32)
+  num_timescales = hidden_size // 2
+  log_increment = np.log(max_timescale / min_timescale) / max(
+      num_timescales - 1, 1
+  )
+  inv_timescales = min_timescale * np.exp(
+      np.arange(num_timescales, dtype=np.float32) * -log_increment
+  )
+  scaled = position[:, None] * inv_timescales[None, :]
+  return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1)
+
+
+def _param(*shape, device) -> nn.Parameter:
+  return nn.Parameter(torch.zeros(shape, device=device), requires_grad=False)
+
+
+class Dense(nn.Module):
+  """Flax Dense/DenseGeneral: `kernel` keeps the Flax layout; inputs
+  and kernel are cast to the compute dtype."""
+
+  def __init__(self, in_shape: Tuple[int, ...], out_shape: Tuple[int, ...],
+               use_bias: bool, device):
+    super().__init__()
+    self.kernel = _param(*in_shape, *out_shape, device=device)
+    self.bias = _param(*out_shape, device=device) if use_bias else None
+    self.n_in = math.prod(in_shape)
+    self.out_shape = out_shape
+
+  def matrix(self) -> torch.Tensor:
+    """The kernel as a 2-D [in, out] matrix."""
+    return self.kernel.reshape(self.n_in, -1)
+
+  def forward(self, x: torch.Tensor, n_in_dims: int, dtype) -> torch.Tensor:
+    lead = x.shape[:x.dim() - n_in_dims]
+    y = x.to(dtype).reshape(*lead, self.n_in) @ self.matrix().to(dtype)
+    if self.bias is not None:
+      y = y + self.bias.to(dtype).reshape(-1)
+    return y.reshape(*lead, *self.out_shape)
+
+
+class MaskedEmbed(nn.Module):
+  """Embedding with zero vectors for id 0 and sqrt(dim) output scaling."""
+
+  def __init__(self, vocab_size: int, features: int, device):
+    super().__init__()
+    self.embedding = _param(vocab_size, features, device=device)
+    self.features = features
+
+  def forward(self, ids: torch.Tensor, dtype) -> torch.Tensor:
+    vocab = self.embedding.shape[0]
+    emb = self.embedding.to(dtype)[ids.clamp(0, vocab - 1).long()]
+    emb = emb * torch.tensor(self.features ** 0.5, dtype=dtype)
+    return emb * (ids != 0).to(dtype)[..., None]
+
+
+class BandedSelfAttention(nn.Module):
+  """Multi-head self-attention with a static banded mask (the
+  reference's XLA branch)."""
+
+  def __init__(self, hidden_size: int, num_heads: int,
+               attn_win_size: Optional[int], device):
+    super().__init__()
+    if hidden_size % num_heads:
+      raise ValueError('hidden_size must be divisible by num_heads')
+    self.num_heads = num_heads
+    self.head_dim = hidden_size // num_heads
+    self.attn_win_size = attn_win_size
+    heads = (num_heads, self.head_dim)
+    self.query = Dense((hidden_size,), heads, False, device)
+    self.key = Dense((hidden_size,), heads, False, device)
+    self.value = Dense((hidden_size,), heads, False, device)
+    self.output_transform = Dense(heads, (hidden_size,), False, device)
+
+  def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
+    query = self.query(x, 1, dtype) * (self.head_dim ** -0.5)
+    key = self.key(x, 1, dtype)
+    value = self.value(x, 1, dtype)
+    logits = torch.einsum('btnh,bfnh->bnft', key, query)
+    length = x.shape[1]
+    if self.attn_win_size:
+      i = torch.arange(length, device=x.device)
+      band = (i[:, None] - i[None, :]).abs() <= self.attn_win_size
+      logits = torch.where(band, logits,
+                           torch.full((), -1e9, dtype=logits.dtype,
+                                      device=x.device))
+    weights = torch.softmax(logits.float(), dim=-1).to(dtype)
+    out = torch.einsum('bnft,btnh->bfnh', weights, value)
+    return self.output_transform(out, 2, dtype)
+
+
+class FeedForward(nn.Module):
+  """filter_size ReLU -> hidden_size."""
+
+  def __init__(self, hidden_size: int, filter_size: int, device):
+    super().__init__()
+    self.filter_layer = Dense((hidden_size,), (filter_size,), True, device)
+    self.output_layer = Dense((filter_size,), (hidden_size,), True, device)
+
+  def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
+    h = torch.relu(self.filter_layer(x, 1, dtype))
+    return self.output_layer(h, 1, dtype)
+
+
+class ResidualWrapper(nn.Module):
+  """ReZero residual holder: x + alpha * f(x)."""
+
+  def __init__(self, device):
+    super().__init__()
+    self.alpha = _param(device=device)
+
+  def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return x + self.alpha.to(y.dtype) * y
+
+
+class LayerNorm(nn.Module):
+  """Flax LayerNorm (float32 statistics, E[x^2] - E[x]^2 variance)."""
+
+  def __init__(self, features: int, device):
+    super().__init__()
+    self.scale = nn.Parameter(torch.ones(features, device=device),
+                              requires_grad=False)
+    self.bias = _param(features, device=device)
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    x = x.float()
+    mean = x.mean(-1, keepdim=True)
+    var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + _LN_EPS) * self.scale
+    return (x - mean) * mul + self.bias
+
+
+class EncoderStack(nn.Module):
+  """N x (banded self-attention + FFN) with ReZero wrappers; the final
+  LayerNorm is `output_normalization`. Sublayers are siblings of their
+  wrappers, as in the Flax tree."""
+
+  def __init__(self, params, device):
+    super().__init__()
+    self.num_layers = params.num_hidden_layers
+    for n in range(self.num_layers):
+      self.add_module(f'self_attention_{n}', BandedSelfAttention(
+          params.hidden_size, params.num_heads,
+          params.attn_win_size or None, device))
+      self.add_module(f'attention_wrapper_{n}', ResidualWrapper(device))
+      self.add_module(f'ffn_{n}', FeedForward(
+          params.hidden_size, params.filter_size, device))
+      self.add_module(f'ffn_wrapper_{n}', ResidualWrapper(device))
+    self.output_normalization = LayerNorm(params.hidden_size, device)
+
+  def layer(self, kind: str, n: int) -> nn.Module:
+    return getattr(self, f'{kind}_{n}')
+
+  def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
+    for n in range(self.num_layers):
+      x = self.layer('attention_wrapper', n)(
+          x, self.layer('self_attention', n)(x, dtype))
+      x = self.layer('ffn_wrapper', n)(x, self.layer('ffn', n)(x, dtype))
+    return self.output_normalization(x)
+
+  def kernel_blocks(self) -> Tuple[feb.EncoderBlockWeights, ...]:
+    """K2's per-block weights: the layer-0 FFN-only remainder (K1 ran
+    attention 0), then one full block per further layer."""
+    blocks = []
+    for n in range(self.num_layers):
+      ffn = self.layer('ffn', n)
+      attn = [None] * 5
+      if n:
+        a = self.layer('self_attention', n)
+        attn = [a.query.matrix(), a.key.matrix(), a.value.matrix(),
+                a.output_transform.matrix(),
+                self.layer('attention_wrapper', n).alpha]
+      blocks.append(feb.EncoderBlockWeights(
+          *attn,
+          w_filter=ffn.filter_layer.matrix(),
+          b_filter=ffn.filter_layer.bias,
+          w_output=ffn.output_layer.matrix(),
+          b_output=ffn.output_layer.bias,
+          ffn_alpha=self.layer('ffn_wrapper', n).alpha,
+      ))
+    return tuple(blocks)
+
+
+_EMBEDDINGS = (
+    # (flag, module name, vocab key or size, width key)
+    ('use_bases', 'bases', None, 'per_base_hidden_size'),
+    ('use_pw', 'pw', 'PW_MAX', 'pw_hidden_size'),
+    ('use_ip', 'ip', 'IP_MAX', 'ip_hidden_size'),
+    ('use_strand', 'strand', 'STRAND_MAX', 'strand_hidden_size'),
+    ('use_ccs_bq', 'ccs_bq', 'CCS_BQ_MAX', 'ccs_bq_hidden_size'),
+    ('use_sn', 'sn', 'SN_MAX', 'sn_hidden_size'),
+)
+
+
+class DeepConsensusModel(nn.Module):
+  """Encoder-only transformer with learned per-feature embeddings.
+
+  Input: rows [B, total_rows, L] (or [..., 1]) raw pileup values;
+  output: per-position softmax over {gap, A, T, C, G}, float32.
+  """
+
+  def __init__(self, params, device=None):
+    super().__init__()
+    if 'transformer_learn_values' not in params.model_name:
+      raise NotImplementedError(
+          f'model {params.model_name!r} is not ported yet; the port runs '
+          'the transformer_learn_values family (ROADMAP: tail modules)')
+    if not (params.condense_transformer_input and params.rezero):
+      raise NotImplementedError(
+          'the port runs the condensed ReZero transformer only')
+    buckets = params.get('window_buckets')
+    if isinstance(buckets, str):
+      buckets = buckets.replace(',', ' ').split()
+    if buckets and [int(b) for b in buckets] != [int(params.max_length)]:
+      raise NotImplementedError(
+          f'window_buckets {buckets}: buckets are not ported yet (ROADMAP: '
+          'buckets and ragged slots)')
+    if params.get('quantize_matmuls') not in (None, 'none'):
+      raise NotImplementedError(
+          'int8 matmuls are not ported yet (ROADMAP: K2 int8 variant)')
+    fwa.check_softmax_dtype(params.get('attn_softmax_dtype'))
+    device = resolve_device(device)
+    self.params = params
+    self.device = device
+    self.compute_dtype = fwa.resolve_dtype(params.get('dtype', 'float32'))
+    for flag, name, vocab_key, width_key in _EMBEDDINGS:
+      if name == 'bases':
+        enabled = params.use_bases or params.use_ccs
+        vocab = constants.SEQ_VOCAB_SIZE
+      else:
+        enabled = params[flag]
+        vocab = params[vocab_key] + (0 if name == 'ccs_bq' else 1)
+      if enabled:
+        self.add_module(f'{name}_embedding',
+                        MaskedEmbed(vocab, params[width_key], device))
+    specs, _, cond_in = fwa.build_family_specs(params)
+    self.specs = specs
+    self.condenser = Dense((cond_in,), (params.transformer_input_size,),
+                           False, device)
+    self.encoder = EncoderStack(params, device)
+    self.logits = Dense((params.hidden_size,), (constants.SEQ_VOCAB_SIZE,),
+                        True, device)
+
+  @torch.no_grad()
+  def init_weights(self, generator: torch.Generator,
+                   alpha_range: Tuple[float, float] = (0.1, 0.3)) -> None:
+    """Seeded random init (the repository ships no trained weights):
+    embeddings N(0, 1/width), projections Glorot-uniform, FFN
+    N(0, 1/fan_in) with zero bias, LayerNorm identity. ReZero alphas are
+    drawn from alpha_range, not zero as in a fresh Flax init: with
+    alpha = 0 every residual branch would be multiplied away. The
+    default range is small (ReZero alphas start at 0 and grow in
+    training); with alphas in U(0.5, 1) the random model's top two
+    classes come so close so often that bfloat16 rounding flips more
+    than 1% of its base calls (PERF.md)."""
+
+    def draw(t, fn):
+      t.copy_(fn(torch.empty(t.shape), generator).to(t.device))
+
+    for name, p in self.named_parameters():
+      if name.endswith('embedding'):
+        std = p.shape[1] ** -0.5
+        draw(p, lambda t, g, s=std: t.normal_(0.0, s, generator=g))
+      elif name.endswith('alpha'):
+        lo, hi = alpha_range
+        draw(p, lambda t, g: t.uniform_(lo, hi, generator=g))
+      elif name.endswith('.kernel'):
+        fan_in = p.shape[0]
+        if 'output_transform' in name:
+          fan_in *= p.shape[1]
+        fan_out = p.numel() // fan_in
+        if '.ffn_' in name:
+          std = fan_in ** -0.5
+          draw(p, lambda t, g, s=std: t.normal_(0.0, s, generator=g))
+        else:
+          bound = (6.0 / (fan_in + fan_out)) ** 0.5
+          draw(p, lambda t, g, b=bound: t.uniform_(-b, b, generator=g))
+      elif name.endswith('scale'):
+        p.fill_(1.0)
+      else:
+        p.zero_()
+
+  def tables(self):
+    _, table_keys, _ = fwa.build_family_specs(self.params)
+    return {k: getattr(self, f'{k}_embedding').embedding
+            for k in table_keys}, table_keys
+
+  def use_fused(self, device: torch.device) -> bool:
+    return device.type == 'cuda' or bool(
+        self.params.get('use_fused_hotpath', False))
+
+  def _embed_rows(self, rows: torch.Tensor) -> torch.Tensor:
+    """[B, R, L] -> [B, L, cond_in] in the family concat order."""
+    blocks = []
+    for spec in self.specs:
+      table = 'bases' if spec.name == 'ccs' else spec.name
+      ids = rows[:, spec.row_start:spec.row_start + spec.n_rows].to(
+          torch.int32) + spec.shift
+      emb = getattr(self, f'{table}_embedding')(ids, self.compute_dtype)
+      b, r, l, e = emb.shape
+      blocks.append(emb.permute(0, 2, 1, 3).reshape(b, l, r * e))
+    return torch.cat(blocks, dim=-1)
+
+  def _position_encoding(self, length: int, dtype, device) -> torch.Tensor:
+    pos = sinusoidal_position_encoding(length, self.params.hidden_size)
+    return torch.from_numpy(pos).to(device=device, dtype=dtype)
+
+  def encode(self, rows: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """Encoder output after the final LayerNorm, float32 [B, L, H].
+    plain=True runs the fused route through the kernels' plain versions
+    on any device (the on-card reference run)."""
+    p = self.params
+    dt = self.compute_dtype
+    if rows.dim() == 4:
+      rows = rows.squeeze(-1)
+    length = rows.shape[-1]
+    pos = (self._position_encoding(length, dt, rows.device)
+           if p.add_pos_encoding else None)
+    if not (plain or self.use_fused(rows.device)):
+      x = self.condenser(self._embed_rows(rows), 1, dt)
+      if pos is not None:
+        x = x + pos
+      return self.encoder(x, dt)
+    tables, table_keys = self.tables()
+    attn0 = self.encoder.layer('self_attention', 0)
+    k1 = (fwa.fused_embed_condense_attention_plain if plain
+          else fwa.fused_embed_condense_attention)
+    x_base, attn_out = k1(
+        rows, tables, self.condenser.matrix(), attn0.query.matrix(),
+        attn0.key.matrix(), attn0.value.matrix(),
+        attn0.output_transform.matrix(), pos, specs=self.specs,
+        table_keys=table_keys, num_heads=p.num_heads,
+        attn_win_size=p.attn_win_size or None, compute_dtype=dt)
+    alpha0 = self.encoder.layer('attention_wrapper', 0).alpha
+    x = x_base + alpha0.to(x_base.dtype) * attn_out
+    k2 = (feb.fused_encoder_stack_plain if plain
+          else feb.fused_encoder_stack)
+    x = k2(x, self.encoder.kernel_blocks(), num_heads=p.num_heads,
+           attn_win_size=p.attn_win_size or None, compute_dtype=dt)
+    return self.encoder.output_normalization(x)
+
+  @torch.no_grad()
+  def forward(self, rows: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    encoded = self.encode(rows, plain=plain)
+    logits = self.logits(encoded, 1, torch.float32)
+    return torch.softmax(logits, dim=-1)

@@ -1,0 +1,98 @@
+"""Synthetic (subreads_to_ccs.bam, ccs.bam) pairs for tests and chip runs.
+
+A copy of the reference repository's scripts/inject_faults.py
+`write_synthetic_zmw_bams` on top of the port's own BAM writer (the
+original imports the reference package). Sequences, tags and block
+layout come from a numpy RandomState seed, so the same arguments give
+the same bytes.
+"""
+from __future__ import annotations
+
+import os
+from typing import Tuple
+
+import numpy as np
+
+from deepconsensus_tpu_torch.io.bam_writer import BamWriter
+
+_BASES = np.frombuffer(b'ACGT', dtype=np.uint8)
+
+
+def write_synthetic_zmw_bams(
+    out_dir: str,
+    n_zmws: int = 6,
+    n_subreads: int = 3,
+    seq_len: int = 120,
+    movie: str = 'm00001_000000_000000',
+    seed: int = 7,
+    base_qual: int = 30,
+    plain_names: bool = False,
+) -> Tuple[str, str]:
+  """Writes (subreads_to_ccs.bam, ccs.bam) for n_zmws molecules.
+
+  Subreads are exact copies of the draft CCS (all-match cigar) with
+  deterministic pw/ip/sn tags, grouped per ZMW and flushed into their
+  own BGZF block so truncate() faults mid-file. The ccs BAM carries
+  quals=base_qual and ec/np/rq/RG tags. plain_names drops the PacBio
+  movie/zmw/ccs structure (exercises the defensive zm-tag parse).
+  """
+  rng = np.random.RandomState(seed)
+  os.makedirs(out_dir, exist_ok=True)
+  subreads_path = os.path.join(out_dir, 'subreads_to_ccs.bam')
+  ccs_path = os.path.join(out_dir, 'ccs.bam')
+
+  zmw_ids = [100 + i for i in range(n_zmws)]
+  if plain_names:
+    ccs_names = [f'read{z}' for z in zmw_ids]
+  else:
+    ccs_names = [f'{movie}/{z}/ccs' for z in zmw_ids]
+  seqs = [
+      bytes(_BASES[rng.randint(0, 4, seq_len)]).decode('ascii')
+      for _ in zmw_ids
+  ]
+
+  sub_writer = BamWriter(
+      subreads_path,
+      header_text='@HD\tVN:1.5\tSO:unknown\n',
+      references=[(name, seq_len) for name in ccs_names],
+  )
+  for i, (zmw, seq) in enumerate(zip(zmw_ids, seqs)):
+    for k in range(n_subreads):
+      if plain_names:
+        qname = f'sub{zmw}_{k}'
+      else:
+        qname = f'{movie}/{zmw}/{k * 1000}_{k * 1000 + seq_len}'
+      tags = {
+          'zm': zmw,
+          'pw': rng.randint(1, 6, seq_len).astype(np.int32),
+          'ip': rng.randint(1, 9, seq_len).astype(np.int32),
+          'sn': rng.uniform(4.0, 12.0, 4).astype(np.float32),
+      }
+      sub_writer.write(
+          qname, seq, None, tags=tags, flag=0, ref_id=i, pos=0,
+          cigar=[(0, seq_len)],
+      )
+    # One BGZF block per ZMW: a later truncate() then faults mid-file
+    # instead of corrupting the first group.
+    sub_writer.flush()
+  sub_writer.close()
+
+  ccs_writer = BamWriter(
+      ccs_path,
+      header_text='@HD\tVN:1.5\tSO:unknown\n'
+      '@RG\tID:rg1\tPL:PACBIO\tSM:synthetic\n',
+  )
+  for name, seq in zip(ccs_names, seqs):
+    ccs_writer.write(
+        name, seq, np.full(seq_len, base_qual, dtype=np.uint8),
+        tags={
+            'ec': float(n_subreads),
+            'np': int(n_subreads),
+            'rq': 0.99,
+            'RG': 'rg1',
+        },
+        flag=4,
+    )
+    ccs_writer.flush()
+  ccs_writer.close()
+  return subreads_path, ccs_path

@@ -1,0 +1,117 @@
+"""CUDA kernels of the PyTorch port against their plain versions.
+
+Marked `gpu`: each test asks the `cuda` fixture for the card and skips
+without one (decided in the fixture, never at import time). This file
+imports only torch, numpy and the port, so it runs on a machine without
+JAX:  python -m pytest tests/test_torch_gpu.py -m gpu
+Tolerances: float32 rtol = atol = 1e-4, bfloat16 2e-2, K3 exact.
+"""
+import numpy as np
+import pytest
+import torch
+
+from deepconsensus_tpu_torch.calibration import lib as calibration_lib
+from deepconsensus_tpu_torch.inference import runner
+from deepconsensus_tpu_torch.models import config
+from deepconsensus_tpu_torch.models import model as model_lib
+from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
+from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
+from deepconsensus_tpu_torch.ops import output_plane
+from deepconsensus_tpu_torch.testing import synthetic
+
+pytestmark = pytest.mark.gpu
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+  """The card, or a skip."""
+  if not torch.cuda.is_available():
+    pytest.skip('needs a CUDA device (run on the GPU machine)')
+  return torch.device('cuda')
+
+
+def small_params(dtype='float32', length=100):
+  params = config.get_config('transformer_learn_values+test')
+  config.finalize_params(params, max_length=length)
+  params.update(dtype=dtype, num_hidden_layers=2, filter_size=64)
+  return params
+
+
+def seeded_model(params, device):
+  model = model_lib.DeepConsensusModel(params, device=device)
+  model.init_weights(torch.Generator().manual_seed(0), alpha_range=(0.5, 1))
+  return model
+
+
+def fake_rows(params, batch, seed=0):
+  rng = np.random.default_rng(seed)
+  mp = params.max_passes
+  rows = np.zeros((batch, params.total_rows, params.max_length), np.float32)
+  rows[:, :mp] = rng.integers(0, 5, rows[:, :mp].shape)
+  rows[:, mp:3 * mp] = rng.integers(0, 256, rows[:, mp:3 * mp].shape)
+  rows[:, 3 * mp:4 * mp] = rng.integers(0, 3, rows[:, :mp].shape)
+  rows[:, 4 * mp] = rng.integers(0, 5, rows[:, 4 * mp].shape)
+  rows[:, 4 * mp + 1:] = rng.uniform(0, 520, rows[:, 4 * mp + 1:].shape)
+  return torch.from_numpy(rows)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('length', [20, 100])
+def test_kernels_match_plain(cuda, dtype, length):
+  params = small_params(str(dtype).replace('torch.', ''), length)
+  model = seeded_model(params, cuda)
+  rows = fake_rows(params, 37).to(cuda)  # not a multiple of any tile
+  counts = (fwa.n_launches, feb.n_launches)
+  kernel = model.encode(rows)
+  plain = model.encode(rows, plain=True)
+  assert fwa.n_launches == counts[0] + 1
+  assert feb.n_launches == counts[1] + params.num_hidden_layers
+  torch.testing.assert_close(kernel, plain, rtol=TOL[dtype],
+                             atol=TOL[dtype])
+
+
+def test_phred_epilogue_exact(cuda):
+  thr = output_plane.quality_thresholds(
+      calibration_lib.parse_calibration_string('skip'), 93)
+  rng = np.random.default_rng(1)
+  preds = rng.dirichlet(np.ones(5) * 0.3, (33, 100)).astype(np.float32)
+  preds[0] = 0.2
+  preds[1, :, 4] = thr[rng.integers(0, len(thr), 100)]
+  preds = torch.from_numpy(preds).to(cuda)
+  before = output_plane.n_launches
+  got = output_plane.phred_epilogue(preds, thr)
+  want = output_plane.phred_epilogue_plain(preds,
+                                           torch.from_numpy(thr).to(cuda))
+  assert output_plane.n_launches == before + 1
+  for g, w in zip(got, want):
+    assert torch.equal(g, w)
+
+
+def test_wrapper_rejects_bad_input(cuda):
+  with pytest.raises(ValueError, match='float32'):
+    output_plane.phred_epilogue(torch.zeros(2, 3, 5, device=cuda,
+                                            dtype=torch.float64), [0.5])
+
+
+def test_cuda_run_matches_cpu_run(cuda, tmp_path):
+  bams = synthetic.write_synthetic_zmw_bams(str(tmp_path), n_zmws=4,
+                                            n_subreads=4, seq_len=300)
+  params = small_params()
+  state = seeded_model(params, 'cpu').state_dict()
+  outs = []
+  for device in ('cpu', cuda):
+    opts = runner.InferenceOptions(batch_size=8, min_quality=0,
+                                   skip_windows_above=0)
+    path = str(tmp_path / f'{torch.device(device).type}.fastq')
+    runner.run_inference(bams[0], bams[1], path,
+                         runner.ModelRunner(params, state, opts,
+                                            device=device))
+    with open(path, 'rb') as f:
+      lines = f.read().split(b'\n')
+    outs.append([lines[i:i + 4] for i in range(0, len(lines) - 1, 4)])
+  assert len(outs[0]) == len(outs[1]) == 4
+  for (cn, cs, _, cq), (gn, gs, _, gq) in zip(*outs):
+    assert (cn, cs) == (gn, gs)
+    assert np.abs(np.frombuffer(cq, np.uint8).astype(int)
+                  - np.frombuffer(gq, np.uint8).astype(int)).max() <= 1
