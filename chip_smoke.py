@@ -6,24 +6,35 @@
 Phases, in order; any failure exits non-zero (nothing is caught):
 
 1. Print the card's name and power limit, then build every CUDA kernel
-   from csrc/ (one nvcc per source, all at once).
-2. Hold each kernel (K1 embed-condense-attention, K2 encoder block, K3
-   output plane) against its plain PyTorch version on the card at the
-   main path's shapes (1024 windows x 100 positions, full width), in
-   float32 (rtol = atol = 1e-4) and bfloat16 (rtol = atol = 2e-2; K3
-   exact), and time kernel, plain version and a library yardstick with
-   CUDA events.
-3. The main path: synthetic BAMs (128 ZMWs x 2,000 bp x 10 subreads,
-   from a seed), full-width seeded weights with non-zero ReZero
-   alphas, through the port's `cli run` in bfloat16 and float32, with
-   every kernel's launch count reset just before each run and read just
-   after; then the float32 run again through the plain versions on the
-   card. Gates: all counts > 0, one read per ZMW, float32 kernels vs
-   plain base ids differ at <= 1e-4 of positions and qualities by <= 1,
-   bfloat16 vs float32 ids agree on >= 99% of positions and qualities
-   within BF16_QV_GATE where they agree.
-4. A `{"kernels": [...]}` line, the card line again, and the last line
-   `{"ok": true, "device": {...}}`.
+   from csrc/ (one nvcc per source, all at once) and print nvcc's
+   register/spill/shared-memory report and the attention core's dynamic
+   shared memory at the ragged slot length.
+2. Hold each kernel against its plain PyTorch version on the card at
+   its path's shapes, full width, in float32 (rtol = atol = 1e-4) and
+   bfloat16 (rtol = atol = 2e-2; K3 exact), and time kernel, plain
+   version and a library yardstick with CUDA events: K1
+   embed-condense-attention, K2 encoder block and K3 output plane at
+   1024 windows x 100 positions; K4 ragged embed-condense-attention and
+   one K2 block with lengths at 512 slots x 200 positions holding every
+   slot composition (one 200, two 100s, a lone 100, empty), compared on
+   valid positions only.
+3. The paths, each with every kernel's launch count reset just before
+   its run and read just after, through the port's `cli run` in
+   bfloat16 and float32, then float32 again through the plain versions
+   on the card; full-width seeded weights with non-zero ReZero alphas:
+   a. L = 100: synthetic BAMs of 128 ZMWs x 2,000 bp x 10 subreads;
+   b. ragged slots: the same with seeded `wl` window widths (60-200),
+      --use_ccs_smart_windows --window_buckets 100,200
+      --use_ragged_kernel.
+   Gates: each path's kernels launched (a: K1-K3, b: K4, K2, K3), one
+   read per ZMW, float32 kernels vs plain base ids differ at <= 1e-4 of
+   the delivered positions and qualities by <= 1, bfloat16 vs float32
+   ids agree on >= 99% of them and qualities within BF16_QV_GATE where
+   they agree; for b also each bucket >= 20% of model windows, slots
+   holding one 200 and two 100s both occur, and the last pack is
+   partial.
+4. A `{"kernels": [...]}` line (K1-K4), the card line again, and the
+   last line `{"ok": true, "device": {...}}`.
 
 `--kernels-only` stops after phase 2 and prints no result (a first
 check of newly written kernels). Without a CUDA device, or away from the repository, it exits 2 and
@@ -41,6 +52,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, 'build', 'chip_smoke')
 SEED = 20
 BATCH, LENGTH = 1024, 100
+SLOTS, SLOT_LEN = 512, 200
+BUCKETS = (100, 200)
 N_ZMWS, SEQ_LEN, N_SUBREADS = 128, 2000, 10
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 on the CUDA cores,
 # bfloat16 on the tensor cores, and device memory bandwidth.
@@ -98,12 +111,12 @@ def make_params(dtype: str):
   return params
 
 
-def fake_rows(params, rng):
+def fake_rows(params, rng, batch=BATCH, length=LENGTH):
   """[B, R, L] float32 pileup rows in the model's value ranges."""
   import numpy as np
 
   mp = params.max_passes
-  rows = np.zeros((BATCH, params.total_rows, LENGTH), np.float32)
+  rows = np.zeros((batch, params.total_rows, length), np.float32)
   rows[:, :mp] = rng.integers(0, 5, rows[:, :mp].shape)
   rows[:, mp:3 * mp] = rng.integers(0, 256, rows[:, mp:3 * mp].shape)
   rows[:, 3 * mp:4 * mp] = rng.integers(0, 3, rows[:, :mp].shape)
@@ -115,6 +128,20 @@ def fake_rows(params, rng):
 def band_pairs(length: int, win: int) -> int:
   return sum(min(length - 1, i + win) - max(0, i - win) + 1
              for i in range(length))
+
+
+def ragged_slots(params, rng, device):
+  """[SLOTS, R, SLOT_LEN] rows and [SLOTS, 2] lengths cycling through
+  every slot composition; pad positions hold zeros."""
+  import torch
+
+  from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
+
+  widths = [[200, 0], [100, 100], [100, 0], [0, 0]] * (SLOTS // 4)
+  lengths = torch.tensor(widths, dtype=torch.int32, device=device)
+  valid = rwa.slot_geometry(lengths, SLOT_LEN)[3]
+  rows = fake_rows(params, rng, SLOTS, SLOT_LEN)
+  return torch.from_numpy(rows).to(device) * valid[:, None, :], lengths
 
 
 def check_kernels(dtype: str, device: str = 'cuda') -> dict:
@@ -259,40 +286,171 @@ def check_kernels(dtype: str, device: str = 'cuda') -> dict:
   return out
 
 
+def check_ragged_kernels(dtype: str, device: str = 'cuda') -> dict:
+  """Phase 2 for one dtype on ragged slots: K4 and one K2 block with
+  lengths vs their plain versions, on valid positions."""
+  import numpy as np
+  import torch
+  import torch.nn.functional as F
+
+  from deepconsensus_tpu_torch.models import model as model_lib
+  from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
+  from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
+  from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
+
+  dev = torch.device(device)
+  params = make_params(dtype)
+  dt = fwa.resolve_dtype(dtype)
+  isz = 4 if dtype == 'float32' else 2
+  model = model_lib.DeepConsensusModel(params, device=dev)
+  model.init_weights(torch.Generator().manual_seed(SEED))
+  rng = np.random.default_rng(SEED + 1)
+  rows, lengths = ragged_slots(params, rng, dev)
+  h, heads, win = params.hidden_size, params.num_heads, params.attn_win_size
+  f = params.filter_size
+  m = SLOTS * SLOT_LEN
+  mask = rwa.ragged_attention_mask(lengths, SLOT_LEN, win)
+  _, start, _, valid = rwa.slot_geometry(lengths, SLOT_LEN)
+  pairs = int(mask.sum())
+  tables, keys = model.tables()
+  a0 = model.encoder.layer('self_attention', 0)
+  pos = model._position_encoding(SLOT_LEN, dt, dev)
+  k4_args = (rows, lengths, tables, model.condenser.matrix(),
+             a0.query.matrix(), a0.key.matrix(), a0.value.matrix(),
+             a0.output_transform.matrix(), pos)
+  k4_kw = dict(specs=model.specs, table_keys=keys, num_heads=heads,
+               attn_win_size=win, compute_dtype=dt)
+  out = {}
+
+  got = rwa.ragged_embed_condense_attention(*k4_args, **k4_kw)
+  want = rwa.ragged_embed_condense_attention_plain(*k4_args, **k4_kw)
+  torch.cuda.synchronize()
+  if not all(torch.isfinite(g.float()).all() for g in got):
+    raise AssertionError('K4 wrote non-finite values')
+  err = max(max_err(g[valid], w[valid], TOL[dtype])
+            for g, w in zip(got, want))
+  cond_in = model.condenser.kernel.shape[0]
+  flops = 2 * m * cond_in * h + 2 * m * h * 4 * h + 4 * pairs * h
+  nbytes = (rows.numel() * 4 + lengths.numel() * 4
+            + sum(t.numel() for t in tables.values()) * isz
+            + (cond_in * h + 4 * h * h + SLOT_LEN * h) * isz + 2 * m * h * isz)
+  wq, wk, wv, wo = (w.to(dt) for w in k4_args[4:8])
+  sdpa_mask = mask[:, None]
+
+  def k4_library():
+    ids = fwa.prepare_ids(rows, model.specs).long()
+    emb = torch.cat([
+        (tables[keys[s.table_idx]].to(dt).float()
+         * s.width ** 0.5)[ids[:, s.row_start:s.row_start + s.n_rows]]
+        .permute(0, 2, 1, 3).reshape(SLOTS, SLOT_LEN, -1)
+        for s in model.specs], -1)
+    x = (emb @ model.condenser.matrix().to(dt).float()
+         + rwa.pos_contribution(start, valid, pos))
+    qkv = [(x @ w.float()).view(SLOTS, SLOT_LEN, heads, -1).transpose(1, 2)
+           for w in (wq, wk, wv)]
+    o = F.scaled_dot_product_attention(*qkv, attn_mask=sdpa_mask)
+    return o.transpose(1, 2).reshape(SLOTS, SLOT_LEN, h) @ wo.float()
+
+  t_bound, by = bound(flops, nbytes, dtype)
+  out['K4'] = dict(
+      max_abs_err=err, ms=cuda_ms(
+          lambda: rwa.ragged_embed_condense_attention(*k4_args, **k4_kw)),
+      plain_ms=cuda_ms(lambda: rwa.ragged_embed_condense_attention_plain(
+          *k4_args, **k4_kw)),
+      library_ms=cuda_ms(k4_library), bound_ms=t_bound, bound_by=by,
+      flops=flops, bytes=nbytes, pairs=pairs,
+      valid_positions=int(valid.sum()))
+
+  # One full K2 block with lengths, on the residual K4's plain version
+  # gives.
+  alpha0 = model.encoder.layer('attention_wrapper', 0).alpha
+  x = (want[0] + alpha0.to(dt) * want[1]).contiguous()
+  b1 = model.encoder.kernel_blocks()[1]
+  k2_kw = dict(num_heads=heads, attn_win_size=win, compute_dtype=dt,
+               lengths=lengths)
+  got = feb.fused_encoder_stack(x, [b1], **k2_kw)
+  want2 = feb.fused_encoder_stack_plain(x, [b1], **k2_kw)
+  torch.cuda.synchronize()
+  err = max_err(got[valid], want2[valid], TOL[dtype])
+  flops = 2 * m * h * 4 * h + 4 * pairs * h + 4 * m * h * f
+  nbytes = ((2 * m * h + 4 * h * h + 2 * h * f) * isz + (f + h + 2) * 4
+            + lengths.numel() * 4)
+
+  def k2_library():
+    xf = x.float()
+    qkv = [(xf @ w.to(dt).float()).view(SLOTS, SLOT_LEN, heads, -1)
+           .transpose(1, 2) for w in (b1.wq, b1.wk, b1.wv)]
+    o = F.scaled_dot_product_attention(*qkv, attn_mask=sdpa_mask)
+    y = xf + b1.attn_alpha * (o.transpose(1, 2).reshape(SLOTS, SLOT_LEN, h)
+                              @ b1.wo.to(dt).float())
+    hh = torch.relu(F.linear(y, b1.w_filter.to(dt).float().t(), b1.b_filter))
+    return y + b1.ffn_alpha * F.linear(hh, b1.w_output.to(dt).float().t(),
+                                       b1.b_output)
+
+  t_bound, by = bound(flops, nbytes, dtype)
+  out['K2_lengths'] = dict(
+      max_abs_err=err, ms=cuda_ms(
+          lambda: feb.fused_encoder_stack(x, [b1], **k2_kw)),
+      plain_ms=cuda_ms(lambda: feb.fused_encoder_stack_plain(
+          x, [b1], **k2_kw)),
+      library_ms=cuda_ms(k2_library), bound_ms=t_bound, bound_by=by,
+      flops=flops, bytes=nbytes)
+  return out
+
+
 def counted_modules():
   from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
   from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
   from deepconsensus_tpu_torch.ops import output_plane
+  from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
 
-  return {'K1': fwa, 'K2': feb, 'K3': output_plane}
+  return {'K1': fwa, 'K2': feb, 'K3': output_plane, 'K4': rwa}
 
 
-def run_main_path(bams, weights, dtype: str, plain: bool = False):
-  """One `run` over the synthetic BAMs; returns (counters, launch
-  counts, per-pack (ids, quals) planes, seconds, peak bytes)."""
+# The kernels each path must launch.
+PATH_KERNELS = {'L100': ('K1', 'K2', 'K3'), 'ragged': ('K4', 'K2', 'K3')}
+RAGGED_FLAGS = ('--use_ccs_smart_windows', '--window_buckets',
+                ','.join(map(str, BUCKETS)), '--use_ragged_kernel')
+
+
+def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False):
+  """One `run` over the synthetic BAMs on one path ('L100' or
+  'ragged'); returns (counters, launch counts, delivered-position ids
+  and quals, per-pack lengths, seconds, peak bytes)."""
   import numpy as np
   import torch
 
   from deepconsensus_tpu_torch import cli
   from deepconsensus_tpu_torch.inference import runner as runner_lib
 
+  ragged = path == 'ragged'
   params_path = os.path.join(WORK, f'params_{dtype}.json')
   with open(params_path, 'w') as f:
     json.dump(make_params(dtype).to_dict(), f)
-  out = os.path.join(WORK, f'out_{dtype}{"_plain" if plain else ""}.fastq')
+  out = os.path.join(
+      WORK, f'out_{path}_{dtype}{"_plain" if plain else ""}.fastq')
   planes = []
-  finalize = runner_lib.ModelRunner.finalize
+  predict = runner_lib.ModelRunner.predict
+  predict_ragged = runner_lib.ModelRunner.predict_ragged
 
-  def recording_finalize(self, dispatched):
-    ids, quals = finalize(self, dispatched)
-    planes.append((np.array(ids), np.array(quals)))
+  def recording_predict(self, rows):
+    ids, quals = predict(self, rows)
+    planes.append((np.array(ids), np.array(quals), None))
+    return ids, quals
+
+  def recording_predict_ragged(self, rows, lengths):
+    ids, quals = predict_ragged(self, rows, lengths)
+    planes.append((np.array(ids), np.array(quals), np.array(lengths)))
     return ids, quals
 
   argv = ['run', '--subreads_to_ccs', bams[0], '--ccs_bam', bams[1],
           '--weights', weights, '--params', params_path, '--output', out,
           '--batch_size', str(BATCH), '--batch_zmws', str(N_ZMWS),
           '--min_quality', '0', '--skip_windows_above', '0']
-  runner_lib.ModelRunner.finalize = recording_finalize
+  if ragged:
+    argv += RAGGED_FLAGS
+  runner_lib.ModelRunner.predict = recording_predict
+  runner_lib.ModelRunner.predict_ragged = recording_predict_ragged
   torch.cuda.reset_peak_memory_stats()
   modules = counted_modules()
   for mod in modules.values():
@@ -306,24 +464,87 @@ def run_main_path(bams, weights, dtype: str, plain: bool = False):
       params = config_lib.read_params_from_json(params_path)
       options = runner_lib.InferenceOptions(
           batch_size=BATCH, batch_zmws=N_ZMWS, min_quality=0,
-          skip_windows_above=0)
+          skip_windows_above=0, use_ccs_smart_windows=ragged,
+          window_buckets=BUCKETS if ragged else None,
+          use_ragged_kernel=ragged)
       runner = runner_lib.ModelRunner(
           params, weights_lib.from_flax_params(
               weights_lib.load_npz(weights), params),
           options, plain=True)
       runner_lib.run_inference(bams[0], bams[1], out, runner)
     elif cli.main(argv) != 0:
-      raise AssertionError(f'cli run failed ({dtype})')
+      raise AssertionError(f'cli run failed ({path}, {dtype})')
   finally:
-    runner_lib.ModelRunner.finalize = finalize
+    runner_lib.ModelRunner.predict = predict
+    runner_lib.ModelRunner.predict_ragged = predict_ragged
   seconds = time.perf_counter() - t0
   launches = {k: mod.n_launches for k, mod in modules.items()}
   with open(out + '.inference.json') as f:
     counters = json.load(f)
-  ids = np.concatenate([p[0] for p in planes])
-  quals = np.concatenate([p[1] for p in planes]).astype(np.int32)
-  return (counters, launches, ids, quals, seconds,
-          torch.cuda.max_memory_allocated())
+  ids, quals, lengths = [], [], []
+  for pid, pq, pl in planes:
+    if pl is not None:  # a ragged pack: keep the windows' positions
+      lengths.append(pl)
+      keep = np.arange(pid.shape[1])[None, :] < pl.sum(1)[:, None]
+      pid, pq = pid[keep], pq[keep]
+    ids.append(pid.reshape(-1))
+    quals.append(pq.reshape(-1).astype(np.int32))
+  return (counters, launches, np.concatenate(ids), np.concatenate(quals),
+          lengths, seconds, torch.cuda.max_memory_allocated())
+
+
+def path_gates(path: str, runs) -> dict:
+  """Slice 1's id/quality gates on one path's delivered positions; for
+  the ragged path also bucket shares, slot compositions and a partial
+  last pack. Raises on a failed gate."""
+  import numpy as np
+
+  from deepconsensus_tpu_torch.models import config as config_lib
+
+  ids32, q32 = runs['float32'][2:4]
+  idsp, qp = runs['float32_plain'][2:4]
+  ids16, q16 = runs['bfloat16'][2:4]
+  same = ids32 == idsp
+  agree16 = ids16 == ids32
+  gates = {
+      'f32_vs_plain_id_mismatch': float(1 - same.mean()),
+      'f32_vs_plain_max_qual_diff': int(np.abs(q32 - qp)[same].max()),
+      'bf16_vs_f32_id_agreement': float(agree16.mean()),
+      'bf16_vs_f32_max_qv_diff': int(np.abs(q16 - q32)[agree16].max()),
+  }
+  checks = [
+      (gates['f32_vs_plain_id_mismatch'] <= 1e-4,
+       'f32 kernels vs plain: too many id mismatches'),
+      (gates['f32_vs_plain_max_qual_diff'] <= 1,
+       'f32 kernels vs plain: qualities differ by > 1'),
+      (gates['bf16_vs_f32_id_agreement'] >= 0.99,
+       'bf16 vs f32: ids agree on < 99% of positions'),
+      (gates['bf16_vs_f32_max_qv_diff'] <= config_lib.BF16_QV_GATE,
+       'bf16 vs f32: QV differs by > BF16_QV_GATE'),
+  ]
+  if path == 'ragged':
+    counters, _, _, _, lengths = runs['bfloat16']
+    by_bucket = counters['n_windows_by_bucket']
+    total = sum(by_bucket.values())
+    gates['bucket_share'] = {w: n / total for w, n in by_bucket.items()}
+    slots = np.concatenate(lengths)
+    gates['slots_one_200'] = int((slots == [200, 0]).all(1).sum())
+    gates['slots_two_100'] = int((slots == [100, 100]).all(1).sum())
+    gates['last_pack_fill'] = float(lengths[-1].sum()
+                                    / (SLOTS * SLOT_LEN))
+    checks += [
+        (len(by_bucket) == len(BUCKETS)
+         and min(gates['bucket_share'].values()) >= 0.2,
+         'a bucket holds < 20% of model windows'),
+        (gates['slots_one_200'] and gates['slots_two_100'],
+         'slots of both compositions did not occur'),
+        (gates['last_pack_fill'] < 1, 'the last pack is not partial'),
+    ]
+  print(json.dumps({'phase': 'gates', 'path': path, **gates}), flush=True)
+  for ok, message in checks:
+    if not ok:
+      raise AssertionError(f'{path}: {message}')
+  return gates
 
 
 def main(argv) -> int:
@@ -341,15 +562,14 @@ def main(argv) -> int:
           file=sys.stderr)
     return 2
   sys.path.insert(0, REPO)
-  import numpy as np
 
   card = card_line()
   print(card, flush=True)
 
-  from deepconsensus_tpu_torch.models import config as config_lib
   from deepconsensus_tpu_torch.models import model as model_lib
   from deepconsensus_tpu_torch.models import weights as weights_lib
   from deepconsensus_tpu_torch.ops import _build
+  from deepconsensus_tpu_torch.ops import _kernels
   from deepconsensus_tpu_torch.testing import synthetic
 
   t0 = time.perf_counter()
@@ -359,12 +579,20 @@ def main(argv) -> int:
     log = path.with_suffix('.log')
     if log.exists():
       for line in log.read_text().splitlines():
-        if 'registers' in line or 'spill' in line:
+        if 'registers' in line or 'spill' in line or 'smem' in line:
           print(f'ptxas {name}: {line.strip()}')
+  p = make_params('float32')
+  print(json.dumps({
+      'phase': 'attention_smem', 'block_limit_bytes': 232448,
+      'dynamic_smem_bytes': {
+          length: _kernels.attention_smem_bytes(
+              length, p.hidden_size, p.num_heads, p.attn_win_size)
+          for length in (LENGTH, SLOT_LEN, 256)}}), flush=True)
 
   kernels = {}
   for dtype in ('float32', 'bfloat16'):
     result = check_kernels(dtype)
+    result.update(check_ragged_kernels(dtype))
     for name, r in result.items():
       print(json.dumps({'phase': 'kernel', 'kernel': name, 'dtype': dtype,
                         **r}), flush=True)
@@ -373,81 +601,78 @@ def main(argv) -> int:
     return 0
 
   os.makedirs(WORK, exist_ok=True)
-  bams = synthetic.write_synthetic_zmw_bams(
-      os.path.join(WORK, 'bams'), n_zmws=N_ZMWS, n_subreads=N_SUBREADS,
-      seq_len=SEQ_LEN, seed=SEED)
+  bams = {path: synthetic.write_synthetic_zmw_bams(
+      os.path.join(WORK, f'bams_{path}'), n_zmws=N_ZMWS,
+      n_subreads=N_SUBREADS, seq_len=SEQ_LEN, seed=SEED,
+      smart_windows=path == 'ragged') for path in PATH_KERNELS}
   model = model_lib.DeepConsensusModel(make_params('float32'), device='cpu')
   model.init_weights(torch.Generator().manual_seed(SEED))
   weights = os.path.join(WORK, 'weights.npz')
   weights_lib.save_npz(weights, weights_lib.to_flax_params(
       model.state_dict()))
 
-  runs = {}
-  for dtype, plain in (('bfloat16', False), ('float32', False),
-                       ('float32', True)):
-    counters, launches, ids, quals, seconds, peak = run_main_path(
-        bams, weights, dtype, plain)
-    label = dtype + ('_plain' if plain else '')
-    runs[label] = (counters, launches, ids, quals)
-    n_win = counters['n_windows_to_model']
-    print(json.dumps({
-        'phase': 'main_path', 'run': label, 'launches': launches,
-        'reads': counters['success'], 'windows': n_win,
-        'packs': counters['n_model_packs'], 'seconds': seconds,
-        'windows_per_s': n_win / counters['total_seconds'],
-        'model_windows_per_s': n_win / counters['model_seconds'],
-        'model_seconds': counters['model_seconds'],
-        'featurize_seconds': counters['featurize_seconds'],
-        'peak_bytes': peak}), flush=True)
-    if counters['success'] != N_ZMWS:
-      raise AssertionError(f'{label}: {counters["success"]} reads, want '
-                           f'{N_ZMWS}')
-    if not plain and not all(launches.values()):
-      raise AssertionError(f'{label}: a kernel never launched: {launches}')
-
-  _, _, ids32, q32 = runs['float32']
-  _, _, idsp, qp = runs['float32_plain']
-  _, _, ids16, q16 = runs['bfloat16']
-  same = ids32 == idsp
-  agree16 = ids16 == ids32
-  gates = {
-      'f32_vs_plain_id_mismatch': float(1 - same.mean()),
-      'f32_vs_plain_max_qual_diff': int(np.abs(q32 - qp)[same].max()),
-      'bf16_vs_f32_id_agreement': float(agree16.mean()),
-      'bf16_vs_f32_max_qv_diff': int(np.abs(q16 - q32)[agree16].max()),
-  }
-  print(json.dumps({'phase': 'gates', **gates}), flush=True)
-  if gates['f32_vs_plain_id_mismatch'] > 1e-4:
-    raise AssertionError('f32 kernels vs plain: too many id mismatches')
-  if gates['f32_vs_plain_max_qual_diff'] > 1:
-    raise AssertionError('f32 kernels vs plain: qualities differ by > 1')
-  if gates['bf16_vs_f32_id_agreement'] < 0.99:
-    raise AssertionError('bf16 vs f32: ids agree on < 99% of positions')
-  if gates['bf16_vs_f32_max_qv_diff'] > config_lib.BF16_QV_GATE:
-    raise AssertionError('bf16 vs f32: QV differs by > BF16_QV_GATE')
+  launches_by_path = {}
+  for path, path_kernels in PATH_KERNELS.items():
+    runs = {}
+    for dtype, plain in (('bfloat16', False), ('float32', False),
+                         ('float32', True)):
+      counters, launches, ids, quals, lengths, seconds, peak = run_main_path(
+          path, bams[path], weights, dtype, plain)
+      label = dtype + ('_plain' if plain else '')
+      runs[label] = (counters, launches, ids, quals, lengths)
+      n_win = counters['n_windows_to_model']
+      print(json.dumps({
+          'phase': 'main_path', 'path': path, 'run': label,
+          'launches': launches, 'reads': counters['success'],
+          'windows': n_win, 'packs': counters['n_model_packs'],
+          'windows_by_bucket': counters['n_windows_by_bucket'],
+          'pad_rows': counters['n_model_pad_rows'], 'seconds': seconds,
+          'windows_per_s': n_win / counters['total_seconds'],
+          'model_windows_per_s': n_win / counters['model_seconds'],
+          'model_seconds': counters['model_seconds'],
+          'featurize_seconds': counters['featurize_seconds'],
+          'peak_bytes': peak}), flush=True)
+      if counters['success'] != N_ZMWS:
+        raise AssertionError(f'{path} {label}: {counters["success"]} reads, '
+                             f'want {N_ZMWS}')
+      if not plain and not all(launches[k] for k in path_kernels):
+        raise AssertionError(
+            f'{path} {label}: a kernel of the path never launched: '
+            f'{launches}')
+    path_gates(path, runs)
+    launches_by_path[path] = runs['bfloat16'][1]
 
   sources = {
       'K1': ('deepconsensus_tpu_torch/csrc/embed_condense.cu',
-             'deepconsensus_tpu/ops/fused_window_attention.py:349'),
+             'deepconsensus_tpu/ops/fused_window_attention.py:349', 'L100'),
       'K2': ('deepconsensus_tpu_torch/csrc/gemm.cu',
-             'deepconsensus_tpu/ops/fused_encoder_block.py:264'),
+             'deepconsensus_tpu/ops/fused_encoder_block.py:264', 'L100'),
       'K3': ('deepconsensus_tpu_torch/csrc/phred_epilogue.cu',
-             'deepconsensus_tpu/ops/output_plane.py:236'),
+             'deepconsensus_tpu/ops/output_plane.py:236', 'L100'),
+      'K4': ('deepconsensus_tpu_torch/csrc/ragged_attention.cu',
+             'deepconsensus_tpu/ops/ragged_window_attention.py:320',
+             'ragged'),
   }
-  main_launches = runs['bfloat16'][1]
   line = []
-  for name, (source, replaces) in sources.items():
+  for name, (source, replaces, path) in sources.items():
     r = kernels['bfloat16'][name]
-    line.append({
+    entry = {
         'name': name, 'route': 'cuda', 'source': source,
-        'replaces': replaces, 'launches': main_launches[name],
+        'replaces': replaces, 'launches': launches_by_path[path][name],
         'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
         'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
         'bound_by': r['bound_by'], 'library_ms': r['library_ms'],
-        'dtype': 'bfloat16', 'status': 'ported',
+        'dtype': 'bfloat16', 'status': 'ported', 'path': path,
+        'launches_by_path': {k: v[name] for k, v in launches_by_path.items()},
         'float32_ms': kernels['float32'][name]['ms'],
         'float32_max_abs_err': kernels['float32'][name]['max_abs_err'],
-    })
+    }
+    if name == 'K2':  # its lengths variant, on the ragged path
+      lv = kernels['bfloat16']['K2_lengths']
+      entry.update({f'lengths_{k}': lv[k] for k in (
+          'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'library_ms')})
+      entry['lengths_float32_ms'] = kernels['float32']['K2_lengths']['ms']
+    line.append(entry)
   print(json.dumps({'kernels': line}))
   print(card_line())
   print(json.dumps({'ok': True, 'device': {

@@ -4,6 +4,9 @@
       --subreads_to_ccs subreads_to_ccs.bam --ccs_bam ccs.bam \\
       --weights weights.npz --params params.json --output out.fastq
 
+Mixed-width windows from the CCS `wl` tag: add --use_ccs_smart_windows
+--window_buckets 100,200 --use_ragged_kernel.
+
 Runs on the card unless --device cpu is given; without a card the
 default raises. Weights are a `models/weights.save_npz` file (see the
 README for the one-liner that writes one from a JAX checkpoint).
@@ -14,6 +17,17 @@ import argparse
 import json
 import sys
 from typing import List, Optional
+
+
+def _parse_window_buckets(text):
+  try:
+    buckets = tuple(int(x) for x in text.split(',') if x.strip())
+  except ValueError:
+    raise argparse.ArgumentTypeError(
+        f'--window_buckets must be comma-separated ints, got {text!r}')
+  if not buckets:
+    raise argparse.ArgumentTypeError('--window_buckets is empty')
+  return buckets
 
 
 def _add_run(sub) -> None:
@@ -30,6 +44,21 @@ def _add_run(sub) -> None:
   p.add_argument('--min_quality', type=int, default=20)
   p.add_argument('--skip_windows_above', type=int, default=45)
   p.add_argument('--ins_trim', type=int, default=5)
+  p.add_argument('--use_ccs_smart_windows', action='store_true',
+                 help='Window widths from the CCS record\'s wl tag.')
+  p.add_argument('--window_buckets', default=None,
+                 type=_parse_window_buckets, metavar='L1,L2,...',
+                 help='Window length buckets, e.g. 100,200: each window '
+                 'pads to the smallest bucket that fits; wider ones '
+                 'adopt the CCS. The smallest must equal max_length. '
+                 'Several buckets need --use_ragged_kernel. Default: '
+                 'params.json "window_buckets" (one bucket when unset).')
+  p.add_argument('--use_ragged_kernel', action='store_true',
+                 help='Pack windows of every bucket back to back into '
+                 'slots of the largest bucket with a per-slot lengths '
+                 'vector, and run the ragged forward (K4, K2 with '
+                 'lengths). Needs buckets that form a divisibility '
+                 'chain.')
   p.add_argument('--max_base_quality', type=int, default=93)
   p.add_argument('--dc_calibration', default=None)
   p.add_argument('--ccs_calibration', default='skip')
@@ -64,6 +93,9 @@ def main(argv: Optional[List[str]] = None) -> int:
       min_quality=args.min_quality,
       skip_windows_above=args.skip_windows_above,
       ins_trim=args.ins_trim,
+      use_ccs_smart_windows=args.use_ccs_smart_windows,
+      window_buckets=args.window_buckets,
+      use_ragged_kernel=args.use_ragged_kernel,
       max_base_quality=args.max_base_quality,
       limit=args.limit,
       dc_calibration_values=calibration_lib.parse_calibration_string(dc_cal),

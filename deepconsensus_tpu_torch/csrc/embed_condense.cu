@@ -1,8 +1,13 @@
-// K1, part 1: masked embedding gather + condenser + position add.
+// K1 and K4, part 1: masked embedding gather + condenser + position add.
 //
-// Replaces the embed/condense half of the TPU kernel
+// Replaces the embed/condense half of the TPU kernels
 // deepconsensus_tpu/ops/fused_window_attention.py::_kernel
-// (_embed_condense + the pos add). The TPU kernel builds a one-hot block
+// (_embed_condense + the pos add) and
+// deepconsensus_tpu/ops/ragged_window_attention.py::_kernel
+// (_embed_condense + _pos_contribution). For ragged slots (K4) the
+// epilogue reads the slot's lengths row and adds pos[p - start(p)] on
+// positions inside a window and nothing elsewhere, as the TPU kernel's
+// one-hot position product does. The TPU kernel builds a one-hot block
 // in VMEM and multiplies it by each family's table, because the MXU
 // does products well and gathers badly. On Hopper a gather is cheap, so
 // this is a gather, not a one-hot product: the GEMM's A loader reads the
@@ -56,15 +61,18 @@ struct GatherA {
 
 }  // namespace
 
+// lengths: null (K1: windows of length L), or [M / L, wps] int32 window
+// widths per ragged slot of L positions (K4).
 extern "C" int dc_embed_condense(const float* rows, int R, int L,
                                  const int* meta, const void* tables,
                                  const void* w_cond, const void* pos,
                                  int is_bf16, int M, int N, int K,
                                  float* x_f32, void* x_base_bf16,
+                                 const int* lengths, int wps,
                                  void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Epilogue ep{1.f, 0, nullptr, pos, is_bf16, L, 0, nullptr, 0, nullptr,
-              x_f32, 0, static_cast<bf16*>(x_base_bf16)};
+              x_f32, 0, static_cast<bf16*>(x_base_bf16), lengths, wps};
   if (is_bf16) {
     GatherA<bf16> al{rows, R, L, K, meta, static_cast<const bf16*>(tables)};
     launch_tiled_gemm(al, static_cast<const bf16*>(w_cond), M, N, K, ep,

@@ -47,8 +47,12 @@ __device__ __forceinline__ void store_any(void* p, int64_t i, float v,
 
 // Applied per output element, in the reference's op order:
 //   y = acc; y *= scale (columns < scale_cols); y += bias[n];
-//   y += pos[m % pos_period, n]; y = relu(y); y = res[m, n] + alpha * y
+//   y += pos[pos_row(m), n]; y = relu(y); y = res[m, n] + alpha * y
 // then y is stored to out (and, when out2 is set, a bfloat16 copy).
+// pos_row(m) is m % pos_period; with lengths (ragged slots of
+// pos_period positions, lengths [slots, wps] window widths) it is the
+// position's offset in its own window, and positions outside every
+// window get no pos.
 struct Epilogue {
   float scale;
   int scale_cols;
@@ -63,7 +67,23 @@ struct Epilogue {
   void* out;
   int out_bf16;
   bf16* out2;
+  const int* lengths = nullptr;
+  int wps = 0;
 };
+
+// Row of the position table for token m, or -1 for none.
+__device__ __forceinline__ int pos_row(const Epilogue& ep, int m) {
+  const int slot = m / ep.pos_period;
+  const int p = m - slot * ep.pos_period;
+  if (!ep.lengths) return p;
+  const int* lens = ep.lengths + static_cast<int64_t>(slot) * ep.wps;
+  for (int j = 0, cur = 0; j < ep.wps; ++j) {
+    const int w = lens[j];
+    if (p < cur + w) return p - cur;
+    cur += w;
+  }
+  return -1;
+}
 
 // Dense row-major A[M, K]; neighbouring threads load neighbouring k.
 template <typename TA>
@@ -152,8 +172,8 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     const int m = m0 + ty * TM + i;
     if (m >= M) continue;
     const int64_t row = static_cast<int64_t>(m) * N;
-    const int64_t pos_row =
-        ep.pos ? static_cast<int64_t>(m % ep.pos_period) * N : 0;
+    const int prow = ep.pos ? pos_row(ep, m) : -1;
+    const int64_t pos_off = static_cast<int64_t>(prow) * N;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx * TN + j;
@@ -161,7 +181,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
       float y = acc[i][j];
       if (n < ep.scale_cols) y *= ep.scale;
       if (ep.bias) y += ep.bias[n];
-      if (ep.pos) y += load_any(ep.pos, pos_row + n, ep.pos_bf16);
+      if (prow >= 0) y += load_any(ep.pos, pos_off + n, ep.pos_bf16);
       if (ep.relu) y = fmaxf(y, 0.f);
       if (ep.res) y = load_any(ep.res, row + n, ep.res_bf16) + alpha * y;
       store_any(ep.out, row + n, y, ep.out_bf16);

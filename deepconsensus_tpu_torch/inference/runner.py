@@ -6,13 +6,19 @@ overflow and high-quality windows), run the rest through the model in
 fixed-shape packs of batch_size windows, stitch each molecule, and write
 FASTQ plus `<output>.inference.json` counters. The reference's
 cross-batch packer, featurization worker pool, resume, tracing and
-fault quarantine are not part of this slice (ROADMAP); a decode or
+fault quarantine are not part of the port yet (ROADMAP); a decode or
 model error fails the run.
+
+Mixed-width windows (--use_ccs_smart_windows with --window_buckets, e.g.
+100,200) need --use_ragged_kernel: each featurize batch's model windows
+pack into ragged slots of the largest bucket (inference/engine.py) and
+run through the model's ragged forward (K4, then K2 with lengths).
 
 The model stage ships each pack to the card compactly, as in the
 reference: uint8 rows (the ccs_bq row biased by +1 so its -1 gaps
-survive) plus [B, 4] float SN scalars, reassembled on the card. The
-output plane (K3) leaves the card as two uint8 planes.
+survive) plus float SN scalars ([B, 4] per window, or [slots, wps, 4]
+per window of a ragged slot), reassembled on the card. The output plane
+(K3) leaves the card as two uint8 planes.
 """
 from __future__ import annotations
 
@@ -28,10 +34,12 @@ import torch
 
 from deepconsensus_tpu_torch.calibration import lib as calibration_lib
 from deepconsensus_tpu_torch.devices import resolve_device
+from deepconsensus_tpu_torch.inference import engine as engine_lib
 from deepconsensus_tpu_torch.models import config as config_lib
 from deepconsensus_tpu_torch.models import data as data_lib
 from deepconsensus_tpu_torch.models import model as model_lib
 from deepconsensus_tpu_torch.ops import output_plane
+from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
 from deepconsensus_tpu_torch.postprocess import stitch
 from deepconsensus_tpu_torch.preprocess.feeder import (
     create_proc_feeder,
@@ -53,6 +61,15 @@ class InferenceOptions:
   batch_size: int = 1024
   batch_zmws: int = 100
   use_ccs_bq: bool = False
+  use_ccs_smart_windows: bool = False
+  # Window length buckets: None follows params.window_buckets (one
+  # bucket, max_length, when that is unset too). Several buckets need
+  # use_ragged_kernel.
+  window_buckets: Optional[Tuple[int, ...]] = None
+  # Pack mixed-width windows into ragged slots of the largest bucket
+  # and run the ragged forward (the buckets must form a divisibility
+  # chain).
+  use_ragged_kernel: bool = False
   skip_windows_above: int = 45
   ins_trim: int = 5
   max_base_quality: int = 93
@@ -83,6 +100,24 @@ def _assemble_rows(main_u8: torch.Tensor, sn: torch.Tensor,
   return torch.cat([main, sn_rows], dim=1)
 
 
+def _assemble_rows_ragged(main_u8: torch.Tensor, sn_w: torch.Tensor,
+                          lengths: torch.Tensor,
+                          bq_row: Optional[int] = None) -> torch.Tensor:
+  """_assemble_rows for ragged slots: sn_w [B, wps, 4] per-window SN
+  scalars; each position takes its own window's values through the
+  lengths-derived segment map, and positions past the windows get zero
+  SN."""
+  b, _, length = main_u8.shape
+  main = main_u8.to(torch.float32)
+  if bq_row is not None:
+    main[:, bq_row] -= 1.0
+  seg, _, _, valid = rwa.slot_geometry(lengths, length)
+  sn_pos = torch.gather(sn_w.to(torch.float32), 1,
+                        seg.long()[:, :, None].expand(b, length, _SN_ROWS))
+  sn_pos = sn_pos * valid[:, :, None]
+  return torch.cat([main, sn_pos.transpose(1, 2)], dim=1)
+
+
 def _bq_row_index(params) -> Optional[int]:
   """Row index of the ccs_bq row within the non-SN block, or None.
   Also guards the compact-transport assumption that every non-SN row
@@ -108,8 +143,20 @@ class ModelRunner:
   def __init__(self, params, state_dict: Dict[str, torch.Tensor],
                options: Optional[InferenceOptions] = None,
                device=None, plain: bool = False):
-    self.params = params
     self.options = options or InferenceOptions()
+    self.window_buckets = config_lib.normalize_window_buckets(
+        self.options.window_buckets or params.get('window_buckets'),
+        params.max_length)
+    if len(self.window_buckets) > 1:
+      if not self.options.use_ragged_kernel:
+        raise NotImplementedError(
+            f'window_buckets {self.window_buckets} without '
+            '--use_ragged_kernel: per-bucket dispatch is not ported yet '
+            '(ROADMAP: per-bucket dispatch); pass --use_ragged_kernel')
+      params = config_lib.Params(params,
+                                 window_buckets=list(self.window_buckets))
+    self.options.window_buckets = self.window_buckets
+    self.params = params
     self.device = resolve_device(device)
     self.plain = plain
     self.model = model_lib.DeepConsensusModel(params, device=self.device)
@@ -150,27 +197,56 @@ class ModelRunner:
     if n < batch:
       pad = np.zeros((batch - n,) + rows.shape[1:], rows.dtype)
       rows = np.concatenate([rows, pad])
+    sn = np.ascontiguousarray(rows[:, -_SN_ROWS:, 0, 0].astype(np.float32))
+    main_dev = self._main_rows_to_device(rows)
+    sn_dev = torch.from_numpy(sn).to(self.device)
+    preds = self.model(_assemble_rows(main_dev, sn_dev, self._bq_row),
+                       plain=self.plain)
+    self.n_packs += 1
+    self.n_pack_rows += n
+    self.n_pad_rows += batch - n
+    return self._epilogue(preds), n
+
+  def _main_rows_to_device(self, rows: np.ndarray) -> torch.Tensor:
+    """The non-SN rows of [B, R, L, 1] as uint8 on the device, the
+    ccs_bq row biased by +1."""
     main = rows[:, :-_SN_ROWS, :, 0]
     main_u8 = main.astype(np.uint8)
     if self._bq_row is not None:
       main_u8[:, self._bq_row] = (main[:, self._bq_row] + 1.0).astype(
           np.uint8)
-    sn = np.ascontiguousarray(rows[:, -_SN_ROWS:, 0, 0].astype(np.float32))
-    main_dev = torch.from_numpy(main_u8).to(self.device)
-    sn_dev = torch.from_numpy(sn).to(self.device)
-    preds = self.model(_assemble_rows(main_dev, sn_dev, self._bq_row),
-                       plain=self.plain)
+    return torch.from_numpy(main_u8).to(self.device)
+
+  def _epilogue(self, preds: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     if self._thresholds is not None:
       epilogue = (output_plane.phred_epilogue_plain if self.plain
                   else output_plane.phred_epilogue)
-      outputs = epilogue(preds, self._thresholds)
-    else:
-      max_prob, pred_ids = preds.max(dim=-1)
-      outputs = (pred_ids.to(torch.int32), max_prob)
-    self.n_packs += 1
-    self.n_pack_rows += n
-    self.n_pad_rows += batch - n
-    return outputs, n
+      return epilogue(preds, self._thresholds)
+    max_prob, pred_ids = preds.max(dim=-1)
+    return pred_ids.to(torch.int32), max_prob
+
+  def dispatch_ragged(self, rows: np.ndarray, lengths: np.ndarray
+                      ) -> Tuple[Tuple[torch.Tensor, ...], int]:
+    """dispatch() for one ragged pack: rows [n_slots, R, slot_len, 1]
+    with mixed-width windows packed back to back per slot, lengths
+    [n_slots, wps] int32 window widths (0 = unused capacity). The SN
+    plane ships as per-window scalars [n_slots, wps, 4], sampled at each
+    window's start column."""
+    n_slots, _, slot_len, _ = rows.shape
+    lengths = np.ascontiguousarray(lengths, dtype=np.int32)
+    starts = np.zeros_like(lengths)
+    starts[:, 1:] = np.cumsum(lengths[:, :-1], axis=1)
+    sn_planes = rows[:, -_SN_ROWS:, :, 0]  # [n_slots, 4, slot_len]
+    sn_w = np.take_along_axis(
+        sn_planes, np.clip(starts, 0, slot_len - 1)[:, None, :], axis=2)
+    sn_w = sn_w.transpose(0, 2, 1) * (lengths > 0)[:, :, None]
+    sn_dev = torch.from_numpy(
+        np.ascontiguousarray(sn_w, dtype=np.float32)).to(self.device)
+    len_dev = torch.from_numpy(lengths).to(self.device)
+    rows_dev = _assemble_rows_ragged(self._main_rows_to_device(rows),
+                                     sn_dev, len_dev, self._bq_row)
+    preds = self.model(rows_dev, plain=self.plain, window_lengths=len_dev)
+    return self._epilogue(preds), n_slots
 
   def finalize(self, dispatched) -> Tuple[np.ndarray, np.ndarray]:
     """Drains a dispatch into (base ids [n, L], qualities [n, L])."""
@@ -190,6 +266,15 @@ class ModelRunner:
     """Synchronous dispatch + finalize, timed into model_seconds."""
     t0 = time.perf_counter()
     out = self.finalize(self.dispatch(rows))
+    self.model_seconds += time.perf_counter() - t0
+    return out
+
+  def predict_ragged(self, rows: np.ndarray, lengths: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Synchronous dispatch_ragged + finalize: (ids, quals) planes
+    [n_slots, slot_len], timed into model_seconds."""
+    t0 = time.perf_counter()
+    out = self.finalize(self.dispatch_ragged(rows, lengths))
     self.model_seconds += time.perf_counter() - t0
     return out
 
@@ -255,10 +340,12 @@ def _molecule_name(fd: Dict[str, Any]) -> str:
 
 
 def _polish_batch(windows: List[Dict[str, Any]], runner: ModelRunner,
-                  options: InferenceOptions,
-                  counter: collections.Counter) -> Dict[str, Dict[str, list]]:
+                  options: InferenceOptions, counter: collections.Counter,
+                  packer: Optional[engine_lib._RaggedPacker] = None
+                  ) -> Dict[str, Dict[str, list]]:
   """Triage + model for one featurize batch: molecule name ->
-  {'pos', 'ids', 'quals'} window lists."""
+  {'pos', 'ids', 'quals'} window lists. With a packer the model windows
+  run through ragged slots, grouped by width in featurize order."""
   mols: Dict[str, Dict[str, list]] = {}
 
   def add(fd, ids, quals):
@@ -271,6 +358,18 @@ def _polish_batch(windows: List[Dict[str, Any]], runner: ModelRunner,
   to_model, to_skip = triage_windows(windows, options, counter)
   for fd in to_skip:
     add(fd, *skipped_window_arrays(fd, options))
+  if packer is not None:
+    by_width: Dict[int, List[Dict[str, Any]]] = {}
+    for fd in to_model:
+      by_width.setdefault(fd['subreads'].shape[1], []).append(fd)
+    for width in sorted(by_width):
+      group = by_width[width]
+      rows = data_lib.format_rows_batch(
+          np.stack([fd['subreads'] for fd in group]), runner.params,
+          window_buckets=runner.window_buckets)
+      packer.add(rows, [(add, fd) for fd in group])
+    packer.flush()
+    return mols
   for start in range(0, len(to_model), options.batch_size):
     chunk = to_model[start:start + options.batch_size]
     rows = data_lib.format_rows_batch(
@@ -302,14 +401,21 @@ def run_inference(
       max_passes=options.max_passes,
       max_length=options.max_length,
       use_ccs_bq=options.use_ccs_bq,
+      window_buckets=runner.window_buckets,
   )
   feeder, counter = create_proc_feeder(
       subreads_to_ccs=subreads_to_ccs,
       ccs_bam=ccs_bam,
       layout=layout,
       ins_trim=options.ins_trim,
+      use_ccs_smart_windows=options.use_ccs_smart_windows,
       limit=options.limit,
   )
+  packer = None
+  if options.use_ragged_kernel:
+    packer = engine_lib._RaggedPacker(
+        runner, options, runner.window_buckets,
+        deliver=lambda ticket, ids, quals: ticket[0](ticket[1], ids, quals))
   outcome = stitch.OutcomeCounter()
   timings = collections.Counter()
   out_tmp = output + '.tmp'
@@ -324,7 +430,7 @@ def run_inference(
       windows.extend(features)
     t1 = time.perf_counter()
     model_before = runner.model_seconds
-    mols = _polish_batch(windows, runner, options, counter)
+    mols = _polish_batch(windows, runner, options, counter, packer)
     t2 = time.perf_counter()
     for name in sorted(mols):
       mol = mols[name]
@@ -354,11 +460,18 @@ def run_inference(
   counters: Dict[str, Any] = dict(counter)
   counters.update(dataclasses.asdict(outcome))
   counters.update({k: round(v, 6) for k, v in timings.items()})
+  packs = runner if packer is None else packer
   counters.update(
       total_seconds=round(time.perf_counter() - t_start, 6),
-      n_model_packs=runner.n_packs,
-      n_model_pack_rows=runner.n_pack_rows,
-      n_model_pad_rows=runner.n_pad_rows,
+      window_buckets=list(runner.window_buckets),
+      use_ragged_kernel=int(packer is not None),
+      n_windows_by_bucket=(
+          dict(packer.n_windows_by_bucket) if packer is not None
+          else {options.max_length: counter.get('n_windows_to_model', 0)}),
+      n_model_packs=packs.n_packs,
+      n_model_pack_rows=packs.n_pack_rows,
+      # Ragged packs count unused slot capacity in min-bucket units.
+      n_model_pad_rows=packs.n_pad_rows,
       device_epilogue=int(runner.device_epilogue),
       d2h_bytes_per_pack=runner.d2h_bytes_per_pack,
       device=str(runner.device),

@@ -19,9 +19,54 @@ from deepconsensus_tpu_torch.preprocess.pileup import total_rows as _total_rows
 DEFAULT_MAX_LENGTH = 100
 # Longest window the fused kernels take (whole-window attention tiles).
 FUSED_MAX_WINDOW_LEN = 128
+# Default bucket set when params.window_buckets is requested but unset:
+# the reference L=100 plus one 2x bucket.
+DEFAULT_WINDOW_BUCKETS = (100, 200)
 # bf16 acceptance gate: per-base Phred QVs within this many units of
 # f32 on argmax-agreeing positions (same value as the reference).
 BF16_QV_GATE = 3
+
+
+def normalize_window_buckets(buckets, max_length: int):
+  """Validate and canonicalize a window-bucket spec.
+
+  None/empty means bucketing is off: one bucket equal to max_length. A
+  non-empty spec must be strictly ascending positive ints whose smallest
+  entry equals max_length (the featurize stride); buckets only widen
+  the variable-width (smart window) path.
+  """
+  if not buckets:
+    return (int(max_length),)
+  if isinstance(buckets, str):
+    # '--set window_buckets=100,200' arrives as the raw string.
+    buckets = [b for b in buckets.replace(',', ' ').split()]
+  out = tuple(int(b) for b in buckets)
+  if any(b <= 0 for b in out):
+    raise ValueError(f'window_buckets must be positive ints, got {out}')
+  if list(out) != sorted(set(out)):
+    raise ValueError(
+        f'window_buckets must be strictly ascending, got {out}')
+  if out[0] != int(max_length):
+    raise ValueError(
+        f'smallest window bucket {out[0]} must equal max_length '
+        f'{max_length} (max_length is the featurize stride)')
+  return out
+
+
+def resolve_window_buckets(params):
+  """Bucket set for a params object: normalized params.window_buckets,
+  or the single-bucket (max_length,) when unset."""
+  return normalize_window_buckets(params.get('window_buckets'),
+                                  int(params.max_length))
+
+
+def bucket_for(width: int, buckets):
+  """Smallest bucket that fits `width`, or None when it overflows all
+  buckets (the caller's overflow-skip path)."""
+  for b in buckets:
+    if width <= b:
+      return int(b)
+  return None
 
 # Transformer size presets (reference: transformer_basic_params.py).
 TRANSFORMER_SIZE_PARAMS = {

@@ -1,19 +1,24 @@
 """Row formatting for model input (reference data_providers.py:128-184)."""
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
 
 from deepconsensus_tpu_torch.faults import WindowBucketError
+from deepconsensus_tpu_torch.models import config
 from deepconsensus_tpu_torch.preprocess.pileup import (
     layout_from_shape,
     row_indices,
 )
 
 
-def format_rows_batch(subreads: np.ndarray, params) -> np.ndarray:
+def format_rows_batch(subreads: np.ndarray, params,
+                      window_buckets: Sequence[int] = ()) -> np.ndarray:
   """Clips PW/IP/SN rows and crops passes to the model's max_passes for
-  a whole window batch [N, H, L, 1]. The port serves one window width,
-  params.max_length; any other width raises."""
+  a whole window batch [N, H, L, 1]. The width must be one of the
+  window buckets: window_buckets when given, else the params' buckets
+  (max_length alone when params.window_buckets is unset)."""
   example_layout = layout_from_shape(subreads.shape[1:], params.use_ccs_bq)
   (base_r, pw_r, ip_r, strand_r, ccs_r, ccs_bq_r, sn_r) = row_indices(
       example_layout.max_passes, params.use_ccs_bq
@@ -35,12 +40,13 @@ def format_rows_batch(subreads: np.ndarray, params) -> np.ndarray:
     features.append(rows_of(ccs_bq_r))
   features.append(np.clip(rows_of(sn_r), 0, params.SN_MAX))
   rows = np.concatenate(features, axis=1)
+  buckets = (tuple(window_buckets) if window_buckets
+             else config.resolve_window_buckets(params))
   width = rows.shape[2]
-  if width != int(params.max_length):
+  if width not in buckets:
     raise WindowBucketError(
-        f'window width {width} is not max_length {params.max_length}; '
-        'window buckets are not ported yet (ROADMAP: buckets and ragged '
-        'slots)')
+        f'window width {width} not in window buckets {buckets}; triage '
+        'the window into a bucket (pad) first')
   expected = (len(subreads), params.total_rows, width, 1)
   assert rows.shape == expected, rows.shape
   return rows

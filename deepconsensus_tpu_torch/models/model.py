@@ -16,6 +16,14 @@ Two routes, as in the reference:
 * the module route (MaskedEmbed, condenser, BandedSelfAttention,
   FeedForward, ReZero ResidualWrapper, LayerNorm), the counterpart of
   the reference's XLA path, on the CPU only.
+
+Ragged slots (`window_lengths`, inference with --use_ragged_kernel):
+rows [B, R, S] hold windows of bucket widths packed back to back per
+slot and window_lengths [B, wps] their widths. The fused route runs K4
+(ops/ragged_window_attention.py) and K2 with lengths; the module route
+recovers each width-w window by reshaping the slots to [B*S/w, w]
+(every window starts at a multiple of its width) and gathers
+pos[p - start(p)] per position, as the reference's XLA path does.
 """
 from __future__ import annotations
 
@@ -28,8 +36,10 @@ from torch import nn
 
 from deepconsensus_tpu_torch import constants
 from deepconsensus_tpu_torch.devices import resolve_device
+from deepconsensus_tpu_torch.models import config as config_lib
 from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
 from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
+from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
 
 _LN_EPS = 1e-6
 
@@ -111,20 +121,39 @@ class BandedSelfAttention(nn.Module):
     self.value = Dense((hidden_size,), heads, False, device)
     self.output_transform = Dense(heads, (hidden_size,), False, device)
 
-  def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
-    query = self.query(x, 1, dtype) * (self.head_dim ** -0.5)
-    key = self.key(x, 1, dtype)
-    value = self.value(x, 1, dtype)
+  def _attend(self, query, key, value, dtype) -> torch.Tensor:
+    """[b, L, N, D] q/k/v -> [b, L, N, D], band within each row."""
     logits = torch.einsum('btnh,bfnh->bnft', key, query)
-    length = x.shape[1]
+    length = query.shape[1]
     if self.attn_win_size:
-      i = torch.arange(length, device=x.device)
+      i = torch.arange(length, device=query.device)
       band = (i[:, None] - i[None, :]).abs() <= self.attn_win_size
       logits = torch.where(band, logits,
                            torch.full((), -1e9, dtype=logits.dtype,
-                                      device=x.device))
+                                      device=query.device))
     weights = torch.softmax(logits.float(), dim=-1).to(dtype)
-    out = torch.einsum('bnft,btnh->bfnh', weights, value)
+    return torch.einsum('bnft,btnh->bfnh', weights, value)
+
+  def forward(self, x: torch.Tensor, dtype,
+              ragged_widths: Optional[torch.Tensor] = None,
+              ragged_buckets: Tuple[int, ...] = ()) -> torch.Tensor:
+    """ragged_widths [B, S] (each position's window width, 0 = pad):
+    each bucket width w attends over the slots reshaped to width-w
+    windows, and each position takes the result of its own width."""
+    query = self.query(x, 1, dtype) * (self.head_dim ** -0.5)
+    key = self.key(x, 1, dtype)
+    value = self.value(x, 1, dtype)
+    if ragged_widths is None:
+      out = self._attend(query, key, value, dtype)
+    else:
+      out = torch.zeros_like(query)
+      b, length = x.shape[:2]
+      for w in ragged_buckets:
+        shaped = lambda a: a.reshape(b * length // w, w, *a.shape[2:])
+        cand = self._attend(shaped(query), shaped(key), shaped(value),
+                            dtype).reshape(query.shape)
+        out = out + torch.where((ragged_widths == w)[:, :, None, None],
+                                cand, torch.zeros((), dtype=cand.dtype))
     return self.output_transform(out, 2, dtype)
 
 
@@ -190,10 +219,13 @@ class EncoderStack(nn.Module):
   def layer(self, kind: str, n: int) -> nn.Module:
     return getattr(self, f'{kind}_{n}')
 
-  def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
+  def forward(self, x: torch.Tensor, dtype,
+              ragged_widths: Optional[torch.Tensor] = None,
+              ragged_buckets: Tuple[int, ...] = ()) -> torch.Tensor:
     for n in range(self.num_layers):
       x = self.layer('attention_wrapper', n)(
-          x, self.layer('self_attention', n)(x, dtype))
+          x, self.layer('self_attention', n)(x, dtype, ragged_widths,
+                                             ragged_buckets))
       x = self.layer('ffn_wrapper', n)(x, self.layer('ffn', n)(x, dtype))
     return self.output_normalization(x)
 
@@ -247,13 +279,15 @@ class DeepConsensusModel(nn.Module):
     if not (params.condense_transformer_input and params.rezero):
       raise NotImplementedError(
           'the port runs the condensed ReZero transformer only')
-    buckets = params.get('window_buckets')
-    if isinstance(buckets, str):
-      buckets = buckets.replace(',', ' ').split()
-    if buckets and [int(b) for b in buckets] != [int(params.max_length)]:
+    buckets = config_lib.resolve_window_buckets(params)
+    try:
+      rwa.validate_ragged_buckets(buckets)
+    except ValueError as e:
       raise NotImplementedError(
-          f'window_buckets {buckets}: buckets are not ported yet (ROADMAP: '
-          'buckets and ragged slots)')
+          f'window_buckets {buckets}: the port serves several buckets only '
+          'through ragged slots, which need a divisibility chain; the '
+          'per-bucket path is not ported yet (ROADMAP: per-bucket '
+          f'dispatch): {e}') from None
     if params.get('quantize_matmuls') not in (None, 'none'):
       raise NotImplementedError(
           'int8 matmuls are not ported yet (ROADMAP: K2 int8 variant)')
@@ -344,10 +378,12 @@ class DeepConsensusModel(nn.Module):
     pos = sinusoidal_position_encoding(length, self.params.hidden_size)
     return torch.from_numpy(pos).to(device=device, dtype=dtype)
 
-  def encode(self, rows: torch.Tensor, plain: bool = False) -> torch.Tensor:
+  def encode(self, rows: torch.Tensor, plain: bool = False,
+             window_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Encoder output after the final LayerNorm, float32 [B, L, H].
     plain=True runs the fused route through the kernels' plain versions
-    on any device (the on-card reference run)."""
+    on any device (the on-card reference run). window_lengths [B, wps]:
+    rows are ragged slots (module docstring)."""
     p = self.params
     dt = self.compute_dtype
     if rows.dim() == 4:
@@ -355,31 +391,52 @@ class DeepConsensusModel(nn.Module):
     length = rows.shape[-1]
     pos = (self._position_encoding(length, dt, rows.device)
            if p.add_pos_encoding else None)
+    lengths = None
+    if window_lengths is not None:
+      lengths = window_lengths.to(device=rows.device, dtype=torch.int32)
+    win = p.attn_win_size or None
     if not (plain or self.use_fused(rows.device)):
       x = self.condenser(self._embed_rows(rows), 1, dt)
+      if lengths is None:
+        if pos is not None:
+          x = x + pos
+        return self.encoder(x, dt)
+      # Only widths that tile the slot are recoverable by reshape.
+      buckets = rwa.validate_ragged_buckets(tuple(
+          b for b in config_lib.resolve_window_buckets(p) if length % b == 0))
+      _, start, width, valid = rwa.slot_geometry(lengths, length)
       if pos is not None:
-        x = x + pos
-      return self.encoder(x, dt)
+        off = torch.clamp(torch.arange(length, device=rows.device)
+                          - start.long(), 0, length - 1)
+        x = x + torch.where(valid[:, :, None], pos[off],
+                            torch.zeros((), dtype=x.dtype))
+      return self.encoder(x, dt, ragged_widths=width, ragged_buckets=buckets)
     tables, table_keys = self.tables()
     attn0 = self.encoder.layer('self_attention', 0)
-    k1 = (fwa.fused_embed_condense_attention_plain if plain
-          else fwa.fused_embed_condense_attention)
-    x_base, attn_out = k1(
-        rows, tables, self.condenser.matrix(), attn0.query.matrix(),
-        attn0.key.matrix(), attn0.value.matrix(),
-        attn0.output_transform.matrix(), pos, specs=self.specs,
-        table_keys=table_keys, num_heads=p.num_heads,
-        attn_win_size=p.attn_win_size or None, compute_dtype=dt)
+    k1_args = (tables, self.condenser.matrix(), attn0.query.matrix(),
+               attn0.key.matrix(), attn0.value.matrix(),
+               attn0.output_transform.matrix(), pos)
+    k1_kw = dict(specs=self.specs, table_keys=table_keys,
+                 num_heads=p.num_heads, attn_win_size=win, compute_dtype=dt)
+    if lengths is None:
+      k1 = (fwa.fused_embed_condense_attention_plain if plain
+            else fwa.fused_embed_condense_attention)
+      x_base, attn_out = k1(rows, *k1_args, **k1_kw)
+    else:
+      k4 = (rwa.ragged_embed_condense_attention_plain if plain
+            else rwa.ragged_embed_condense_attention)
+      x_base, attn_out = k4(rows, lengths, *k1_args, **k1_kw)
     alpha0 = self.encoder.layer('attention_wrapper', 0).alpha
     x = x_base + alpha0.to(x_base.dtype) * attn_out
     k2 = (feb.fused_encoder_stack_plain if plain
           else feb.fused_encoder_stack)
     x = k2(x, self.encoder.kernel_blocks(), num_heads=p.num_heads,
-           attn_win_size=p.attn_win_size or None, compute_dtype=dt)
+           attn_win_size=win, compute_dtype=dt, lengths=lengths)
     return self.encoder.output_normalization(x)
 
   @torch.no_grad()
-  def forward(self, rows: torch.Tensor, plain: bool = False) -> torch.Tensor:
-    encoded = self.encode(rows, plain=plain)
+  def forward(self, rows: torch.Tensor, plain: bool = False,
+              window_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    encoded = self.encode(rows, plain=plain, window_lengths=window_lengths)
     logits = self.logits(encoded, 1, torch.float32)
     return torch.softmax(logits, dim=-1)

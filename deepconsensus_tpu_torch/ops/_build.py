@@ -20,7 +20,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
-SOURCES = ('gemm', 'embed_condense', 'banded_attention', 'phred_epilogue')
+SOURCES = ('gemm', 'embed_condense', 'ragged_attention', 'phred_epilogue')
 NVCC_FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
@@ -32,9 +32,11 @@ SIGNATURES = {
     'gemm': {'dc_gemm': (_P, _I, _P, _I, _I, _I, _I, _F, _I, _P, _I, _P, _I,
                          _P, _P, _I, _P)},
     'embed_condense': {'dc_embed_condense': (_P, _I, _I, _P, _P, _P, _P, _I,
-                                             _I, _I, _I, _P, _P, _P)},
-    'banded_attention': {'dc_banded_attention': (_P, _P, _I, _I, _I, _I, _I,
-                                                 _P)},
+                                             _I, _I, _I, _P, _P, _P, _I, _P)},
+    'ragged_attention': {
+        'dc_attention': (_P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
+        'dc_attention_smem_bytes': (_I, _I, _I, _I),
+    },
     'phred_epilogue': {'dc_phred_epilogue': (_P, ctypes.c_int64, _I, _P, _I,
                                              _P, _P, _P)},
 }

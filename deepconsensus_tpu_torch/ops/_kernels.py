@@ -64,14 +64,31 @@ def gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *,
       out_bf16, _build.stream_ptr(a.device)), 'gemm')
 
 
+def _check_lengths(lengths: Optional[torch.Tensor], batch: int) -> int:
+  """Validates a ragged lengths operand ([B, wps] int32, non-negative
+  window widths packed from the slot's start); returns wps (0 for
+  None)."""
+  if lengths is None:
+    return 0
+  _check(lengths, 'lengths', (torch.int32,))
+  if lengths.dim() != 2 or lengths.shape[0] != batch:
+    raise ValueError(f'lengths shape {tuple(lengths.shape)}, want '
+                     f'({batch}, windows per slot)')
+  return int(lengths.shape[1])
+
+
 def embed_condense(rows: torch.Tensor, meta: torch.Tensor,
                    tables: torch.Tensor, w_cond: torch.Tensor,
                    pos: Optional[torch.Tensor], x_f32: torch.Tensor,
-                   x_base_bf16: Optional[torch.Tensor]) -> None:
+                   x_base_bf16: Optional[torch.Tensor],
+                   lengths: Optional[torch.Tensor] = None) -> None:
   """x[b, l] = embed(rows[b, :, l]) @ w_cond + pos[l]
   (csrc/embed_condense.cu); rows [B, R, L] f32 raw pileup values, meta
-  [5, K] int32 column map, tables the flat scaled embedding tables."""
+  [5, K] int32 column map, tables the flat scaled embedding tables.
+  With lengths (ragged slots) the position add is pos[l - start(l)] on
+  positions inside a window and nothing elsewhere."""
   b, r, length = rows.shape
+  wps = _check_lengths(lengths, b)
   k, n = w_cond.shape
   _check(rows, 'rows', (torch.float32,))
   _check(meta, 'meta', (torch.int32,))
@@ -92,25 +109,35 @@ def embed_condense(rows: torch.Tensor, meta: torch.Tensor,
   _build.check(lib.dc_embed_condense(
       _build.ptr(rows), r, length, _build.ptr(meta), _build.ptr(tables),
       _build.ptr(w_cond), _build.ptr(pos), is_bf16, b * length, n, k,
-      _build.ptr(x_f32), _build.ptr(x_base_bf16),
+      _build.ptr(x_f32), _build.ptr(x_base_bf16), _build.ptr(lengths), wps,
       _build.stream_ptr(rows.device)), 'embed_condense')
 
 
-def banded_attention(qkv: torch.Tensor, out: torch.Tensor, *, batch: int,
-                     length: int, num_heads: int, win: int) -> None:
-  """o = banded softmax(q k^T) v per head (csrc/banded_attention.cu);
-  qkv [B*L, 3H] f32 with q pre-scaled, out [B*L, H] f32."""
+def attention(qkv: torch.Tensor, out: torch.Tensor, *, batch: int,
+              length: int, num_heads: int, win: int,
+              lengths: Optional[torch.Tensor] = None) -> None:
+  """o = banded softmax(q k^T) v per head (csrc/ragged_attention.cu);
+  qkv [B*L, 3H] f32 with q pre-scaled, out [B*L, H] f32. With lengths
+  [B, wps] int32 each query attends only inside its own window, and
+  positions past the slot's windows get o = 0."""
   _check(qkv, 'qkv', (torch.float32,))
   _check(out, 'out', (torch.float32,))
+  wps = _check_lengths(lengths, batch)
   m, h3 = qkv.shape
   hidden = h3 // 3
   if (m != batch * length or h3 != 3 * hidden
       or tuple(out.shape) != (m, hidden) or hidden % num_heads):
     raise ValueError(f'attention shapes qkv {tuple(qkv.shape)} out '
                      f'{tuple(out.shape)} for B={batch} L={length}')
-  if batch > 65535:
-    raise ValueError(f'batch {batch} exceeds the grid limit 65535')
-  lib = _build.load('banded_attention')
-  _build.check(lib.dc_banded_attention(
-      _build.ptr(qkv), _build.ptr(out), batch, length, hidden, num_heads,
-      int(win), _build.stream_ptr(qkv.device)), 'banded_attention')
+  lib = _build.load('ragged_attention')
+  _build.check(lib.dc_attention(
+      _build.ptr(qkv), _build.ptr(lengths), wps, _build.ptr(out), batch,
+      length, hidden, num_heads, int(win), _build.stream_ptr(qkv.device)),
+      'attention')
+
+
+def attention_smem_bytes(length: int, hidden: int, num_heads: int,
+                         win: int) -> int:
+  """Dynamic shared memory one block of the attention core asks for."""
+  return int(_build.load('ragged_attention').dc_attention_smem_bytes(
+      length, hidden, num_heads, int(win)))

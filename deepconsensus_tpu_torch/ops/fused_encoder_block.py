@@ -16,8 +16,12 @@ the [tokens, filter] ReLU intermediate never leaves VMEM; here it makes
 one round trip through device memory (PERF.md). On a CPU tensor the
 wrapper runs `fused_encoder_stack_plain`, the reference's arithmetic.
 
-Not ported yet (ROADMAP): the int8 weight variant and the ragged
-`lengths` mask variant; asking for either raises NotImplementedError.
+Ragged slots (`lengths` [B, wps], ops/ragged_window_attention.py): every
+block with attention masks with the lengths-derived window (band AND
+same window AND valid); on the card the attention core reads the
+lengths row itself. The FFN half is position-wise and unchanged.
+
+Not ported yet (ROADMAP): the int8 weight variant.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 
 from deepconsensus_tpu_torch.ops import _kernels
 from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
+from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
 
 # Launches of the CUDA path (one per encoder block on CUDA tensors).
 n_launches = 0
@@ -56,14 +61,17 @@ def _alpha(a, device) -> torch.Tensor:
 
 def encoder_block_plain(x: torch.Tensor, block: EncoderBlockWeights, *,
                         num_heads: int, attn_win_size: Optional[int],
-                        compute_dtype: torch.dtype) -> torch.Tensor:
-  """Plain PyTorch K2 block (any device)."""
+                        compute_dtype: torch.dtype,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+  """Plain PyTorch K2 block (any device); mask [B, L, L] (ragged slots)
+  replaces the static band."""
   dt = compute_dtype
   x = x.to(dt).float()
   if block.wq is not None:
     y = fwa.attention_plain(
         x, block.wq.to(dt), block.wk.to(dt), block.wv.to(dt),
-        block.wo.to(dt), num_heads=num_heads, attn_win_size=attn_win_size)
+        block.wo.to(dt), num_heads=num_heads, attn_win_size=attn_win_size,
+        mask=mask)
     x = x + _alpha(block.attn_alpha, x.device) * y
   h = x @ block.w_filter.to(dt).float() + block.b_filter.float()
   h = torch.relu(h)
@@ -73,19 +81,26 @@ def encoder_block_plain(x: torch.Tensor, block: EncoderBlockWeights, *,
 
 def fused_encoder_stack_plain(x, blocks, *, num_heads, attn_win_size,
                               softmax_dtype=torch.float32,
-                              compute_dtype=torch.float32) -> torch.Tensor:
+                              compute_dtype=torch.float32,
+                              lengths=None) -> torch.Tensor:
   """Plain PyTorch K2 over a stack of blocks (any device)."""
   fwa.check_softmax_dtype(softmax_dtype)
   dt = fwa.resolve_dtype(compute_dtype)
+  mask = None
+  if lengths is not None:
+    mask = rwa.ragged_attention_mask(lengths.to(x.device), x.shape[1],
+                                     attn_win_size)
   for block in blocks:
     x = encoder_block_plain(x, block, num_heads=num_heads,
-                            attn_win_size=attn_win_size, compute_dtype=dt)
+                            attn_win_size=attn_win_size, compute_dtype=dt,
+                            mask=mask)
   return x.to(dt)
 
 
 def _block_cuda(x: torch.Tensor, block: EncoderBlockWeights, *,
                 num_heads: int, attn_win_size: Optional[int],
-                dt: torch.dtype) -> torch.Tensor:
+                dt: torch.dtype,
+                lengths: Optional[torch.Tensor]) -> torch.Tensor:
   b, length, hidden = x.shape
   dev = x.device
   x2 = x.view(b * length, hidden)
@@ -96,7 +111,8 @@ def _block_cuda(x: torch.Tensor, block: EncoderBlockWeights, *,
     fwa.project_attend(
         x2, block.wq, block.wk, block.wv, block.wo, ffn_in, batch=b,
         length=length, num_heads=num_heads, attn_win_size=attn_win_size,
-        compute_dtype=dt, res=x2, alpha=_alpha(block.attn_alpha, dev))
+        compute_dtype=dt, res=x2, alpha=_alpha(block.attn_alpha, dev),
+        lengths=lengths)
   filt = block.w_filter.to(dt).contiguous()
   h = torch.empty((b * length, filt.shape[1]), dtype=torch.float32,
                   device=dev)
@@ -121,27 +137,30 @@ def fused_encoder_stack(
     lengths: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
   """Runs encoder blocks over a [B, L, H] batch; returns [B, L, H] in
-  the compute dtype. A CPU tensor runs the plain version; a CUDA tensor
-  launches the kernels, counting one launch per block."""
+  the compute dtype. lengths: [B, wps] window widths of ragged slots,
+  or None. A CPU tensor runs the plain version; a CUDA tensor launches
+  the kernels, counting one launch per block."""
   global n_launches
   fwa.check_softmax_dtype(softmax_dtype)
-  if lengths is not None:
-    raise NotImplementedError(
-        'ragged slots (lengths) are not ported yet (ROADMAP: buckets and '
-        'ragged slots)')
   dt = fwa.resolve_dtype(compute_dtype)
   hidden = x.shape[-1]
   if hidden % num_heads:
     raise ValueError('hidden size must divide num_heads')
+  if lengths is not None and (lengths.dim() != 2
+                              or lengths.shape[0] != x.shape[0]):
+    raise ValueError(f'lengths shape {tuple(lengths.shape)}, want '
+                     f'({x.shape[0]}, windows per slot)')
   if x.device.type == 'cpu':
     return fused_encoder_stack_plain(
         x, blocks, num_heads=num_heads, attn_win_size=attn_win_size,
-        compute_dtype=dt)
+        compute_dtype=dt, lengths=lengths)
   if x.device.type != 'cuda':
     raise ValueError(f'unsupported device {x.device}')
   x = x.to(dt).contiguous()
+  if lengths is not None:
+    lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
   for block in blocks:
     x = _block_cuda(x, block, num_heads=num_heads,
-                    attn_win_size=attn_win_size, dt=dt)
+                    attn_win_size=attn_win_size, dt=dt, lengths=lengths)
     n_launches += 1
   return x

@@ -10,12 +10,14 @@ On a CUDA tensor the wrapper launches the repository's kernels, four
 in order: the embedding-gather condenser GEMM (csrc/embed_condense.cu,
 which also adds pos and writes x in float32 and the compute dtype), the
 fused q/k/v projection with the q scale in its epilogue (csrc/gemm.cu),
-the banded attention core (csrc/banded_attention.cu) and the output
-projection (csrc/gemm.cu). Every intermediate is float32, as inside the
-TPU kernel; the tables' sqrt(width) scale is folded in at the compute
-dtype, as there. On a CPU tensor it runs `fused_embed_condense_attention_plain`,
-which mirrors the reference's arithmetic with a gather in place of the
-one-hot product (the same values).
+the banded attention core (csrc/ragged_attention.cu) and the output
+projection (csrc/gemm.cu). K4 (ops/ragged_window_attention.py) runs the
+same four with a lengths vector (`embed_condense_attend`). Every
+intermediate is float32, as inside the TPU kernel; the tables'
+sqrt(width) scale is folded in at the compute dtype, as there. On a CPU
+tensor it runs `fused_embed_condense_attention_plain`, which mirrors
+the reference's arithmetic with a gather in place of the one-hot
+product (the same values).
 """
 from __future__ import annotations
 
@@ -146,10 +148,12 @@ def scaled_tables(tables: Dict[str, torch.Tensor],
 
 
 def attention_plain(x: torch.Tensor, wq, wk, wv, wo, *, num_heads: int,
-                    attn_win_size: Optional[int]) -> torch.Tensor:
+                    attn_win_size: Optional[int],
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
   """Banded MHA on [B, L, H] float32 as the reference computes it: full
   [L, L] scores per head, out-of-band logits -1e9, float32 softmax.
-  Weights are upcast to float32. Shared by the K1 and K2 plain paths."""
+  mask ([B, L, L] bool, ragged slots) replaces the static band. Weights
+  are upcast to float32. Shared by the K1, K2 and K4 plain paths."""
   b, length, hidden = x.shape
   head_dim = hidden // num_heads
   x2 = x.reshape(b * length, hidden)
@@ -161,13 +165,32 @@ def attention_plain(x: torch.Tensor, wq, wk, wv, wo, *, num_heads: int,
   k = proj(wk)
   v = proj(wv)
   s = torch.einsum('blnd,bmnd->bnlm', q, k)
-  if attn_win_size is not None:
+  if mask is None and attn_win_size is not None:
     i = torch.arange(length, device=x.device)
-    band = (i[:, None] - i[None, :]).abs() <= attn_win_size
-    s = torch.where(band, s, torch.full((), _NEG, device=x.device))
+    mask = (i[:, None] - i[None, :]).abs() <= attn_win_size
+  if mask is not None:
+    if mask.dim() == 3:
+      mask = mask[:, None]
+    s = torch.where(mask, s, torch.full((), _NEG, device=x.device))
   w = torch.softmax(s, dim=-1)
   o = torch.einsum('bnlm,bmnd->blnd', w, v).reshape(b * length, hidden)
   return (o @ wo.float()).reshape(b, length, hidden)
+
+
+def embed_condense_plain(rows, tables, w_cond, *, specs, table_keys,
+                         compute_dtype) -> torch.Tensor:
+  """[B, R, L] rows -> float32 [B, L, H]: gather embedding (id 0 masked,
+  tables scaled at the compute dtype) and the condenser, no pos."""
+  b, _, length = rows.shape
+  ids = prepare_ids(rows, specs).long()
+  tabs = [t.float() for t in scaled_tables(
+      tables, specs, table_keys, compute_dtype)]
+  blocks = []
+  for spec in specs:
+    seg = ids[:, spec.row_start:spec.row_start + spec.n_rows]  # [B, r, L]
+    emb = tabs[spec.table_idx][seg] * (seg > 0)[..., None]  # [B, r, L, W]
+    blocks.append(emb.permute(0, 2, 1, 3).reshape(b, length, -1))
+  return torch.cat(blocks, dim=-1) @ w_cond.to(compute_dtype).float()
 
 
 def fused_embed_condense_attention_plain(
@@ -179,16 +202,8 @@ def fused_embed_condense_attention_plain(
   layer-0 attention, all in float32 from compute-dtype inputs."""
   check_softmax_dtype(softmax_dtype)
   dt = resolve_dtype(compute_dtype)
-  b, _, length = rows.shape
-  hidden = w_cond.shape[1]
-  ids = prepare_ids(rows, specs).long()
-  tabs = [t.float() for t in scaled_tables(tables, specs, table_keys, dt)]
-  blocks = []
-  for spec in specs:
-    seg = ids[:, spec.row_start:spec.row_start + spec.n_rows]  # [B, r, L]
-    emb = tabs[spec.table_idx][seg] * (seg > 0)[..., None]  # [B, r, L, W]
-    blocks.append(emb.permute(0, 2, 1, 3).reshape(b, length, -1))
-  x = torch.cat(blocks, dim=-1) @ w_cond.to(dt).float()
+  x = embed_condense_plain(rows, tables, w_cond, specs=specs,
+                           table_keys=table_keys, compute_dtype=dt)
   if pos is not None:
     x = x + pos.to(dt).float()[None]
   out = attention_plain(
@@ -249,8 +264,9 @@ def fused_embed_condense_attention(
     raise ValueError('hidden size must divide num_heads')
   if length > MAX_WINDOW_LEN:
     raise NotImplementedError(
-        f'window length {length} > {MAX_WINDOW_LEN}: long windows are '
-        'not ported yet (ROADMAP: buckets and ragged slots)')
+        f'window length {length} > {MAX_WINDOW_LEN}: wider windows run '
+        'in ragged slots (ops/ragged_window_attention.py, '
+        '--use_ragged_kernel)')
   if rows.device.type == 'cpu':
     return fused_embed_condense_attention_plain(
         rows, tables, w_cond, wq, wk, wv, wo, pos, specs=specs,
@@ -258,6 +274,25 @@ def fused_embed_condense_attention(
         attn_win_size=attn_win_size, compute_dtype=dt)
   if rows.device.type != 'cuda':
     raise ValueError(f'unsupported device {rows.device}')
+  out = embed_condense_attend(
+      rows, tables, w_cond, wq, wk, wv, wo, pos, specs=specs,
+      table_keys=table_keys, num_heads=num_heads,
+      attn_win_size=attn_win_size, compute_dtype=dt)
+  n_launches += 1
+  return out
+
+
+def embed_condense_attend(
+    rows, tables, w_cond, wq, wk, wv, wo, pos, *, specs, table_keys,
+    num_heads, attn_win_size, compute_dtype: torch.dtype,
+    lengths: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+  """The CUDA body of K1 (lengths None) and K4 (lengths [B, wps] int32
+  on the card: ragged slots, from which the kernels derive each
+  position's window themselves)."""
+  b, _, length = rows.shape
+  hidden = w_cond.shape[1]
+  dt = compute_dtype
   dev = rows.device
   tabs = scaled_tables(tables, specs, table_keys, dt)
   meta = _column_meta(specs, tuple(int(t.numel()) for t in tabs), dev)
@@ -268,13 +303,12 @@ def fused_embed_condense_attention(
   x_base = x if dt == torch.float32 else torch.empty_like(x, dtype=dt)
   _kernels.embed_condense(
       rows32, meta, flat_tables, w_cond.to(dt).contiguous(), pos_t, x,
-      None if dt == torch.float32 else x_base)
+      None if dt == torch.float32 else x_base, lengths=lengths)
   attn_out = torch.empty((b, length, hidden), dtype=dt, device=dev)
   project_attend(x.view(b * length, hidden), wq, wk, wv, wo,
                  attn_out.view(b * length, hidden), batch=b, length=length,
                  num_heads=num_heads, attn_win_size=attn_win_size,
-                 compute_dtype=dt)
-  n_launches += 1
+                 compute_dtype=dt, lengths=lengths)
   return x_base, attn_out
 
 
@@ -282,11 +316,14 @@ def project_attend(x2: torch.Tensor, wq, wk, wv, wo, out: torch.Tensor, *,
                    batch: int, length: int, num_heads: int,
                    attn_win_size: Optional[int], compute_dtype: torch.dtype,
                    res: Optional[torch.Tensor] = None,
-                   alpha: Optional[torch.Tensor] = None) -> None:
+                   alpha: Optional[torch.Tensor] = None,
+                   lengths: Optional[torch.Tensor] = None) -> None:
   """CUDA banded MHA on token rows x2 [B*L, H] into out [B*L, H]: the
-  fused q/k/v GEMM (q scaled in its epilogue), the banded attention
-  core, and the output GEMM, whose epilogue optionally adds the ReZero
-  residual res + alpha * y. Shared by K1 and K2."""
+  fused q/k/v GEMM (q scaled in its epilogue), the attention core
+  (csrc/ragged_attention.cu; with lengths, each query attends only
+  inside its own ragged window), and the output GEMM, whose epilogue
+  optionally adds the ReZero residual res + alpha * y. Shared by K1, K2
+  and K4."""
   hidden = x2.shape[1]
   head_dim = hidden // num_heads
   wqkv = torch.cat([wq, wk, wv], dim=1).to(compute_dtype).contiguous()
@@ -296,7 +333,7 @@ def project_attend(x2: torch.Tensor, wq, wk, wv, wo, out: torch.Tensor, *,
   o = torch.empty((x2.shape[0], hidden), dtype=torch.float32,
                   device=x2.device)
   win = length - 1 if attn_win_size is None else int(attn_win_size)
-  _kernels.banded_attention(qkv, o, batch=batch, length=length,
-                            num_heads=num_heads, win=win)
+  _kernels.attention(qkv, o, batch=batch, length=length,
+                     num_heads=num_heads, win=win, lengths=lengths)
   _kernels.gemm(o, wo.to(compute_dtype).contiguous(), out, res=res,
                 alpha=alpha)

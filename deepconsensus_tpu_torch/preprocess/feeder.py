@@ -30,10 +30,13 @@ def create_proc_feeder(
     ccs_bam: str,
     layout: FeatureLayout,
     ins_trim: int = 0,
+    use_ccs_smart_windows: bool = False,
     limit: int = 0,
 ):
   """Returns (generator_fn, counter) yielding per-ZMW inference work
-  items. Fail-fast: a decode or expansion failure raises."""
+  items. Fail-fast: a decode or expansion failure raises.
+  use_ccs_smart_windows takes each ZMW's window widths from its CCS
+  record's `wl` tag (widths in unspaced CCS bases)."""
   main_counter: Counter = Counter()
   grouper = bam.SubreadGrouper(subreads_to_ccs)
   ccs_reader = bam.BamReader(ccs_bam)
@@ -55,9 +58,12 @@ def create_proc_feeder(
           for rec in read_set
       ]
       subreads.append(construct_ccs_read(ccs_record))
+      window_widths = None
+      if use_ccs_smart_windows:
+        window_widths = np.asarray(ccs_record.get_tag('wl'))
       main_counter['n_zmw_inference'] += 1
       main_counter['n_zmw_pass'] += 1
-      yield (subreads, ccs_seqname, layout, 'inference', None)
+      yield (subreads, ccs_seqname, layout, 'inference', window_widths)
       if limit and main_counter['n_zmw_pass'] >= limit:
         break
 

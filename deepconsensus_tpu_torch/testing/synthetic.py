@@ -16,6 +16,24 @@ import numpy as np
 from deepconsensus_tpu_torch.io.bam_writer import BamWriter
 
 _BASES = np.frombuffer(b'ACGT', dtype=np.uint8)
+# Range of the seeded `wl` window widths (smart_windows=True): windows
+# above 100 land in the 200 bucket, the rest in the 100 bucket.
+SMART_WINDOW_RANGE = (60, 200)
+
+
+def smart_window_widths(rng: np.random.RandomState, seq_len: int
+                        ) -> np.ndarray:
+  """Seeded window widths in SMART_WINDOW_RANGE that sum to seq_len
+  (the last one takes the remainder)."""
+  lo, hi = SMART_WINDOW_RANGE
+  widths = []
+  left = seq_len
+  while left > hi:
+    widths.append(rng.randint(lo, hi + 1))
+    left -= widths[-1]
+  if left:
+    widths.append(left)
+  return np.asarray(widths, dtype=np.int32)
 
 
 def write_synthetic_zmw_bams(
@@ -27,6 +45,7 @@ def write_synthetic_zmw_bams(
     seed: int = 7,
     base_qual: int = 30,
     plain_names: bool = False,
+    smart_windows: bool = False,
 ) -> Tuple[str, str]:
   """Writes (subreads_to_ccs.bam, ccs.bam) for n_zmws molecules.
 
@@ -35,6 +54,9 @@ def write_synthetic_zmw_bams(
   own BGZF block so truncate() faults mid-file. The ccs BAM carries
   quals=base_qual and ec/np/rq/RG tags. plain_names drops the PacBio
   movie/zmw/ccs structure (exercises the defensive zm-tag parse).
+  smart_windows adds a `wl` tag of seeded window widths
+  (`smart_window_widths`) to each CCS record; without it the bytes are
+  those of the reference's writer.
   """
   rng = np.random.RandomState(seed)
   os.makedirs(out_dir, exist_ok=True)
@@ -83,15 +105,17 @@ def write_synthetic_zmw_bams(
       '@RG\tID:rg1\tPL:PACBIO\tSM:synthetic\n',
   )
   for name, seq in zip(ccs_names, seqs):
+    tags = {
+        'ec': float(n_subreads),
+        'np': int(n_subreads),
+        'rq': 0.99,
+        'RG': 'rg1',
+    }
+    if smart_windows:
+      tags['wl'] = smart_window_widths(rng, seq_len)
     ccs_writer.write(
         name, seq, np.full(seq_len, base_qual, dtype=np.uint8),
-        tags={
-            'ec': float(n_subreads),
-            'np': int(n_subreads),
-            'rq': 0.99,
-            'RG': 'rg1',
-        },
-        flag=4,
+        tags=tags, flag=4,
     )
     ccs_writer.flush()
   ccs_writer.close()

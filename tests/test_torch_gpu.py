@@ -17,6 +17,7 @@ from deepconsensus_tpu_torch.models import model as model_lib
 from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
 from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
 from deepconsensus_tpu_torch.ops import output_plane
+from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
 from deepconsensus_tpu_torch.testing import synthetic
 
 pytestmark = pytest.mark.gpu
@@ -31,10 +32,11 @@ def cuda():
   return torch.device('cuda')
 
 
-def small_params(dtype='float32', length=100):
+def small_params(dtype='float32', length=100, **overrides):
   params = config.get_config('transformer_learn_values+test')
   config.finalize_params(params, max_length=length)
-  params.update(dtype=dtype, num_hidden_layers=2, filter_size=64)
+  params.update(dtype=dtype, num_hidden_layers=2, filter_size=64,
+                **overrides)
   return params
 
 
@@ -44,10 +46,11 @@ def seeded_model(params, device):
   return model
 
 
-def fake_rows(params, batch, seed=0):
+def fake_rows(params, batch, seed=0, length=None):
   rng = np.random.default_rng(seed)
   mp = params.max_passes
-  rows = np.zeros((batch, params.total_rows, params.max_length), np.float32)
+  rows = np.zeros((batch, params.total_rows, length or params.max_length),
+                  np.float32)
   rows[:, :mp] = rng.integers(0, 5, rows[:, :mp].shape)
   rows[:, mp:3 * mp] = rng.integers(0, 256, rows[:, mp:3 * mp].shape)
   rows[:, 3 * mp:4 * mp] = rng.integers(0, 3, rows[:, :mp].shape)
@@ -69,6 +72,64 @@ def test_kernels_match_plain(cuda, dtype, length):
   assert feb.n_launches == counts[1] + params.num_hidden_layers
   torch.testing.assert_close(kernel, plain, rtol=TOL[dtype],
                              atol=TOL[dtype])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_ragged_kernels_match_plain(cuda, dtype):
+  """K4 and K2 with lengths (one launch each per layer) against their
+  plain versions on valid positions, over every slot composition: one
+  200, two 100s, a lone 100 (partial) and an empty slot."""
+  params = small_params(str(dtype).replace('torch.', ''),
+                        window_buckets=[100, 200])
+  model = seeded_model(params, cuda)
+  widths = [[200, 0], [100, 100], [100, 0], [0, 0]] * 9 + [[100, 100]]
+  lengths = torch.tensor(widths, dtype=torch.int32, device=cuda)
+  rows = fake_rows(params, len(widths), length=200).to(cuda)
+  valid = rwa.slot_geometry(lengths, 200)[3]
+  rows = rows * valid[:, None, :]  # pad positions hold zeros
+  counts = (rwa.n_launches, feb.n_launches)
+  kernel = model.encode(rows, window_lengths=lengths)
+  plain = model.encode(rows, plain=True, window_lengths=lengths)
+  assert rwa.n_launches == counts[0] + 1
+  assert feb.n_launches == counts[1] + params.num_hidden_layers
+  assert torch.isfinite(kernel).all()
+  torch.testing.assert_close(kernel[valid], plain[valid], rtol=TOL[dtype],
+                             atol=TOL[dtype])
+
+
+def test_ragged_cuda_run_matches_cpu_run(cuda, tmp_path):
+  bams = synthetic.write_synthetic_zmw_bams(
+      str(tmp_path), n_zmws=4, n_subreads=4, seq_len=600, smart_windows=True)
+  params = small_params()
+  state = seeded_model(params, 'cpu').state_dict()
+  outs = []
+  for device in ('cpu', cuda):
+    opts = runner.InferenceOptions(
+        batch_size=8, min_quality=0, skip_windows_above=0,
+        use_ccs_smart_windows=True, window_buckets=(100, 200),
+        use_ragged_kernel=True)
+    path = str(tmp_path / f'{torch.device(device).type}.fastq')
+    counters = runner.run_inference(
+        bams[0], bams[1], path,
+        runner.ModelRunner(params, state, opts, device=device))
+    assert min(counters['n_windows_by_bucket'].values()) > 0
+    with open(path, 'rb') as f:
+      lines = f.read().split(b'\n')
+    outs.append([lines[i:i + 4] for i in range(0, len(lines) - 1, 4)])
+  assert len(outs[0]) == len(outs[1]) == 4
+  for (cn, cs, _, cq), (gn, gs, _, gq) in zip(*outs):
+    assert (cn, cs) == (gn, gs)
+    assert np.abs(np.frombuffer(cq, np.uint8).astype(int)
+                  - np.frombuffer(gq, np.uint8).astype(int)).max() <= 1
+
+
+def test_attention_core_fits_slot_200(cuda):
+  """The tiled core's shared memory at S = 200 and S = 256 (band 12)
+  stays far under the 227 KB block limit."""
+  from deepconsensus_tpu_torch.ops import _kernels
+
+  for length in (100, 200, 256):
+    assert _kernels.attention_smem_bytes(length, 280, 2, 12) < 100_000
 
 
 def test_phred_epilogue_exact(cuda):

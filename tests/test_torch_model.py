@@ -17,6 +17,7 @@ import torch
 
 from deepconsensus_tpu.models import config as jax_config
 from deepconsensus_tpu.models import model as jax_model
+from deepconsensus_tpu_torch.inference import runner as runner_lib
 from deepconsensus_tpu_torch.models import config as torch_config
 from deepconsensus_tpu_torch.models import model as torch_model
 from deepconsensus_tpu_torch.models import weights as weights_lib
@@ -152,12 +153,17 @@ def test_seeded_init_is_reproducible_with_nonzero_alphas():
 
 
 def test_unported_configs_raise():
+  """int8, several buckets without ragged slots (the per-bucket path)
+  and a non-float32 softmax stay unported."""
   with pytest.raises(NotImplementedError, match='int8'):
     torch_model.DeepConsensusModel(
         torch_params(20, quantize_matmuls='int8'), device='cpu')
+  with pytest.raises(NotImplementedError, match='use_ragged_kernel'):
+    runner_lib.ModelRunner(torch_params(20, window_buckets='20,40'), {},
+                           runner_lib.InferenceOptions(), device='cpu')
   with pytest.raises(NotImplementedError, match='buckets'):
     torch_model.DeepConsensusModel(
-        torch_params(20, window_buckets='20,40'), device='cpu')
+        torch_params(20, window_buckets='20,30'), device='cpu')
   with pytest.raises(NotImplementedError, match='float32'):
     torch_model.DeepConsensusModel(
         torch_params(20, attn_softmax_dtype='bfloat16'), device='cpu')

@@ -24,6 +24,7 @@ from deepconsensus_tpu_torch.models import config as torch_config
 from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
 from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
 from deepconsensus_tpu_torch.ops import output_plane
+from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
 
 HIDDEN, HEADS, BAND, FILTER = 280, 2, 12, 64
 
@@ -177,13 +178,26 @@ def test_cpu_tensor_runs_plain_version_without_launch():
 
 
 def test_unported_variants_raise():
+  """A non-float32 softmax stays unported on every kernel, the ragged
+  K4 included; K2's lengths variant is ported and takes [B, wps]
+  lengths only."""
   x = torch.zeros(1, 20, HIDDEN)
   block = feb.EncoderBlockWeights(*[
       None if a is None else torch.from_numpy(np.asarray(a))
       for a in random_block(np.random.default_rng(6), False)])
-  with pytest.raises(NotImplementedError, match='ragged'):
+  with pytest.raises(ValueError, match='lengths'):
     feb.fused_encoder_stack(x, [block], num_heads=HEADS, attn_win_size=BAND,
-                            lengths=torch.ones(1, 1))
+                            lengths=torch.ones(1))
   with pytest.raises(NotImplementedError, match='float32'):
     feb.fused_encoder_stack(x, [block], num_heads=HEADS, attn_win_size=BAND,
                             softmax_dtype='bfloat16')
+  params = jax_params(False, 20)
+  rows, tables, weights, pos, specs, keys = k1_inputs(
+      params, np.random.default_rng(7), 1)
+  with pytest.raises(NotImplementedError, match='float32'):
+    rwa.ragged_embed_condense_attention(
+        torch.from_numpy(rows), torch.full((1, 1), 20),
+        {k: torch.from_numpy(v) for k, v in tables.items()},
+        *map(torch.from_numpy, weights), torch.from_numpy(pos), specs=specs,
+        table_keys=keys, num_heads=HEADS, attn_win_size=BAND,
+        softmax_dtype='bfloat16')
