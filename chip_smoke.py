@@ -17,24 +17,42 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    1024 windows x 100 positions; K4 ragged embed-condense-attention and
    one K2 block with lengths at 512 slots x 200 positions holding every
    slot composition (one 200, two 100s, a lone 100, empty), compared on
-   valid positions only.
+   valid positions only; K11 (the alignment DP's forward, with and
+   without its rows) and K12 (its backward) at 256 x 100 x 100 float32
+   costs, loss_reg 0.1, mixed lengths: scores rtol 1e-5 (atol 1e-4),
+   gradients rtol 1e-4, atol 1e-5, plus each kernel's time at one batch
+   row (the serial chain of 199 diagonals alone).
 3. The paths, each with every kernel's launch count reset just before
-   its run and read just after, through the port's `cli run` in
-   bfloat16 and float32, then float32 again through the plain versions
-   on the card; full-width seeded weights with non-zero ReZero alphas:
-   a. L = 100: synthetic BAMs of 128 ZMWs x 2,000 bp x 10 subreads;
-   b. ragged slots: the same with seeded `wl` window widths (60-200),
-      --use_ccs_smart_windows --window_buckets 100,200
-      --use_ragged_kernel.
-   Gates: each path's kernels launched (a: K1-K3, b: K4, K2, K3), one
+   its run and read just after, in bfloat16 and float32, then float32
+   again through the plain versions on the card; full-width seeded
+   weights:
+   a. L = 100 `cli run`: synthetic BAMs of 128 ZMWs x 2,000 bp x 10
+      subreads, non-zero ReZero alphas;
+   b. ragged slots `cli run`: the same with seeded `wl` window widths
+      (60-200), --use_ccs_smart_windows --window_buckets 100,200
+      --use_ragged_kernel;
+   c. `cli train` (transformer_learn_values+custom, batch 256): synthetic
+      TFRecord shards of 1,024 training and 256 eval examples, one
+      epoch of 4 steps and the final eval; the plain run takes the
+      plain DP.
+   Gates: each path's kernels launched (a: K1-K3, b: K4, K2, K3, c: K11
+   once per step and eval batch, K12 once per step), and for a and b one
    read per ZMW, float32 kernels vs plain base ids differ at <= 1e-4 of
    the delivered positions and qualities by <= 1, bfloat16 vs float32
    ids agree on >= 99% of them and qualities within BF16_QV_GATE where
    they agree; for b also each bucket >= 20% of model windows, slots
    holding one 200 and two 100s both occur, and the last pack is
-   partial.
-4. A `{"kernels": [...]}` line (K1-K4), the card line again, and the
-   last line `{"ok": true, "device": {...}}`.
+   partial; for c every loss and gradient norm finite, the float32
+   kernel run's loss within 1e-4 relative of the plain run's at every
+   step, and bfloat16's first loss within 2% of float32's.
+4. Where a full-width train step's time goes, in bfloat16 and float32:
+   forward, loss (costs and K11), backward (K12 and autograd) and LAMB
+   timed apart (synchronized, median of 5 steps after 2), and one step
+   under torch.profiler: the device's busy time (its kernels' time
+   summed), the idle share of the unprofiled step, and the kernels that
+   take most of it.
+5. A `{"kernels": [...]}` line (K1-K4, K11, K12), the card line again,
+   and the last line `{"ok": true, "device": {...}}`.
 
 `--kernels-only` stops after phase 2 and prints no result (a first
 check of newly written kernels). Without a CUDA device, or away from the repository, it exits 2 and
@@ -43,7 +61,10 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -55,6 +76,15 @@ BATCH, LENGTH = 1024, 100
 SLOTS, SLOT_LEN = 512, 200
 BUCKETS = (100, 200)
 N_ZMWS, SEQ_LEN, N_SUBREADS = 128, 2000, 10
+TRAIN_CONFIG = 'transformer_learn_values+custom'
+TRAIN_BATCH, TRAIN_EXAMPLES, EVAL_EXAMPLES = 256, 1024, 256
+DEL_COST, LOSS_REG = 10.0, 0.1
+# float32 operations per DP cell: forward, the soft minimum of three
+# options (3 adds, 3 scalings, 2 max, 3 subtractions, 3 exp, 2 adds, a
+# log, an add and a multiply); backward, the same recomputed plus 3
+# divisions and 3 multiplications for the weights and 3 adds of the
+# adjoint.
+FWD_OPS_PER_CELL, BWD_OPS_PER_CELL = 19, 28
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 on the CUDA cores,
 # bfloat16 on the tensor cores, and device memory bandwidth.
 PEAK_FLOPS = {'float32': 67e12, 'bfloat16': 989e12}
@@ -91,13 +121,14 @@ def bound(flops: float, nbytes: float, dtype: str):
   return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
 
 
-def max_err(a, b, tol: float) -> float:
-  """Max |a - b|; raises unless allclose(a, b, rtol=atol=tol)."""
+def max_err(a, b, tol: float, atol=None) -> float:
+  """Max |a - b|; raises unless allclose(a, b, rtol=tol, atol=atol),
+  atol defaulting to tol."""
   import torch
 
   a, b = a.float(), b.float()
   err = float((a - b).abs().max())
-  if not torch.allclose(a, b, rtol=tol, atol=tol):
+  if not torch.allclose(a, b, rtol=tol, atol=tol if atol is None else atol):
     raise AssertionError(f'kernel disagrees with plain: max |err| {err}')
   return err
 
@@ -398,17 +429,108 @@ def check_ragged_kernels(dtype: str, device: str = 'cuda') -> dict:
   return out
 
 
+def check_wavefront_kernels(device: str = 'cuda') -> dict:
+  """Phase 2 for the alignment DP (float32 costs in both compute
+  dtypes): K11 without and with rows, K12 on those rows, vs the plain
+  DP and its autograd."""
+  import numpy as np
+  import torch
+
+  from deepconsensus_tpu_torch.ops import wavefront
+  from deepconsensus_tpu_torch.ops import wavefront_cuda
+
+  dev = torch.device(device)
+  rng = np.random.default_rng(SEED + 2)
+  b, m, n = TRAIN_BATCH, LENGTH, LENGTH
+  lens = rng.integers(m // 2, m + 1, b).astype(np.int32)
+  lens[:2] = (0, m)
+  subs = torch.from_numpy(rng.uniform(0, 8, (b, m, n)).astype(np.float32))
+  ins = torch.from_numpy(rng.uniform(0, 8, (b, n)).astype(np.float32))
+  subs, ins, lens = subs.to(dev), ins.to(dev), torch.from_numpy(lens).to(dev)
+  grad = torch.from_numpy(rng.uniform(0.5, 2, b).astype(np.float32)).to(dev)
+  dp = (DEL_COST, lens, LOSS_REG)
+
+  def k11(s=subs, i=ins, lengths=lens):
+    return wavefront_cuda.alignment_scores_with_rows(s, i, DEL_COST,
+                                                     lengths, LOSS_REG)
+
+  want = wavefront.alignment_scan(subs, ins, *dp)
+  no_rows = wavefront_cuda.alignment_scores(subs, ins, *dp)
+  scores, rows = k11()
+  s_req, i_req = subs.clone().requires_grad_(True), ins.clone().requires_grad_(
+      True)
+  plain_value = wavefront.alignment_scan(s_req, i_req, *dp)
+
+  def k12(s=subs, i=ins, lengths=lens, r=rows, g=grad):
+    return wavefront_cuda.launch_bwd(s, i, lengths, r, g, DEL_COST, LOSS_REG)
+
+  def k12_plain():
+    return torch.autograd.grad(plain_value, (s_req, i_req), grad,
+                               retain_graph=True)
+
+  d_subs, d_ins = k12()
+  want_ds, want_di = k12_plain()
+  torch.cuda.synchronize()
+  err11 = max(max_err(no_rows, want, 1e-5, 1e-4),
+              max_err(scores, want, 1e-5, 1e-4))
+  err12 = max(max_err(d_subs, want_ds, 1e-4, 1e-5),
+              max_err(d_ins, want_di, 1e-4, 1e-5))
+  # Bytes: each input read once, each output written once. Operations:
+  # the cells this run's lengths need, (len + 1) x (n + 1) per row.
+  cells = int(((lens.long() + 1) * (n + 1)).sum())
+  in_bytes = (subs.numel() + ins.numel() + lens.numel()) * 4
+  rows_bytes = rows.numel() * 4
+  fwd_bytes = in_bytes + b * 4 + rows_bytes
+  bwd_bytes = in_bytes + rows_bytes + b * 4 + (subs.numel() + ins.numel()) * 4
+  one = (subs[:1], ins[:1], lens[:1])
+  _, rows1 = k11(*one)
+  out = {}
+  t_bound, by = bound(cells * FWD_OPS_PER_CELL, fwd_bytes, 'float32')
+  out['K11'] = dict(
+      max_abs_err=err11, ms=cuda_ms(k11),
+      no_rows_ms=cuda_ms(lambda: wavefront_cuda.alignment_scores(
+          subs, ins, *dp)),
+      plain_ms=cuda_ms(lambda: wavefront.alignment_scan(subs, ins, *dp)),
+      library_ms=None, bound_ms=t_bound, bound_by=by,
+      serial_floor_ms=cuda_ms(lambda: k11(*one)),
+      flops=cells * FWD_OPS_PER_CELL, bytes=fwd_bytes)
+  t_bound, by = bound(cells * BWD_OPS_PER_CELL, bwd_bytes, 'float32')
+  out['K12'] = dict(
+      max_abs_err=err12, ms=cuda_ms(k12), plain_ms=cuda_ms(k12_plain),
+      library_ms=None, bound_ms=t_bound, bound_by=by,
+      serial_floor_ms=cuda_ms(lambda: k12(*one, rows1, grad[:1])),
+      flops=cells * BWD_OPS_PER_CELL, bytes=bwd_bytes)
+  return out
+
+
 def counted_modules():
+  """Kernel name -> (module, launch counter attribute)."""
   from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
   from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
   from deepconsensus_tpu_torch.ops import output_plane
   from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
+  from deepconsensus_tpu_torch.ops import wavefront_cuda
 
-  return {'K1': fwa, 'K2': feb, 'K3': output_plane, 'K4': rwa}
+  return {'K1': (fwa, 'n_launches'), 'K2': (feb, 'n_launches'),
+          'K3': (output_plane, 'n_launches'), 'K4': (rwa, 'n_launches'),
+          'K11': (wavefront_cuda, 'n_fwd_launches'),
+          'K12': (wavefront_cuda, 'n_bwd_launches')}
+
+
+def reset_launches() -> None:
+  for mod, attr in counted_modules().values():
+    setattr(mod, attr, 0)
+
+
+def read_launches() -> dict:
+  return {k: getattr(mod, attr) for k, (mod, attr) in
+          counted_modules().items()}
 
 
 # The kernels each path must launch.
-PATH_KERNELS = {'L100': ('K1', 'K2', 'K3'), 'ragged': ('K4', 'K2', 'K3')}
+PATH_KERNELS = {'L100': ('K1', 'K2', 'K3'), 'ragged': ('K4', 'K2', 'K3'),
+                'train': ('K11', 'K12')}
+RUN_PATHS = ('L100', 'ragged')
 RAGGED_FLAGS = ('--use_ccs_smart_windows', '--window_buckets',
                 ','.join(map(str, BUCKETS)), '--use_ragged_kernel')
 
@@ -452,9 +574,7 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False):
   runner_lib.ModelRunner.predict = recording_predict
   runner_lib.ModelRunner.predict_ragged = recording_predict_ragged
   torch.cuda.reset_peak_memory_stats()
-  modules = counted_modules()
-  for mod in modules.values():
-    mod.n_launches = 0
+  reset_launches()
   t0 = time.perf_counter()
   try:
     if plain:
@@ -478,7 +598,7 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False):
     runner_lib.ModelRunner.predict = predict
     runner_lib.ModelRunner.predict_ragged = predict_ragged
   seconds = time.perf_counter() - t0
-  launches = {k: mod.n_launches for k, mod in modules.items()}
+  launches = read_launches()
   with open(out + '.inference.json') as f:
     counters = json.load(f)
   ids, quals, lengths = [], [], []
@@ -547,6 +667,155 @@ def path_gates(path: str, runs) -> dict:
   return gates
 
 
+def run_train_path(shards, dtype: str, plain: bool = False) -> dict:
+  """One `cli train` epoch over the synthetic shards (plain: the same
+  through run_training with the plain DP); returns the run's launches,
+  per-step losses and gradient norms, eval metrics and summary."""
+  from deepconsensus_tpu_torch import cli
+  from deepconsensus_tpu_torch.models import config as config_lib
+  from deepconsensus_tpu_torch.models import train as train_lib
+
+  out = os.path.join(WORK, f'train_{dtype}{"_plain" if plain else ""}')
+  shutil.rmtree(out, ignore_errors=True)
+  overrides = {'dtype': dtype, 'log_every_n_steps': 1}
+  reset_launches()
+  t0 = time.perf_counter()
+  if plain:
+    params = config_lib.get_config(TRAIN_CONFIG)
+    params.update(overrides)
+    config_lib.finalize_params(params)
+    params.batch_size = TRAIN_BATCH
+    train_lib.run_training(params, out, [shards[0]], [shards[1]],
+                           num_epochs=1, plain=True)
+  elif cli.main([
+      'train', '--config', TRAIN_CONFIG, '--out_dir', out, '--train_path',
+      shards[0], '--eval_path', shards[1], '--num_epochs', '1',
+      '--batch_size', str(TRAIN_BATCH),
+      *(a for k, v in overrides.items() for a in ('--set', f'{k}={v}'))
+  ]) != 0:
+    raise AssertionError(f'cli train failed ({dtype})')
+  seconds = time.perf_counter() - t0
+  launches = read_launches()
+  with open(os.path.join(out, 'metrics.jsonl')) as f:
+    entries = [json.loads(line) for line in f]
+  train = [e for e in entries if e['split'] == 'train']
+  return {
+      'launches': launches, 'seconds': seconds,
+      'losses': [e['loss'] for e in train],
+      'grad_norms': [e['grad_norm'] for e in train],
+      'step_seconds': [e['step_seconds'] for e in train],
+      'eval': [e for e in entries if e['split'] == 'eval'][-1],
+      'summary': [e for e in entries if e['split'] == 'summary'][-1],
+  }
+
+
+def train_gates(runs) -> dict:
+  """The train path's gates; raises on a failed one."""
+  steps = TRAIN_EXAMPLES // TRAIN_BATCH
+  eval_batches = EVAL_EXAMPLES // TRAIN_BATCH
+  f32, plain, bf16 = runs['float32'], runs['float32_plain'], runs['bfloat16']
+  rel = [abs(a - b) / abs(b) for a, b in zip(f32['losses'], plain['losses'])]
+  gates = {
+      'steps': {k: len(r['losses']) for k, r in runs.items()},
+      'f32_vs_plain_max_rel_loss_diff': max(rel),
+      'bf16_vs_f32_first_loss_rel_diff': abs(
+          bf16['losses'][0] - f32['losses'][0]) / abs(f32['losses'][0]),
+  }
+  finite = all(math.isfinite(x) for r in runs.values()
+               for x in r['losses'] + r['grad_norms'] + [r['eval'][
+                   'eval/loss']])
+  checks = [
+      (all(v == steps for v in gates['steps'].values()),
+       f'a run did not take {steps} steps'),
+      (finite, 'a loss, gradient norm or eval loss is not finite'),
+      (all(runs[k]['launches']['K11'] == steps + eval_batches
+           and runs[k]['launches']['K12'] == steps
+           for k in ('bfloat16', 'float32')),
+       'K11/K12 did not launch once per step (and K11 per eval batch)'),
+      (plain['launches']['K11'] == plain['launches']['K12'] == 0,
+       'the plain run launched the DP kernels'),
+      (gates['f32_vs_plain_max_rel_loss_diff'] <= 1e-4,
+       'f32 kernels vs plain DP: a step loss differs by > 1e-4 relative'),
+      (gates['bf16_vs_f32_first_loss_rel_diff'] <= 0.02,
+       'bf16 vs f32: the first loss differs by > 2%'),
+  ]
+  print(json.dumps({'phase': 'gates', 'path': 'train', **gates}), flush=True)
+  for ok, message in checks:
+    if not ok:
+      raise AssertionError(f'train: {message}')
+  return gates
+
+
+def train_step_breakdown(dtype: str, steps: int = 5) -> dict:
+  """Phase 4 for one dtype: one full-width batch of TRAIN_BATCH seeded
+  windows, the training step split into its stages, then one step
+  under torch.profiler."""
+  import numpy as np
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+
+  from deepconsensus_tpu_torch.models import model as model_lib
+  from deepconsensus_tpu_torch.models import train as train_lib
+
+  dev = torch.device('cuda')
+  params = make_params(dtype)
+  model = model_lib.DeepConsensusModel(params, device=dev)
+  model.init_weights(torch.Generator().manual_seed(SEED))
+  model.requires_grad_(True)
+  lamb = train_lib.Lamb(model.named_parameters(), params, 100)
+  loss_fn = train_lib.make_loss(params)
+  rng = np.random.default_rng(SEED + 3)
+  batch = train_lib.batch_to_device({
+      'rows': fake_rows(params, rng, TRAIN_BATCH),
+      'label': rng.integers(0, 5, (TRAIN_BATCH, LENGTH)).astype(np.float32),
+  }, dev)
+  generator = torch.Generator(device=dev).manual_seed(SEED)
+  stages = ('forward', 'loss', 'backward', 'optimizer')
+  times = {k: [] for k in stages}
+
+  def step(record: bool) -> None:
+    marks = [time.perf_counter()]
+
+    def mark():
+      torch.cuda.synchronize()
+      marks.append(time.perf_counter())
+
+    for p in model.parameters():
+      p.grad = None
+    preds = model.forward_train(batch['rows'], generator)
+    mark()
+    loss = loss_fn(batch['label'], preds)
+    mark()
+    loss.backward()
+    mark()
+    lamb.step({n: p.grad for n, p in model.named_parameters()})
+    mark()
+    if record:
+      for name, a, b in zip(stages, marks, marks[1:]):
+        times[name].append((b - a) * 1e3)
+
+  for i in range(2 + steps):
+    step(record=i >= 2)
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    step(record=False)
+  kernels = [e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+  device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+  top = sorted(kernels, key=lambda e: e.self_device_time_total,
+               reverse=True)[:12]
+  stage_ms = {k: statistics.median(v) for k, v in times.items()}
+  step_ms = sum(stage_ms.values())
+  # The profiler slows the host, so the idle share sets the profiled
+  # step's kernel time against the unprofiled step's wall time.
+  return {
+      'stage_ms': stage_ms, 'step_ms': step_ms,
+      'device_kernel_ms': device_ms,
+      'device_idle_share': 1 - device_ms / step_ms,
+      'top_kernels_ms': [[e.key[:100], e.self_device_time_total / 1e3,
+                          e.count] for e in top],
+  }
+
+
 def main(argv) -> int:
   kernels_only = '--kernels-only' in argv
   try:
@@ -597,6 +866,10 @@ def main(argv) -> int:
       print(json.dumps({'phase': 'kernel', 'kernel': name, 'dtype': dtype,
                         **r}), flush=True)
     kernels[dtype] = result
+  dp_kernels = check_wavefront_kernels()
+  for name, r in dp_kernels.items():
+    print(json.dumps({'phase': 'kernel', 'kernel': name, 'dtype': 'float32',
+                      **r}), flush=True)
   if kernels_only:
     return 0
 
@@ -604,7 +877,7 @@ def main(argv) -> int:
   bams = {path: synthetic.write_synthetic_zmw_bams(
       os.path.join(WORK, f'bams_{path}'), n_zmws=N_ZMWS,
       n_subreads=N_SUBREADS, seq_len=SEQ_LEN, seed=SEED,
-      smart_windows=path == 'ragged') for path in PATH_KERNELS}
+      smart_windows=path == 'ragged') for path in RUN_PATHS}
   model = model_lib.DeepConsensusModel(make_params('float32'), device='cpu')
   model.init_weights(torch.Generator().manual_seed(SEED))
   weights = os.path.join(WORK, 'weights.npz')
@@ -612,7 +885,8 @@ def main(argv) -> int:
       model.state_dict()))
 
   launches_by_path = {}
-  for path, path_kernels in PATH_KERNELS.items():
+  for path in RUN_PATHS:
+    path_kernels = PATH_KERNELS[path]
     runs = {}
     for dtype, plain in (('bfloat16', False), ('float32', False),
                          ('float32', True)):
@@ -641,6 +915,35 @@ def main(argv) -> int:
             f'{launches}')
     path_gates(path, runs)
     launches_by_path[path] = runs['bfloat16'][1]
+
+  shards = []
+  for split, count, seed in (('train', TRAIN_EXAMPLES, SEED),
+                             ('eval', EVAL_EXAMPLES, SEED + 1)):
+    shutil.rmtree(os.path.join(WORK, f'shards_{split}'), ignore_errors=True)
+    synthetic.write_synthetic_tfrecords(
+        os.path.join(WORK, f'shards_{split}'), n_shards=4,
+        n_examples=count, max_passes=20, max_length=LENGTH, seed=seed)
+    shards.append(os.path.join(WORK, f'shards_{split}', '*.tfrecord.gz'))
+  runs = {}
+  for dtype, plain in (('bfloat16', False), ('float32', False),
+                       ('float32', True)):
+    label = dtype + ('_plain' if plain else '')
+    runs[label] = r = run_train_path(shards, dtype, plain)
+    summary = r['summary']
+    print(json.dumps({
+        'phase': 'main_path', 'path': 'train', 'run': label,
+        'launches': r['launches'], 'seconds': r['seconds'],
+        'losses': r['losses'], 'grad_norms': r['grad_norms'],
+        'step_ms': [1e3 * t for t in r['step_seconds']],
+        'step_p50_ms': 1e3 * summary['train_step_p50_s'],
+        'examples_per_s': summary['train_examples_per_s'],
+        'peak_bytes': summary['peak_bytes'],
+        'eval_loss': r['eval']['eval/loss']}), flush=True)
+  train_gates(runs)
+  launches_by_path['train'] = runs['bfloat16']['launches']
+  for dtype in ('bfloat16', 'float32'):
+    print(json.dumps({'phase': 'train_breakdown', 'dtype': dtype,
+                      **train_step_breakdown(dtype)}), flush=True)
 
   sources = {
       'K1': ('deepconsensus_tpu_torch/csrc/embed_condense.cu',
@@ -673,6 +976,20 @@ def main(argv) -> int:
           'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'library_ms')})
       entry['lengths_float32_ms'] = kernels['float32']['K2_lengths']['ms']
     line.append(entry)
+  for name, replaces in (('K11', 'deepconsensus_tpu/ops/wavefront_pallas.py:231'),
+                         ('K12', 'deepconsensus_tpu/ops/wavefront_pallas.py:487')):
+    r = dp_kernels[name]
+    line.append({
+        'name': name, 'route': 'cuda',
+        'source': 'deepconsensus_tpu_torch/csrc/wavefront.cu',
+        'replaces': replaces, 'launches': launches_by_path['train'][name],
+        'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+        'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+        'bound_by': r['bound_by'], 'library_ms': None, 'dtype': 'float32',
+        'status': 'ported', 'path': 'train',
+        'launches_by_path': {k: v[name] for k, v in launches_by_path.items()},
+        'serial_floor_ms': r['serial_floor_ms'],
+        **({'no_rows_ms': r['no_rows_ms']} if name == 'K11' else {})})
   print(json.dumps({'kernels': line}))
   print(card_line())
   print(json.dumps({'ok': True, 'device': {

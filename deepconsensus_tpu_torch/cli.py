@@ -1,4 +1,4 @@
-"""Command line of the port: `run` (BAMs -> polished FASTQ).
+"""Command line of the port: `run` (BAMs -> polished FASTQ) and `train`.
 
   python -m deepconsensus_tpu_torch.cli run \\
       --subreads_to_ccs subreads_to_ccs.bam --ccs_bam ccs.bam \\
@@ -7,7 +7,14 @@
 Mixed-width windows from the CCS `wl` tag: add --use_ccs_smart_windows
 --window_buckets 100,200 --use_ragged_kernel.
 
-Runs on the card unless --device cpu is given; without a card the
+  python -m deepconsensus_tpu_torch.cli train \\
+      --config transformer_learn_values+custom --out_dir model_out \\
+      --train_path 'train/*.tfrecord.gz' --eval_path 'eval/*.tfrecord.gz'
+
+writes model_out/params.json, checkpoints and weights.npz, which `run`
+takes as --params and --weights.
+
+Both run on the card unless --device cpu is given; without a card the
 default raises. Weights are a `models/weights.save_npz` file (see the
 README for the one-liner that writes one from a JAX checkpoint).
 """
@@ -28,6 +35,84 @@ def _parse_window_buckets(text):
   if not buckets:
     raise argparse.ArgumentTypeError('--window_buckets is empty')
   return buckets
+
+
+def _coerce_override(raw: str, current):
+  """Parses a --set value against the config entry's current type."""
+  if raw.lower() in ('none', 'null'):
+    return None
+  if isinstance(current, bool):
+    if raw.lower() in ('true', '1', 'yes'):
+      return True
+    if raw.lower() in ('false', '0', 'no'):
+      return False
+    raise ValueError(f'expected a boolean, got {raw!r}')
+  for cast in (int, float):
+    if isinstance(current, cast):
+      return cast(raw)
+  if current is None:
+    if raw.lower() in ('true', 'yes'):
+      return True
+    if raw.lower() in ('false', 'no'):
+      return False
+    for cast in (int, float):
+      try:
+        return cast(raw)
+      except ValueError:
+        continue
+  return raw
+
+
+def _apply_overrides(params, overrides: List[str]) -> None:
+  """Applies --set KEY=VALUE items before finalize_params, so derived
+  values (total_rows, hidden_size) see them. Transformer size keys
+  (num_hidden_layers, num_heads, filter_size) may be set although
+  finalize_params only adds them later."""
+  from deepconsensus_tpu_torch.models import config as config_lib
+
+  late_keys = frozenset(
+      k for preset in config_lib.TRANSFORMER_SIZE_PARAMS.values()
+      for k in preset)
+  for item in overrides:
+    key, eq, raw = item.partition('=')
+    if not eq or not (key in params or key in late_keys):
+      raise ValueError(f'unknown config override {item!r}')
+    params[key] = _coerce_override(raw, params.get(key))
+
+
+def _add_train(sub) -> None:
+  p = sub.add_parser('train', help='Train a model on TFRecord shards.')
+  p.add_argument('--config', default='transformer_learn_values+custom',
+                 help='{model}+{dataset} preset name.')
+  p.add_argument('--out_dir', required=True)
+  p.add_argument('--train_path', nargs='*')
+  p.add_argument('--eval_path', nargs='*')
+  p.add_argument('--num_epochs', type=int)
+  p.add_argument('--batch_size', type=int)
+  p.add_argument('--set', action='append', default=[], metavar='KEY=VALUE',
+                 dest='overrides',
+                 help='Config override, repeatable (e.g. --set '
+                 'loss_reg=0.5 --set dtype=float32).')
+  p.add_argument('--device', default=None, help='cuda (default) or cpu.')
+
+
+def _train(args) -> int:
+  from deepconsensus_tpu_torch.devices import resolve_device
+  from deepconsensus_tpu_torch.models import config as config_lib
+  from deepconsensus_tpu_torch.models import train as train_lib
+
+  device = resolve_device(args.device)
+  params = config_lib.get_config(args.config)
+  _apply_overrides(params, args.overrides)
+  config_lib.finalize_params(params)
+  if args.batch_size:
+    params.batch_size = args.batch_size
+  metrics = train_lib.run_training(
+      params, args.out_dir, train_patterns=args.train_path,
+      eval_patterns=args.eval_path, num_epochs=args.num_epochs,
+      device=device)
+  print(json.dumps(metrics))
+  return 0
 
 
 def _add_run(sub) -> None:
@@ -73,7 +158,10 @@ def main(argv: Optional[List[str]] = None) -> int:
   parser = argparse.ArgumentParser(prog='deepconsensus_tpu_torch')
   sub = parser.add_subparsers(dest='command', required=True)
   _add_run(sub)
+  _add_train(sub)
   args = parser.parse_args(argv)
+  if args.command == 'train':
+    return _train(args)
 
   from deepconsensus_tpu_torch.calibration import lib as calibration_lib
   from deepconsensus_tpu_torch.devices import resolve_device

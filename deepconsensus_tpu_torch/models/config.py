@@ -1,8 +1,8 @@
 """Model/hparam configuration for the port (no ml_collections).
 
 The reference package keeps its presets in an ml_collections
-ConfigDict. The port carries the subset that inference reads, in
-`Params`: a plain dict whose keys are also attributes, so code written
+ConfigDict. The port carries the subset that inference and training
+read, in `Params`: a plain dict whose keys are also attributes, so code written
 against `params.max_length` and `params.get('dtype')` reads the same.
 `params.json` files written by the reference package load unchanged
 (unknown keys are kept).
@@ -109,7 +109,19 @@ def _set_base_transformer_hparams(params: Params) -> None:
   params.sn_hidden_size = 1
   params.ccs_bq_hidden_size = 1
   params.strand_hidden_size = 1
+  params.layer_postprocess_dropout = 0.1
+  params.attention_dropout = 0.1
+  params.relu_dropout = 0.1
   params.batch_size = 256
+  params.num_epochs = 9
+  params.num_epochs_for_decay = 9
+  params.initial_learning_rate = 3.6246e-3
+  params.end_learning_rate = 2.86594e-5
+  params.warmup_steps = 35536
+  params.weight_decay_rate = 6.9868e-3
+  params.beta_1 = 0.9
+  params.beta_2 = 0.999
+  params.epsilon = 1e-6
 
 
 def _set_transformer_learned_embeddings_hparams(params: Params) -> None:
@@ -130,6 +142,10 @@ def _set_transformer_learned_embeddings_distill_hparams(params: Params):
   params.model_name = 'transformer_learn_values_distill'
   params.num_hidden_layers = 5
   params.filter_size = 2048
+  params.layer_postprocess_dropout = 0.0
+  params.attention_dropout = 0.1
+  params.relu_dropout = 0.0
+  params.warmup_steps = 0
 
 
 def get_config(config_name: Optional[str] = None) -> Params:
@@ -163,6 +179,14 @@ def get_config(config_name: Optional[str] = None) -> Params:
   params.attn_softmax_dtype = None
   params.use_fused_hotpath = False
   params.quantize_matmuls = None
+  # Training (reference: model_configs.py:320-323 for the loss).
+  params.seed = 1
+  params.remove_label_gaps = False
+  params.del_cost = 10.0
+  params.loss_reg = 0.1
+  params.band_width = None
+  params.eval_every_n_steps = 3000
+  params.log_every_n_steps = 100
   if config_name is None:
     return params
 
@@ -227,6 +251,15 @@ def finalize_params(
     for name, value in TRANSFORMER_SIZE_PARAMS[size].items():
       if name not in params:
         params[name] = value
+
+
+def save_params_as_json(out_dir: str, params: Params) -> str:
+  """Writes params.json beside the checkpoints."""
+  os.makedirs(out_dir, exist_ok=True)
+  path = os.path.join(out_dir, 'params.json')
+  with open(path, 'w') as f:
+    json.dump(params.to_dict(), f, indent=2, sort_keys=True, default=str)
+  return path
 
 
 def read_params_from_json(path: str) -> Params:

@@ -1,4 +1,4 @@
-"""The condensed learned-values transformer, inference forward only.
+"""The condensed learned-values transformer: inference and training forwards.
 
 Port of deepconsensus_tpu/models/model.py (DeepConsensusModel for the
 transformer_learn_values family). Parameter names and layouts follow
@@ -16,6 +16,12 @@ Two routes, as in the reference:
 * the module route (MaskedEmbed, condenser, BandedSelfAttention,
   FeedForward, ReZero ResidualWrapper, LayerNorm), the counterpart of
   the reference's XLA path, on the CPU only.
+
+Training (`forward_train`) takes the module route on any device, as the
+reference's training path does, with dropout where Flax puts it: on the
+input (input_dropout), on the attention weights, after the FFN's ReLU
+and on each sublayer's output inside its ReZero wrapper. Masks are
+drawn from an explicit torch.Generator on the rows' device.
 
 Ragged slots (`window_lengths`, inference with --use_ragged_kernel):
 rows [B, R, S] hold windows of bucket widths packed back to back per
@@ -62,6 +68,32 @@ def sinusoidal_position_encoding(
 
 def _param(*shape, device) -> nn.Parameter:
   return nn.Parameter(torch.zeros(shape, device=device), requires_grad=False)
+
+
+class Dropout:
+  """Flax nn.Dropout on a torch.Generator: keep with probability
+  1 - rate and scale by 1 / (1 - rate); rate 1 gives zeros, rate 0 the
+  input. `kind` picks the rate: 'attention' (attention_dropout), 'relu'
+  (relu_dropout) or 'post' (layer_postprocess_dropout, also the input
+  dropout's)."""
+
+  def __init__(self, params, generator: torch.Generator):
+    self.rates = {'attention': float(params.attention_dropout),
+                  'relu': float(params.relu_dropout),
+                  'post': float(params.layer_postprocess_dropout)}
+    self.generator = generator
+
+  def __call__(self, x: torch.Tensor, kind: str) -> torch.Tensor:
+    rate = self.rates[kind]
+    if rate == 0.0:
+      return x
+    if rate == 1.0:
+      return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=self.generator,
+                      device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Dense(nn.Module):
@@ -121,7 +153,8 @@ class BandedSelfAttention(nn.Module):
     self.value = Dense((hidden_size,), heads, False, device)
     self.output_transform = Dense(heads, (hidden_size,), False, device)
 
-  def _attend(self, query, key, value, dtype) -> torch.Tensor:
+  def _attend(self, query, key, value, dtype,
+              drop: Optional[Dropout] = None) -> torch.Tensor:
     """[b, L, N, D] q/k/v -> [b, L, N, D], band within each row."""
     logits = torch.einsum('btnh,bfnh->bnft', key, query)
     length = query.shape[1]
@@ -132,11 +165,14 @@ class BandedSelfAttention(nn.Module):
                            torch.full((), -1e9, dtype=logits.dtype,
                                       device=query.device))
     weights = torch.softmax(logits.float(), dim=-1).to(dtype)
+    if drop is not None:
+      weights = drop(weights, 'attention')
     return torch.einsum('bnft,btnh->bfnh', weights, value)
 
   def forward(self, x: torch.Tensor, dtype,
               ragged_widths: Optional[torch.Tensor] = None,
-              ragged_buckets: Tuple[int, ...] = ()) -> torch.Tensor:
+              ragged_buckets: Tuple[int, ...] = (),
+              drop: Optional[Dropout] = None) -> torch.Tensor:
     """ragged_widths [B, S] (each position's window width, 0 = pad):
     each bucket width w attends over the slots reshaped to width-w
     windows, and each position takes the result of its own width."""
@@ -144,7 +180,7 @@ class BandedSelfAttention(nn.Module):
     key = self.key(x, 1, dtype)
     value = self.value(x, 1, dtype)
     if ragged_widths is None:
-      out = self._attend(query, key, value, dtype)
+      out = self._attend(query, key, value, dtype, drop)
     else:
       out = torch.zeros_like(query)
       b, length = x.shape[:2]
@@ -165,8 +201,11 @@ class FeedForward(nn.Module):
     self.filter_layer = Dense((hidden_size,), (filter_size,), True, device)
     self.output_layer = Dense((filter_size,), (hidden_size,), True, device)
 
-  def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
+  def forward(self, x: torch.Tensor, dtype,
+              drop: Optional[Dropout] = None) -> torch.Tensor:
     h = torch.relu(self.filter_layer(x, 1, dtype))
+    if drop is not None:
+      h = drop(h, 'relu')
     return self.output_layer(h, 1, dtype)
 
 
@@ -177,7 +216,10 @@ class ResidualWrapper(nn.Module):
     super().__init__()
     self.alpha = _param(device=device)
 
-  def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+  def forward(self, x: torch.Tensor, y: torch.Tensor,
+              drop: Optional[Dropout] = None) -> torch.Tensor:
+    if drop is not None:
+      y = drop(y, 'post')
     return x + self.alpha.to(y.dtype) * y
 
 
@@ -221,12 +263,14 @@ class EncoderStack(nn.Module):
 
   def forward(self, x: torch.Tensor, dtype,
               ragged_widths: Optional[torch.Tensor] = None,
-              ragged_buckets: Tuple[int, ...] = ()) -> torch.Tensor:
+              ragged_buckets: Tuple[int, ...] = (),
+              drop: Optional[Dropout] = None) -> torch.Tensor:
     for n in range(self.num_layers):
       x = self.layer('attention_wrapper', n)(
           x, self.layer('self_attention', n)(x, dtype, ragged_widths,
-                                             ragged_buckets))
-      x = self.layer('ffn_wrapper', n)(x, self.layer('ffn', n)(x, dtype))
+                                             ragged_buckets, drop), drop)
+      x = self.layer('ffn_wrapper', n)(
+          x, self.layer('ffn', n)(x, dtype, drop), drop)
     return self.output_normalization(x)
 
   def kernel_blocks(self) -> Tuple[feb.EncoderBlockWeights, ...]:
@@ -433,6 +477,27 @@ class DeepConsensusModel(nn.Module):
     x = k2(x, self.encoder.kernel_blocks(), num_heads=p.num_heads,
            attn_win_size=win, compute_dtype=dt, lengths=lengths)
     return self.encoder.output_normalization(x)
+
+  def forward_train(self, rows: torch.Tensor,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+    """The training forward: module route on any device, differentiable
+    (the caller sets requires_grad on the parameters), dropout drawn
+    from `generator` (on the rows' device); without a generator no
+    dropout, the reference's eval forward. Returns float32 softmax
+    [B, L, V]."""
+    p = self.params
+    dt = self.compute_dtype
+    if rows.dim() == 4:
+      rows = rows.squeeze(-1)
+    drop = None if generator is None else Dropout(p, generator)
+    x = self.condenser(self._embed_rows(rows), 1, dt)
+    if p.add_pos_encoding:
+      x = x + self._position_encoding(rows.shape[-1], dt, rows.device)
+    if drop is not None:
+      x = drop(x, 'post')
+    encoded = self.encoder(x, dt, drop=drop)
+    return torch.softmax(self.logits(encoded, 1, torch.float32), dim=-1)
 
   @torch.no_grad()
   def forward(self, rows: torch.Tensor, plain: bool = False,

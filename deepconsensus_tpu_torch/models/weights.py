@@ -12,7 +12,9 @@ the same names and layouts, so the bridge is a rename from '/'-paths to
   encoder/output_normalization/{scale,bias}, logits/{kernel,bias}
 
 `save_npz`/`load_npz` store such a tree as one .npz with '/'-joined
-keys, so `cli run --weights w.npz --params params.json` needs no orbax.
+keys, so `cli run --weights w.npz --params params.json` needs no orbax;
+`cli train` writes its trained weights the same way.
+`gradients_to_flax` maps the port's gradients onto the same tree.
 """
 from __future__ import annotations
 
@@ -75,6 +77,16 @@ def to_flax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
   return unflatten_tree({
       name.replace('.', '/'): t.detach().float().cpu().numpy()
       for name, t in state.items()
+  })
+
+
+def gradients_to_flax(model: torch.nn.Module) -> Dict[str, Any]:
+  """The gradients of a model's parameters as a Flax-layout tree, leaf
+  for leaf beside jax.grad's; a parameter without a gradient gives
+  zeros, as jax.grad does."""
+  return to_flax_params({
+      name: p.grad if p.grad is not None else torch.zeros_like(p)
+      for name, p in model.named_parameters()
   })
 
 

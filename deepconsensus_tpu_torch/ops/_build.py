@@ -20,7 +20,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
-SOURCES = ('gemm', 'embed_condense', 'ragged_attention', 'phred_epilogue')
+SOURCES = ('gemm', 'embed_condense', 'ragged_attention', 'phred_epilogue',
+           'wavefront')
 NVCC_FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
@@ -39,6 +40,12 @@ SIGNATURES = {
     },
     'phred_epilogue': {'dc_phred_epilogue': (_P, ctypes.c_int64, _I, _P, _I,
                                              _P, _P, _P)},
+    'wavefront': {
+        'dc_wavefront_fwd': (_P, _P, _P, _I, _I, _I, _F, _F, _I, _F, _P, _P,
+                             _P),
+        'dc_wavefront_bwd': (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P,
+                             _P, _P),
+    },
 }
 
 _lock = threading.Lock()

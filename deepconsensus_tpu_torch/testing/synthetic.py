@@ -1,19 +1,22 @@
-"""Synthetic (subreads_to_ccs.bam, ccs.bam) pairs for tests and chip runs.
+"""Synthetic inputs for tests and chip runs: (subreads_to_ccs.bam,
+ccs.bam) pairs and training TFRecord shards.
 
-A copy of the reference repository's scripts/inject_faults.py
-`write_synthetic_zmw_bams` on top of the port's own BAM writer (the
-original imports the reference package). Sequences, tags and block
-layout come from a numpy RandomState seed, so the same arguments give
-the same bytes.
+Copies of the reference repository's scripts/inject_faults.py
+`write_synthetic_zmw_bams` and `write_synthetic_tfrecords` on top of the
+port's own BAM and TFRecord writers (the originals import the reference
+package). Content and block layout come from a numpy RandomState seed,
+so the same arguments give the same bytes.
 """
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
 from deepconsensus_tpu_torch.io.bam_writer import BamWriter
+from deepconsensus_tpu_torch.io.example_proto import Example
+from deepconsensus_tpu_torch.io.tfrecord import TFRecordWriter
 
 _BASES = np.frombuffer(b'ACGT', dtype=np.uint8)
 # Range of the seeded `wl` window widths (smart_windows=True): windows
@@ -120,3 +123,57 @@ def write_synthetic_zmw_bams(
     ccs_writer.flush()
   ccs_writer.close()
   return subreads_path, ccs_path
+
+
+def write_synthetic_tfrecords(
+    out_dir: str,
+    n_shards: int = 2,
+    n_examples: int = 64,
+    max_passes: int = 5,
+    max_length: int = 20,
+    seed: int = 3,
+    compression: str = 'BGZF',
+) -> List[str]:
+  """Writes synthetic training shards shard-NNNNN.tfrecord.gz.
+
+  Examples carry the fields models/data.py parses (subreads tensor of
+  shape (4*max_passes+5, max_length, 1) for use_ccs_bq=False, label of
+  shape (max_length,), plus name/num_passes/window_pos/quality). Bases,
+  ccs and label agree per column, so training is well-posed. Examples
+  are spread round-robin over n_shards. Returns the shard paths.
+  """
+  rng = np.random.RandomState(seed)
+  os.makedirs(out_dir, exist_ok=True)
+  total_rows = 4 * max_passes + 5
+  paths = [
+      os.path.join(out_dir, f'shard-{i:05d}.tfrecord.gz')
+      for i in range(n_shards)
+  ]
+  writers = [TFRecordWriter(p, compression=compression) for p in paths]
+  for i in range(n_examples):
+    seq = rng.randint(1, 5, size=max_length)  # vocab ' ATCG' -> 1..4
+    subreads = np.zeros((total_rows, max_length, 1), dtype=np.float32)
+    for p in range(max_passes):
+      subreads[p, :, 0] = seq                      # bases
+      subreads[max_passes + p, :, 0] = rng.randint(1, 5, max_length)  # pw
+      subreads[2 * max_passes + p, :, 0] = rng.randint(1, 9, max_length)
+      subreads[3 * max_passes + p, :, 0] = 1 + (p % 2)  # strand
+    subreads[4 * max_passes, :, 0] = seq             # ccs row
+    subreads[4 * max_passes + 1:, :, 0] = rng.uniform(
+        4.0, 12.0, size=(4, 1)
+    )                                                # sn rows
+    label = seq.astype(np.float32)
+    ex = Example()
+    ex.add_bytes('subreads/encoded',
+                 [subreads.astype(np.float32).tobytes()])
+    ex.add_int64('subreads/shape', list(subreads.shape))
+    ex.add_bytes('label/encoded', [label.tobytes()])
+    ex.add_int64('label/shape', [max_length])
+    ex.add_bytes('name', [f'syn/{100 + i}/ccs-{i}'.encode('ascii')])
+    ex.add_int64('subreads/num_passes', [max_passes])
+    ex.add_int64('window_pos', [i * max_length])
+    ex.add_int64('ccs_base_quality_scores', [30] * max_length)
+    writers[i % n_shards].write(ex.serialize())
+  for w in writers:
+    w.close()
+  return paths

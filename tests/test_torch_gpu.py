@@ -4,7 +4,8 @@ Marked `gpu`: each test asks the `cuda` fixture for the card and skips
 without one (decided in the fixture, never at import time). This file
 imports only torch, numpy and the port, so it runs on a machine without
 JAX:  python -m pytest tests/test_torch_gpu.py -m gpu
-Tolerances: float32 rtol = atol = 1e-4, bfloat16 2e-2, K3 exact.
+Tolerances: float32 rtol = atol = 1e-4, bfloat16 2e-2, K3 exact; the
+alignment DP (K11/K12) scores rtol 1e-5, gradients rtol 1e-4, atol 1e-5.
 """
 import numpy as np
 import pytest
@@ -18,6 +19,8 @@ from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
 from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
 from deepconsensus_tpu_torch.ops import output_plane
 from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
+from deepconsensus_tpu_torch.ops import wavefront
+from deepconsensus_tpu_torch.ops import wavefront_cuda
 from deepconsensus_tpu_torch.testing import synthetic
 
 pytestmark = pytest.mark.gpu
@@ -147,6 +150,84 @@ def test_phred_epilogue_exact(cuda):
   assert output_plane.n_launches == before + 1
   for g, w in zip(got, want):
     assert torch.equal(g, w)
+
+
+def wavefront_costs(device, batch, m, n, seed):
+  rng = np.random.default_rng(seed)
+  lens = rng.integers(0, m + 1, batch).astype(np.int32)
+  lens[:2] = (0, m)
+  return (torch.from_numpy(rng.uniform(0, 5, (batch, m, n))
+                           .astype(np.float32)).to(device),
+          torch.from_numpy(rng.uniform(0, 5, (batch, n))
+                           .astype(np.float32)).to(device),
+          torch.from_numpy(lens).to(device))
+
+
+@pytest.mark.parametrize('loss_reg', [None, 0.1, 1.0])
+@pytest.mark.parametrize('m,n', [(100, 100), (30, 57)])
+def test_wavefront_kernels_match_plain(cuda, loss_reg, m, n):
+  """K11 (without and with rows) and K12 against the plain DP and its
+  autograd, on one launch each: scores rtol 1e-5 (atol 1e-4),
+  gradients rtol 1e-4, atol 1e-5."""
+  subs, ins, lens = wavefront_costs(cuda, 37, m, n, seed=m + n)
+  fwd, bwd = wavefront_cuda.n_fwd_launches, wavefront_cuda.n_bwd_launches
+  got = wavefront_cuda.alignment_scores(subs, ins, 10.0, lens, loss_reg)
+  want = wavefront.alignment_scan(subs, ins, 10.0, lens, loss_reg)
+  torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+  weights = torch.rand(37, device=cuda) + 0.5
+  grads = []
+  for fn in (wavefront_cuda.alignment_scores_vjp,
+             lambda s, i, l, d, r: wavefront.alignment_scan(s, i, d, l, r)):
+    s, i = subs.clone().requires_grad_(True), ins.clone().requires_grad_(True)
+    value = fn(s, i, lens, 10.0, loss_reg)
+    grads.append((value, *torch.autograd.grad(value, (s, i), weights)))
+  torch.cuda.synchronize()
+  assert wavefront_cuda.n_fwd_launches == fwd + 2
+  assert wavefront_cuda.n_bwd_launches == bwd + 1
+  (gv, gs, gi), (wv, ws, wi) = grads
+  torch.testing.assert_close(gv, wv, rtol=1e-5, atol=1e-4)
+  torch.testing.assert_close(gs, ws, rtol=1e-4, atol=1e-5)
+  torch.testing.assert_close(gi, wi, rtol=1e-4, atol=1e-5)
+
+
+def test_wavefront_wrapper_rejects_bad_input(cuda):
+  with pytest.raises(ValueError, match='m \\+ 1 <= 1024'):
+    wavefront_cuda.alignment_scores(
+        torch.zeros(1, 1024, 4, device=cuda), torch.zeros(1, 4, device=cuda),
+        1.0, torch.zeros(1, dtype=torch.int32, device=cuda))
+  with pytest.raises(ValueError, match='seq_lens is on'):
+    wavefront_cuda.alignment_scores(
+        torch.zeros(1, 4, 4, device=cuda), torch.zeros(1, 4, device=cuda),
+        1.0, torch.zeros(1, dtype=torch.int32))
+
+
+def test_training_step_on_the_card_matches_the_cpu(cuda):
+  """One float32 train step, dropout 0, the same weights: the card's
+  (K11 with rows, K12, cuBLAS) loss within 1e-4 relative of the CPU's
+  (plain DP)."""
+  from deepconsensus_tpu_torch.models import train as train_lib
+
+  params = small_params(attention_dropout=0.0, relu_dropout=0.0,
+                        layer_postprocess_dropout=0.0)
+  rows = fake_rows(params, 8, seed=3).numpy()[..., None]
+  label = np.random.default_rng(4).integers(0, 5, (8, 100)).astype(
+      np.float32)
+  state = seeded_model(params, 'cpu').state_dict()
+  losses = []
+  for device in ('cpu', cuda):
+    model = model_lib.DeepConsensusModel(params, device=device)
+    model.load_state_dict(state)
+    model.requires_grad_(True)
+    lamb = train_lib.Lamb(model.named_parameters(), params, 10)
+    bwd = wavefront_cuda.n_bwd_launches
+    m = train_lib.train_step(
+        model, lamb, train_lib.make_loss(params),
+        train_lib.batch_to_device({'rows': rows, 'label': label}, device),
+        torch.Generator(device=device))
+    losses.append(float(m['loss']))
+    assert wavefront_cuda.n_bwd_launches == bwd + (device != 'cpu')
+  np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
 
 
 def test_wrapper_rejects_bad_input(cuda):
