@@ -21,7 +21,12 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    without its rows) and K12 (its backward) at 256 x 100 x 100 float32
    costs, loss_reg 0.1, mixed lengths: scores rtol 1e-5 (atol 1e-4),
    gradients rtol 1e-4, atol 1e-5, plus each kernel's time at one batch
-   row (the serial chain of 199 diagonals alone).
+   row (the serial chain of 199 diagonals alone); K5 (banded attention
+   forward), K7 (its dropout forward) and K6 (its backward, with and
+   without the mask) at 256 windows x 100 positions x 2 heads of 140,
+   band 12, with the float32 / bfloat16 tolerances above; library
+   yardsticks: scaled_dot_product_attention with the band as its mask
+   (K5) and its autograd backward (K6), timed only.
 3. The paths, each with every kernel's launch count reset just before
    its run and read just after, in bfloat16 and float32, then float32
    again through the plain versions on the card; full-width seeded
@@ -34,9 +39,15 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    c. `cli train` (transformer_learn_values+custom, batch 256): synthetic
       TFRecord shards of 1,024 training and 256 eval examples, one
       epoch of 4 steps and the final eval; the plain run takes the
-      plain DP.
+      plain DP;
+   d. `train_attn`: c's `cli train` with --set use_pallas_attention=true
+      in bfloat16 and float32 (no plain run: c's float32 run, whose
+      attention is the module route under the same dropout masks, is
+      the reference).
    Gates: each path's kernels launched (a: K1-K3, b: K4, K2, K3, c: K11
-   once per step and eval batch, K12 once per step), and for a and b one
+   once per step and eval batch, K12 once per step, no K5-K7; d: K7 and
+   K6 once per layer and step, K5 once per layer and eval batch, K11
+   and K12 as c), and for a and b one
    read per ZMW, float32 kernels vs plain base ids differ at <= 1e-4 of
    the delivered positions and qualities by <= 1, bfloat16 vs float32
    ids agree on >= 99% of them and qualities within BF16_QV_GATE where
@@ -44,14 +55,23 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    holding one 200 and two 100s both occur, and the last pack is
    partial; for c every loss and gradient norm finite, the float32
    kernel run's loss within 1e-4 relative of the plain run's at every
-   step, and bfloat16's first loss within 2% of float32's.
-4. Where a full-width train step's time goes, in bfloat16 and float32:
+   step, and bfloat16's first loss within 2% of float32's; for d every
+   loss and gradient norm finite, the float32 losses (every step, and
+   the eval loss) within 1e-4 relative of c's float32 run, bfloat16's
+   first loss within 2% of float32's, and peak memory printed beside
+   c's. The train runs start from Flax's zero ReZero alphas, where
+   attention does not reach the loss, so d also takes one full-width
+   float32 forward and backward with seeded non-zero alphas through
+   K7/K6 and through the module route: loss within 1e-4 relative,
+   each parameter's gradient within 1e-3.
+4. Where a full-width train step's time goes, in bfloat16 and float32,
+   and in bfloat16 with attention through K5-K7:
    forward, loss (costs and K11), backward (K12 and autograd) and LAMB
    timed apart (synchronized, median of 5 steps after 2), and one step
    under torch.profiler: the device's busy time (its kernels' time
    summed), the idle share of the unprofiled step, and the kernels that
    take most of it.
-5. A `{"kernels": [...]}` line (K1-K4, K11, K12), the card line again,
+5. A `{"kernels": [...]}` line (K1-K7, K11, K12), the card line again,
    and the last line `{"ok": true, "device": {...}}`.
 
 `--kernels-only` stops after phase 2 and prints no result (a first
@@ -503,8 +523,98 @@ def check_wavefront_kernels(device: str = 'cuda') -> dict:
   return out
 
 
+def check_banded_attention_kernels(dtype: str, device: str = 'cuda') -> dict:
+  """Phase 2 for one dtype: K5, K7 and K6 (with and without the mask)
+  at the train path's attention shapes, vs their plain versions."""
+  import numpy as np
+  import torch
+  import torch.nn.functional as F
+
+  from deepconsensus_tpu_torch.ops import banded_attention as ba
+  from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
+
+  dev = torch.device(device)
+  params = make_params(dtype)
+  dt = fwa.resolve_dtype(dtype)
+  isz = 4 if dtype == 'float32' else 2
+  b, length, heads = TRAIN_BATCH, LENGTH, params.num_heads
+  d, win = params.hidden_size // heads, params.attn_win_size
+  rng = np.random.default_rng(SEED + 4)
+  q, k, v, do = (torch.from_numpy(rng.normal(size=(b, length, heads, d))
+                                  .astype(np.float32)).to(dev, dt)
+                 for _ in range(4))
+  q = (q * d ** -0.5).contiguous()
+  keep = 1.0 - params.attention_dropout
+  mask = torch.from_numpy((rng.random((b, heads, length, length)) < keep)
+                          .astype(np.uint8)).to(dev)
+  tol = TOL[dtype]
+
+  def k5():
+    return ba.banded_attention(q, k, v, win)
+
+  def k5_plain():
+    return ba.banded_attention_plain(q, k, v, win)
+
+  def k7():
+    return ba.banded_attention_dropout(q, k, v, mask, win, keep)
+
+  def k7_plain():
+    return ba.banded_attention_dropout_plain(q, k, v, mask, win, keep)
+
+  def k6(m=mask, kp=keep):
+    return ba.banded_attention_bwd(q, k, v, m, do, win, kp)
+
+  def k6_plain(m=mask, kp=keep):
+    return ba.banded_attention_bwd_plain(q, k, v, m, do, win, kp)
+
+  err5 = max_err(k5(), k5_plain(), tol)
+  err7 = max_err(k7(), k7_plain(), tol)
+  err6 = max(max_err(g, w, tol) for m, kp in ((mask, keep), (None, 1.0))
+             for g, w in zip(k6(m, kp), k6_plain(m, kp)))
+  torch.cuda.synchronize()
+  # Bytes: each input read once, each output written once, the mask's
+  # band only (the function reads nothing outside it). Operations: the
+  # band's products, 2*D per (query, key) pair for each of q.k and p.v
+  # forward, and of q.k, do.v, dv, dq and dk backward.
+  pairs = band_pairs(length, win) * b * heads
+  tensor = q.numel() * isz
+  band_bytes = pairs  # one uint8 of the mask per in-band pair
+  out = {}
+  sdpa_in = [x.transpose(1, 2) for x in (q, k, v)]
+  band = (torch.arange(length, device=dev)[:, None]
+          - torch.arange(length, device=dev)[None, :]).abs() <= win
+
+  def k5_library():
+    return F.scaled_dot_product_attention(*sdpa_in, attn_mask=band,
+                                          scale=1.0)
+
+  t_bound, by = bound(4 * d * pairs, 4 * tensor, dtype)
+  out['K5'] = dict(max_abs_err=err5, ms=cuda_ms(k5), plain_ms=cuda_ms(k5_plain),
+                   library_ms=cuda_ms(k5_library), bound_ms=t_bound,
+                   bound_by=by, flops=4 * d * pairs, bytes=4 * tensor)
+  t_bound, by = bound(4 * d * pairs, 4 * tensor + band_bytes, dtype)
+  out['K7'] = dict(max_abs_err=err7, ms=cuda_ms(k7), plain_ms=cuda_ms(k7_plain),
+                   library_ms=None, bound_ms=t_bound, bound_by=by,
+                   flops=4 * d * pairs, bytes=4 * tensor + band_bytes)
+  leaves = [x.detach().requires_grad_(True) for x in sdpa_in]
+  sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=band,
+                                            scale=1.0)
+  do_t = do.transpose(1, 2)
+
+  def k6_library():
+    return torch.autograd.grad(sdpa_out, leaves, do_t, retain_graph=True)
+
+  t_bound, by = bound(10 * d * pairs, 7 * tensor + band_bytes, dtype)
+  out['K6'] = dict(max_abs_err=err6, ms=cuda_ms(k6), plain_ms=cuda_ms(k6_plain),
+                   library_ms=cuda_ms(k6_library), bound_ms=t_bound,
+                   bound_by=by, no_mask_ms=cuda_ms(lambda: k6(None, 1.0)),
+                   flops=10 * d * pairs, bytes=7 * tensor + band_bytes)
+  return out
+
+
 def counted_modules():
   """Kernel name -> (module, launch counter attribute)."""
+  from deepconsensus_tpu_torch.ops import banded_attention as ba
   from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
   from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
   from deepconsensus_tpu_torch.ops import output_plane
@@ -513,6 +623,8 @@ def counted_modules():
 
   return {'K1': (fwa, 'n_launches'), 'K2': (feb, 'n_launches'),
           'K3': (output_plane, 'n_launches'), 'K4': (rwa, 'n_launches'),
+          'K5': (ba, 'n_fwd_launches'), 'K6': (ba, 'n_bwd_launches'),
+          'K7': (ba, 'n_dropout_fwd_launches'),
           'K11': (wavefront_cuda, 'n_fwd_launches'),
           'K12': (wavefront_cuda, 'n_bwd_launches')}
 
@@ -529,7 +641,8 @@ def read_launches() -> dict:
 
 # The kernels each path must launch.
 PATH_KERNELS = {'L100': ('K1', 'K2', 'K3'), 'ragged': ('K4', 'K2', 'K3'),
-                'train': ('K11', 'K12')}
+                'train': ('K11', 'K12'),
+                'train_attn': ('K5', 'K6', 'K7', 'K11', 'K12')}
 RUN_PATHS = ('L100', 'ragged')
 RAGGED_FLAGS = ('--use_ccs_smart_windows', '--window_buckets',
                 ','.join(map(str, BUCKETS)), '--use_ragged_kernel')
@@ -613,6 +726,16 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False):
           lengths, seconds, torch.cuda.max_memory_allocated())
 
 
+def enforce(path: str, gates: dict, checks) -> dict:
+  """Prints a path's gate values, then raises on the first failed
+  (ok, message) check."""
+  print(json.dumps({'phase': 'gates', 'path': path, **gates}), flush=True)
+  for ok, message in checks:
+    if not ok:
+      raise AssertionError(f'{path}: {message}')
+  return gates
+
+
 def path_gates(path: str, runs) -> dict:
   """Slice 1's id/quality gates on one path's delivered positions; for
   the ragged path also bucket shares, slot compositions and a partial
@@ -660,24 +783,25 @@ def path_gates(path: str, runs) -> dict:
          'slots of both compositions did not occur'),
         (gates['last_pack_fill'] < 1, 'the last pack is not partial'),
     ]
-  print(json.dumps({'phase': 'gates', 'path': path, **gates}), flush=True)
-  for ok, message in checks:
-    if not ok:
-      raise AssertionError(f'{path}: {message}')
-  return gates
+  return enforce(path, gates, checks)
 
 
-def run_train_path(shards, dtype: str, plain: bool = False) -> dict:
+def run_train_path(shards, dtype: str, plain: bool = False,
+                   attn: bool = False) -> dict:
   """One `cli train` epoch over the synthetic shards (plain: the same
-  through run_training with the plain DP); returns the run's launches,
+  through run_training with the plain DP; attn: with
+  --set use_pallas_attention=true); returns the run's launches,
   per-step losses and gradient norms, eval metrics and summary."""
   from deepconsensus_tpu_torch import cli
   from deepconsensus_tpu_torch.models import config as config_lib
   from deepconsensus_tpu_torch.models import train as train_lib
 
-  out = os.path.join(WORK, f'train_{dtype}{"_plain" if plain else ""}')
+  out = os.path.join(WORK, f'train{"_attn" if attn else ""}_{dtype}'
+                     f'{"_plain" if plain else ""}')
   shutil.rmtree(out, ignore_errors=True)
   overrides = {'dtype': dtype, 'log_every_n_steps': 1}
+  if attn:
+    overrides['use_pallas_attention'] = 'true'
   reset_launches()
   t0 = time.perf_counter()
   if plain:
@@ -709,15 +833,14 @@ def run_train_path(shards, dtype: str, plain: bool = False) -> dict:
   }
 
 
-def train_gates(runs) -> dict:
-  """The train path's gates; raises on a failed one."""
+def common_train_gates(runs):
+  """Gates every train path shares: each run took one epoch's steps,
+  every loss, gradient norm and eval loss is finite, and bfloat16's
+  first loss is within 2% of float32's. Returns (gates, checks)."""
   steps = TRAIN_EXAMPLES // TRAIN_BATCH
-  eval_batches = EVAL_EXAMPLES // TRAIN_BATCH
-  f32, plain, bf16 = runs['float32'], runs['float32_plain'], runs['bfloat16']
-  rel = [abs(a - b) / abs(b) for a, b in zip(f32['losses'], plain['losses'])]
+  f32, bf16 = runs['float32'], runs['bfloat16']
   gates = {
       'steps': {k: len(r['losses']) for k, r in runs.items()},
-      'f32_vs_plain_max_rel_loss_diff': max(rel),
       'bf16_vs_f32_first_loss_rel_diff': abs(
           bf16['losses'][0] - f32['losses'][0]) / abs(f32['losses'][0]),
   }
@@ -728,28 +851,138 @@ def train_gates(runs) -> dict:
       (all(v == steps for v in gates['steps'].values()),
        f'a run did not take {steps} steps'),
       (finite, 'a loss, gradient norm or eval loss is not finite'),
+      (gates['bf16_vs_f32_first_loss_rel_diff'] <= 0.02,
+       'bf16 vs f32: the first loss differs by > 2%'),
+  ]
+  return gates, checks
+
+
+def train_gates(runs) -> dict:
+  """The train path's gates; raises on a failed one."""
+  steps = TRAIN_EXAMPLES // TRAIN_BATCH
+  eval_batches = EVAL_EXAMPLES // TRAIN_BATCH
+  f32, plain = runs['float32'], runs['float32_plain']
+  rel = [abs(a - b) / abs(b) for a, b in zip(f32['losses'], plain['losses'])]
+  gates, checks = common_train_gates(runs)
+  gates.update({
+      'f32_vs_plain_max_rel_loss_diff': max(rel),
+      'attention_kernel_launches': {k: [r['launches'][n] for n in (
+          'K5', 'K6', 'K7')] for k, r in runs.items()},
+  })
+  checks += [
       (all(runs[k]['launches']['K11'] == steps + eval_batches
            and runs[k]['launches']['K12'] == steps
            for k in ('bfloat16', 'float32')),
        'K11/K12 did not launch once per step (and K11 per eval batch)'),
       (plain['launches']['K11'] == plain['launches']['K12'] == 0,
        'the plain run launched the DP kernels'),
+      (all(v == [0, 0, 0]
+           for v in gates['attention_kernel_launches'].values()),
+       'the module-route runs launched K5-K7'),
       (gates['f32_vs_plain_max_rel_loss_diff'] <= 1e-4,
        'f32 kernels vs plain DP: a step loss differs by > 1e-4 relative'),
-      (gates['bf16_vs_f32_first_loss_rel_diff'] <= 0.02,
-       'bf16 vs f32: the first loss differs by > 2%'),
   ]
-  print(json.dumps({'phase': 'gates', 'path': 'train', **gates}), flush=True)
-  for ok, message in checks:
-    if not ok:
-      raise AssertionError(f'train: {message}')
-  return gates
+  return enforce('train', gates, checks)
 
 
-def train_step_breakdown(dtype: str, steps: int = 5) -> dict:
+def train_attn_gates(runs, module_f32: dict) -> dict:
+  """The train_attn path's gates against the module-route float32 run
+  (the same shards, seed and dropout masks); raises on a failed one."""
+  steps = TRAIN_EXAMPLES // TRAIN_BATCH
+  eval_batches = EVAL_EXAMPLES // TRAIN_BATCH
+  layers = make_params('float32').num_hidden_layers
+  f32 = runs['float32']
+  rel = [abs(a - b) / abs(b) for a, b in zip(f32['losses'],
+                                             module_f32['losses'])]
+  eval_rel = abs(f32['eval']['eval/loss'] - module_f32['eval']['eval/loss']
+                 ) / abs(module_f32['eval']['eval/loss'])
+  want = {'K5': layers * eval_batches, 'K6': layers * steps,
+          'K7': layers * steps, 'K11': steps + eval_batches, 'K12': steps}
+  gates, checks = common_train_gates(runs)
+  gates.update({
+      'launches': {k: {n: r['launches'][n] for n in want}
+                   for k, r in runs.items()},
+      'f32_vs_module_route_max_rel_loss_diff': max(rel),
+      'f32_vs_module_route_eval_loss_rel_diff': eval_rel,
+      'peak_bytes': {k: r['summary']['peak_bytes'] for k, r in runs.items()},
+  })
+  checks += [
+      (all(v == want for v in gates['launches'].values()),
+       f'launches differ from {want}'),
+      (gates['f32_vs_module_route_max_rel_loss_diff'] <= 1e-4,
+       'f32 attention kernels vs the module route: a step loss differs by '
+       '> 1e-4 relative'),
+      (eval_rel <= 1e-4, 'f32 attention kernels vs the module route: the '
+       'eval loss differs by > 1e-4 relative'),
+  ]
+  return enforce('train_attn', gates, checks)
+
+
+def train_attn_step_gates(device: str = 'cuda') -> dict:
+  """One full-width float32 training forward and backward with non-zero
+  ReZero alphas (seeded U(0.1, 0.3)) on one batch and one dropout seed,
+  attention through K7 and K6 vs the module route. The train runs start
+  from Flax's zero alphas, where attention does not reach the loss; here
+  it does. Gates: the loss within 1e-4 relative, each parameter's
+  gradient (the norm of the difference over the norm) within 1e-3
+  (a ReZero alpha's gradient is one sum over 7M products, taken in
+  another order on each route; 1e-5 in a CPU rehearsal at batch 2),
+  and K7 and K6 launched once per layer. Raises on a failed gate."""
+  import numpy as np
+  import torch
+
+  from deepconsensus_tpu_torch.models import model as model_lib
+  from deepconsensus_tpu_torch.models import train as train_lib
+
+  dev = torch.device(device)
+  params = make_params('float32')
+  rng = np.random.default_rng(SEED + 5)
+  batch = train_lib.batch_to_device({
+      'rows': fake_rows(params, rng, TRAIN_BATCH),
+      'label': rng.integers(0, 5, (TRAIN_BATCH, LENGTH)).astype(np.float32),
+  }, dev)
+  loss_fn = train_lib.make_loss(params)
+  runs = {}
+  for attn in (True, False):
+    params.use_pallas_attention = attn
+    model = model_lib.DeepConsensusModel(params, device=dev)
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    model.requires_grad_(True)
+    reset_launches()
+    preds = model.forward_train(
+        batch['rows'], torch.Generator(device=dev).manual_seed(SEED))
+    loss = loss_fn(batch['label'], preds)
+    loss.backward()
+    torch.cuda.synchronize()
+    runs[attn] = (loss.item(), dict(model.named_parameters()),
+                  read_launches())
+  (k_loss, k_params, launches), (m_loss, m_params, _) = runs[True], runs[False]
+  leaf_rel = {n: float((k_params[n].grad - p.grad).norm()
+                       / p.grad.norm().clamp_min(1e-30))
+              for n, p in m_params.items()}
+  worst = max(leaf_rel, key=leaf_rel.get)
+  layers = params.num_hidden_layers
+  gates = {
+      'loss_rel_diff': abs(k_loss - m_loss) / abs(m_loss),
+      'max_leaf_grad_rel_diff': leaf_rel[worst], 'worst_leaf': worst,
+      'attention_leaf_grad_rel_diff': max(
+          v for n, v in leaf_rel.items() if 'self_attention' in n),
+      'launches': {n: launches[n] for n in ('K5', 'K6', 'K7')},
+  }
+  return enforce('train_attn_step', gates, [
+      (gates['launches'] == {'K5': 0, 'K6': layers, 'K7': layers},
+       'K7/K6 did not launch once per layer'),
+      (gates['loss_rel_diff'] <= 1e-4, 'the loss differs by > 1e-4'),
+      (gates['max_leaf_grad_rel_diff'] <= 1e-3,
+       f'gradient of {worst} differs by > 1e-3 relative'),
+  ])
+
+
+def train_step_breakdown(dtype: str, steps: int = 5,
+                         attn: bool = False) -> dict:
   """Phase 4 for one dtype: one full-width batch of TRAIN_BATCH seeded
   windows, the training step split into its stages, then one step
-  under torch.profiler."""
+  under torch.profiler (attn: attention through K5-K7)."""
   import numpy as np
   import torch
   from torch.profiler import ProfilerActivity, profile
@@ -759,6 +992,7 @@ def train_step_breakdown(dtype: str, steps: int = 5) -> dict:
 
   dev = torch.device('cuda')
   params = make_params(dtype)
+  params.use_pallas_attention = attn
   model = model_lib.DeepConsensusModel(params, device=dev)
   model.init_weights(torch.Generator().manual_seed(SEED))
   model.requires_grad_(True)
@@ -811,6 +1045,9 @@ def train_step_breakdown(dtype: str, steps: int = 5) -> dict:
       'stage_ms': stage_ms, 'step_ms': step_ms,
       'device_kernel_ms': device_ms,
       'device_idle_share': 1 - device_ms / step_ms,
+      # K5-K7 (csrc/banded_attention.cu's kernels) in the profiled step.
+      'banded_attention_ms': sum(e.self_device_time_total for e in kernels
+                                 if 'banded_' in e.key) / 1e3,
       'top_kernels_ms': [[e.key[:100], e.self_device_time_total / 1e3,
                           e.count] for e in top],
   }
@@ -862,6 +1099,7 @@ def main(argv) -> int:
   for dtype in ('float32', 'bfloat16'):
     result = check_kernels(dtype)
     result.update(check_ragged_kernels(dtype))
+    result.update(check_banded_attention_kernels(dtype))
     for name, r in result.items():
       print(json.dumps({'phase': 'kernel', 'kernel': name, 'dtype': dtype,
                         **r}), flush=True)
@@ -941,9 +1179,30 @@ def main(argv) -> int:
         'eval_loss': r['eval']['eval/loss']}), flush=True)
   train_gates(runs)
   launches_by_path['train'] = runs['bfloat16']['launches']
+  attn_runs = {}
   for dtype in ('bfloat16', 'float32'):
+    attn_runs[dtype] = r = run_train_path(shards, dtype, attn=True)
+    summary = r['summary']
+    print(json.dumps({
+        'phase': 'main_path', 'path': 'train_attn', 'run': dtype,
+        'launches': r['launches'], 'seconds': r['seconds'],
+        'losses': r['losses'], 'grad_norms': r['grad_norms'],
+        'step_ms': [1e3 * t for t in r['step_seconds']],
+        'step_p50_ms': 1e3 * summary['train_step_p50_s'],
+        'examples_per_s': summary['train_examples_per_s'],
+        'peak_bytes': summary['peak_bytes'],
+        'module_route_peak_bytes': runs[dtype]['summary']['peak_bytes'],
+        'module_route_step_p50_ms': 1e3 * runs[dtype]['summary'][
+            'train_step_p50_s'],
+        'eval_loss': r['eval']['eval/loss']}), flush=True)
+  train_attn_gates(attn_runs, runs['float32'])
+  train_attn_step_gates()
+  launches_by_path['train_attn'] = attn_runs['bfloat16']['launches']
+  for dtype, attn in (('bfloat16', False), ('float32', False),
+                      ('bfloat16', True)):
     print(json.dumps({'phase': 'train_breakdown', 'dtype': dtype,
-                      **train_step_breakdown(dtype)}), flush=True)
+                      'route': 'train_attn' if attn else 'train',
+                      **train_step_breakdown(dtype, attn=attn)}), flush=True)
 
   sources = {
       'K1': ('deepconsensus_tpu_torch/csrc/embed_condense.cu',
@@ -955,6 +1214,12 @@ def main(argv) -> int:
       'K4': ('deepconsensus_tpu_torch/csrc/ragged_attention.cu',
              'deepconsensus_tpu/ops/ragged_window_attention.py:320',
              'ragged'),
+      'K5': ('deepconsensus_tpu_torch/csrc/banded_attention.cu',
+             'deepconsensus_tpu/ops/banded_attention.py:93', 'train_attn'),
+      'K6': ('deepconsensus_tpu_torch/csrc/banded_attention.cu',
+             'deepconsensus_tpu/ops/banded_attention.py:222', 'train_attn'),
+      'K7': ('deepconsensus_tpu_torch/csrc/banded_attention.cu',
+             'deepconsensus_tpu/ops/banded_attention.py:281', 'train_attn'),
   }
   line = []
   for name, (source, replaces, path) in sources.items():
@@ -975,6 +1240,9 @@ def main(argv) -> int:
       entry.update({f'lengths_{k}': lv[k] for k in (
           'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'library_ms')})
       entry['lengths_float32_ms'] = kernels['float32']['K2_lengths']['ms']
+    if name == 'K6':  # K5's backward: no mask
+      entry['no_mask_ms'] = r['no_mask_ms']
+      entry['no_mask_float32_ms'] = kernels['float32']['K6']['no_mask_ms']
     line.append(entry)
   for name, replaces in (('K11', 'deepconsensus_tpu/ops/wavefront_pallas.py:231'),
                          ('K12', 'deepconsensus_tpu/ops/wavefront_pallas.py:487')):

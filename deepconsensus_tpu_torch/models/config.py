@@ -19,6 +19,10 @@ from deepconsensus_tpu_torch.preprocess.pileup import total_rows as _total_rows
 DEFAULT_MAX_LENGTH = 100
 # Longest window the fused kernels take (whole-window attention tiles).
 FUSED_MAX_WINDOW_LEN = 128
+# Longest window the whole-window training attention kernels (K5-K7,
+# use_pallas_attention) take; longer ones need the block-banded flash
+# kernels (reference flash_band_attention.WHOLE_L_LIMIT).
+WHOLE_L_LIMIT = 128
 # Default bucket set when params.window_buckets is requested but unset:
 # the reference L=100 plus one 2x bucket.
 DEFAULT_WINDOW_BUCKETS = (100, 200)
@@ -178,6 +182,9 @@ def get_config(config_name: Optional[str] = None) -> Params:
   params.dtype = 'bfloat16'  # compute dtype; params stay float32
   params.attn_softmax_dtype = None
   params.use_fused_hotpath = False
+  # Attention through the banded-attention kernels K5-K7 (training
+  # forward and backward, and the module route's forward).
+  params.use_pallas_attention = False
   params.quantize_matmuls = None
   # Training (reference: model_configs.py:320-323 for the loss).
   params.seed = 1

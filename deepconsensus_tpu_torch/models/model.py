@@ -21,7 +21,12 @@ Training (`forward_train`) takes the module route on any device, as the
 reference's training path does, with dropout where Flax puts it: on the
 input (input_dropout), on the attention weights, after the FFN's ReLU
 and on each sublayer's output inside its ReZero wrapper. Masks are
-drawn from an explicit torch.Generator on the rows' device.
+drawn from an explicit torch.Generator on the rows' device. With
+params.use_pallas_attention, BandedSelfAttention routes as the
+reference's does (ops/banded_attention.py): K7 with a keep-mask drawn
+where Dropout would draw it when attention dropout is on, else K5,
+both differentiated through K6; windows longer than WHOLE_L_LIMIT take
+the module route with dropout and are not ported without it.
 
 Ragged slots (`window_lengths`, inference with --use_ragged_kernel):
 rows [B, R, S] hold windows of bucket widths packed back to back per
@@ -43,6 +48,7 @@ from torch import nn
 from deepconsensus_tpu_torch import constants
 from deepconsensus_tpu_torch.devices import resolve_device
 from deepconsensus_tpu_torch.models import config as config_lib
+from deepconsensus_tpu_torch.ops import banded_attention as ba
 from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
 from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
 from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
@@ -90,10 +96,24 @@ class Dropout:
     if rate == 1.0:
       return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=self.generator,
-                      device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob,
+    return torch.where(self._keep(x.shape, keep_prob, x.device),
+                       x / keep_prob,
                        torch.zeros((), dtype=x.dtype, device=x.device))
+
+  def _keep(self, shape, keep_prob: float, device) -> torch.Tensor:
+    return torch.rand(shape, generator=self.generator,
+                      device=device) < keep_prob
+
+  def keep_mask(self, shape, kind: str, device
+                ) -> Tuple[torch.Tensor, float]:
+    """The uint8 keep-mask __call__ would apply to a tensor of `shape`
+    (the same random numbers, drawn at the same point of the stream),
+    and its keep probability. Rate 1 draws nothing and keeps nothing."""
+    rate = self.rates[kind]
+    if rate == 1.0:
+      return torch.zeros(shape, dtype=torch.uint8, device=device), 1.0
+    keep_prob = 1.0 - rate
+    return self._keep(shape, keep_prob, device).view(torch.uint8), keep_prob
 
 
 class Dense(nn.Module):
@@ -136,17 +156,19 @@ class MaskedEmbed(nn.Module):
 
 
 class BandedSelfAttention(nn.Module):
-  """Multi-head self-attention with a static banded mask (the
-  reference's XLA branch)."""
+  """Multi-head self-attention with a static banded mask: the
+  reference's XLA branch, or with use_kernels its Pallas branch (K5-K7)."""
 
   def __init__(self, hidden_size: int, num_heads: int,
-               attn_win_size: Optional[int], device):
+               attn_win_size: Optional[int], device,
+               use_kernels: bool = False):
     super().__init__()
     if hidden_size % num_heads:
       raise ValueError('hidden_size must be divisible by num_heads')
     self.num_heads = num_heads
     self.head_dim = hidden_size // num_heads
     self.attn_win_size = attn_win_size
+    self.use_kernels = use_kernels
     heads = (num_heads, self.head_dim)
     self.query = Dense((hidden_size,), heads, False, device)
     self.key = Dense((hidden_size,), heads, False, device)
@@ -179,7 +201,13 @@ class BandedSelfAttention(nn.Module):
     query = self.query(x, 1, dtype) * (self.head_dim ** -0.5)
     key = self.key(x, 1, dtype)
     value = self.value(x, 1, dtype)
-    if ragged_widths is None:
+    length = x.shape[1]
+    use_dropout = drop is not None and drop.rates['attention'] > 0.0
+    if ragged_widths is None and self.use_kernels and not (
+        use_dropout and length > config_lib.WHOLE_L_LIMIT):
+      out = self._attend_kernels(query, key, value, drop if use_dropout
+                                 else None)
+    elif ragged_widths is None:
       out = self._attend(query, key, value, dtype, drop)
     else:
       out = torch.zeros_like(query)
@@ -191,6 +219,24 @@ class BandedSelfAttention(nn.Module):
         out = out + torch.where((ragged_widths == w)[:, :, None, None],
                                 cand, torch.zeros((), dtype=cand.dtype))
     return self.output_transform(out, 2, dtype)
+
+  def _attend_kernels(self, query, key, value,
+                      drop: Optional[Dropout]) -> torch.Tensor:
+    """K7 with drop (its keep-mask drawn where `_attend` draws the
+    weights' dropout), else K5; both differentiate through K6."""
+    b, length, n, _ = query.shape
+    if length > config_lib.WHOLE_L_LIMIT:
+      raise NotImplementedError(
+          f'use_pallas_attention at L = {length} > WHOLE_L_LIMIT '
+          f'({config_lib.WHOLE_L_LIMIT}) without attention dropout needs '
+          'the block-banded flash kernels, which are not ported yet '
+          '(ROADMAP A1: K8-K10)')
+    if drop is None:
+      return ba.banded_attention_vjp(query, key, value, self.attn_win_size)
+    mask, keep_prob = drop.keep_mask((b, n, length, length), 'attention',
+                                     query.device)
+    return ba.banded_attention_dropout_vjp(query, key, value, mask,
+                                           self.attn_win_size, keep_prob)
 
 
 class FeedForward(nn.Module):
@@ -251,7 +297,8 @@ class EncoderStack(nn.Module):
     for n in range(self.num_layers):
       self.add_module(f'self_attention_{n}', BandedSelfAttention(
           params.hidden_size, params.num_heads,
-          params.attn_win_size or None, device))
+          params.attn_win_size or None, device,
+          bool(params.get('use_pallas_attention', False))))
       self.add_module(f'attention_wrapper_{n}', ResidualWrapper(device))
       self.add_module(f'ffn_{n}', FeedForward(
           params.hidden_size, params.filter_size, device))
@@ -481,7 +528,8 @@ class DeepConsensusModel(nn.Module):
   def forward_train(self, rows: torch.Tensor,
                     generator: Optional[torch.Generator] = None
                     ) -> torch.Tensor:
-    """The training forward: module route on any device, differentiable
+    """The training forward: module route on any device (attention
+    through K5-K7 with use_pallas_attention), differentiable
     (the caller sets requires_grad on the parameters), dropout drawn
     from `generator` (on the rows' device); without a generator no
     dropout, the reference's eval forward. Returns float32 softmax

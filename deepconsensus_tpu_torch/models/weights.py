@@ -15,6 +15,8 @@ the same names and layouts, so the bridge is a rename from '/'-paths to
 keys, so `cli run --weights w.npz --params params.json` needs no orbax;
 `cli train` writes its trained weights the same way.
 `gradients_to_flax` maps the port's gradients onto the same tree.
+The attention kernels (use_pallas_attention, K5-K7) add no parameters:
+a tree from a model with the flag on or off loads the same way.
 """
 from __future__ import annotations
 

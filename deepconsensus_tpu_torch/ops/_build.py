@@ -21,7 +21,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
 SOURCES = ('gemm', 'embed_condense', 'ragged_attention', 'phred_epilogue',
-           'wavefront')
+           'wavefront', 'banded_attention')
 NVCC_FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
@@ -45,6 +45,13 @@ SIGNATURES = {
                              _P),
         'dc_wavefront_bwd': (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P,
                              _P, _P),
+    },
+    'banded_attention': {
+        'dc_banded_attention_smem_bytes': (_I, _I, _I),
+        'dc_banded_attention_fwd': (_P, _P, _P, _P, _F, _P, _I, _I, _I, _I,
+                                    _I, _I, _P),
+        'dc_banded_attention_bwd': (_P, _P, _P, _P, _P, _F, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _P),
     },
 }
 

@@ -5,7 +5,8 @@ without one (decided in the fixture, never at import time). This file
 imports only torch, numpy and the port, so it runs on a machine without
 JAX:  python -m pytest tests/test_torch_gpu.py -m gpu
 Tolerances: float32 rtol = atol = 1e-4, bfloat16 2e-2, K3 exact; the
-alignment DP (K11/K12) scores rtol 1e-5, gradients rtol 1e-4, atol 1e-5.
+alignment DP (K11/K12) scores rtol 1e-5, gradients rtol 1e-4, atol 1e-5;
+the banded-attention training kernels (K5-K7) as K1/K2.
 """
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ from deepconsensus_tpu_torch.calibration import lib as calibration_lib
 from deepconsensus_tpu_torch.inference import runner
 from deepconsensus_tpu_torch.models import config
 from deepconsensus_tpu_torch.models import model as model_lib
+from deepconsensus_tpu_torch.ops import banded_attention as ba
 from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
 from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
 from deepconsensus_tpu_torch.ops import output_plane
@@ -257,3 +259,85 @@ def test_cuda_run_matches_cpu_run(cuda, tmp_path):
     assert (cn, cs) == (gn, gs)
     assert np.abs(np.frombuffer(cq, np.uint8).astype(int)
                   - np.frombuffer(gq, np.uint8).astype(int)).max() <= 1
+
+
+def attention_inputs(device, b, l, h, d, dtype, seed):
+  rng = np.random.default_rng(seed)
+  q, k, v, do = (torch.from_numpy(rng.normal(size=(b, l, h, d)).astype(
+      np.float32)).to(device=device, dtype=dtype) for _ in range(4))
+  mask = torch.from_numpy((rng.random((b, h, l, l)) < 0.9).astype(
+      np.uint8)).to(device)
+  return (q * d ** -0.5).contiguous(), k, v, do, mask
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,l,h,d,win', [(8, 100, 2, 140, 12),
+                                         (5, 57, 3, 40, 12),
+                                         (3, 57, 1, 40, None)])
+def test_banded_attention_kernels_match_plain(cuda, dtype, b, l, h, d, win):
+  """K5, K7 and K6 (with and without the mask), one launch each."""
+  q, k, v, do, mask = attention_inputs(cuda, b, l, h, d, dtype, seed=l + d)
+  tol = TOL[dtype]
+  before = (ba.n_fwd_launches, ba.n_dropout_fwd_launches, ba.n_bwd_launches)
+  pairs = [
+      (ba.banded_attention(q, k, v, win),
+       ba.banded_attention_plain(q, k, v, win)),
+      (ba.banded_attention_dropout(q, k, v, mask, win, 0.9),
+       ba.banded_attention_dropout_plain(q, k, v, mask, win, 0.9)),
+  ]
+  for m, keep in ((None, 1.0), (mask, 0.9)):
+    pairs += zip(ba.banded_attention_bwd(q, k, v, m, do, win, keep),
+                 ba.banded_attention_bwd_plain(q, k, v, m, do, win, keep))
+  torch.cuda.synchronize()
+  assert (ba.n_fwd_launches, ba.n_dropout_fwd_launches,
+          ba.n_bwd_launches) == (before[0] + 1, before[1] + 1, before[2] + 2)
+  for got, want in pairs:
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_banded_attention_wrappers_reject_bad_input(cuda):
+  q, k, v, do, mask = attention_inputs(cuda, 2, 16, 2, 8, torch.float32, 0)
+  with pytest.raises(ValueError, match='one of'):
+    ba.banded_attention(q.half(), k.half(), v.half(), 4)
+  with pytest.raises(ValueError, match='contiguous'):
+    ba.banded_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k,
+                        v, 4)
+  with pytest.raises(ValueError, match='mask is on'):
+    ba.banded_attention_dropout(q, k, v, mask.cpu(), 4, 0.9)
+  with pytest.raises(ValueError, match='mask must be uint8'):
+    ba.banded_attention_bwd(q, k, v, mask.bool(), do, 4, 0.9)
+  with pytest.raises(ValueError, match='shared memory'):
+    big = torch.zeros(1, 128, 1, 280, device=cuda)
+    ba.banded_attention(big, big, big, None)
+
+
+def test_training_step_with_attention_kernels_matches_the_cpu(cuda):
+  """One float32 train step with use_pallas_attention, dropout 0: the
+  card's (K5 forward and K6 backward per layer, K11/K12) loss within
+  1e-4 relative of the CPU's (plain versions)."""
+  from deepconsensus_tpu_torch.models import train as train_lib
+
+  params = small_params(attention_dropout=0.0, relu_dropout=0.0,
+                        layer_postprocess_dropout=0.0,
+                        use_pallas_attention=True)
+  rows = fake_rows(params, 8, seed=5).numpy()[..., None]
+  label = np.random.default_rng(6).integers(0, 5, (8, 100)).astype(
+      np.float32)
+  state = seeded_model(params, 'cpu').state_dict()
+  losses = []
+  for device in ('cpu', cuda):
+    model = model_lib.DeepConsensusModel(params, device=device)
+    model.load_state_dict(state)
+    model.requires_grad_(True)
+    lamb = train_lib.Lamb(model.named_parameters(), params, 10)
+    before = (ba.n_fwd_launches, ba.n_bwd_launches)
+    m = train_lib.train_step(
+        model, lamb, train_lib.make_loss(params),
+        train_lib.batch_to_device({'rows': rows, 'label': label}, device),
+        torch.Generator(device=device))
+    losses.append(float(m['loss']))
+    n = params.num_hidden_layers * (device != 'cpu')
+    assert (ba.n_fwd_launches, ba.n_bwd_launches) == (before[0] + n,
+                                                      before[1] + n)
+  np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
