@@ -21,7 +21,11 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    without its rows) and K12 (its backward) at 256 x 100 x 100 float32
    costs, loss_reg 0.1, mixed lengths: scores rtol 1e-5 (atol 1e-4),
    gradients rtol 1e-4, atol 1e-5, plus each kernel's time at one batch
-   row (the serial chain of 199 diagonals alone); K5 (banded attention
+   row (the serial chain of 199 diagonals alone); K13 and K14 (the
+   banded DP's forward, with and without rows, and backward) at the same
+   costs with lengths 0 and m, W = 12 and W = 100 = m, loss_reg 0.1 and
+   the hard minimum, with K11's gates against the plain banded DP and,
+   at W = 100, against K11/K12 too; K5 (banded attention
    forward), K7 (its dropout forward) and K6 (its backward, with and
    without the mask) at 256 windows x 100 positions x 2 heads of 140,
    band 12, with the float32 / bfloat16 tolerances above; library
@@ -43,7 +47,14 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    d. `train_attn`: c's `cli train` with --set use_pallas_attention=true
       in bfloat16 and float32 (no plain run: c's float32 run, whose
       attention is the module route under the same dropout masks, is
-      the reference).
+      the reference);
+   e. `train_band`: c's `cli train` with --set band_width=12, in
+      bfloat16 and float32, then float32 through the plain banded DP on
+      the card;
+   f. `long_window`: one full-width forward and backward at L = 500
+      (batch 256, attention dropout 0) through the ring route, through
+      the module route forced on the same inputs and weights, and with
+      use_pallas_attention, in float32 and bfloat16.
    Gates: each path's kernels launched (a: K1-K3, b: K4, K2, K3, c: K11
    once per step and eval batch, K12 once per step, no K5-K7; d: K7 and
    K6 once per layer and step, K5 once per layer and eval batch, K11
@@ -63,15 +74,23 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    attention does not reach the loss, so d also takes one full-width
    float32 forward and backward with seeded non-zero alphas through
    K7/K6 and through the module route: loss within 1e-4 relative,
-   each parameter's gradient within 1e-3.
+   each parameter's gradient within 1e-3. e: K13 once per step and
+   eval batch, K14 once per step, K11/K12 never; every loss and
+   gradient norm finite; the float32 losses (every step, and eval)
+   within 1e-4 relative of the plain run's; bfloat16's first loss
+   within 2% of float32's; step p50 and peak memory printed beside c's.
+   f: float32 loss within 1e-5 relative, each parameter's gradient
+   within 1e-3 of its norm (long_window_gates says why), the ring route
+   once per layer on both ring runs, no attention kernel launched; both
+   routes' peak memory printed.
 4. Where a full-width train step's time goes, in bfloat16 and float32,
-   and in bfloat16 with attention through K5-K7:
+   and in bfloat16 with attention through K5-K7 and with band_width 12:
    forward, loss (costs and K11), backward (K12 and autograd) and LAMB
    timed apart (synchronized, median of 5 steps after 2), and one step
    under torch.profiler: the device's busy time (its kernels' time
    summed), the idle share of the unprofiled step, and the kernels that
    take most of it.
-5. A `{"kernels": [...]}` line (K1-K7, K11, K12), the card line again,
+5. A `{"kernels": [...]}` line (K1-K7, K11-K14), the card line again,
    and the last line `{"ok": true, "device": {...}}`.
 
 `--kernels-only` stops after phase 2 and prints no result (a first
@@ -99,6 +118,8 @@ N_ZMWS, SEQ_LEN, N_SUBREADS = 128, 2000, 10
 TRAIN_CONFIG = 'transformer_learn_values+custom'
 TRAIN_BATCH, TRAIN_EXAMPLES, EVAL_EXAMPLES = 256, 1024, 256
 DEL_COST, LOSS_REG = 10.0, 0.1
+# The train_band path's AlignmentLoss band width (--set band_width=12).
+BAND_WIDTH = 12
 # float32 operations per DP cell: forward, the soft minimum of three
 # options (3 adds, 3 scalings, 2 max, 3 subtractions, 3 exp, 2 adds, a
 # log, an add and a multiply); backward, the same recomputed plus 3
@@ -523,6 +544,122 @@ def check_wavefront_kernels(device: str = 'cuda') -> dict:
   return out
 
 
+def band_cells(lens, n: int, width: int) -> int:
+  """DP cells the banded scores of these lengths need: (x, y) with
+  x <= len, y <= min(n, len + width), |y - x| <= width."""
+  total = 0
+  for length in lens.tolist():
+    y_end = min(n, length + width)
+    total += sum(max(0, min(y_end, x + width) - max(0, x - width) + 1)
+                 for x in range(length + 1))
+  return total
+
+
+def check_band_kernels(device: str = 'cuda') -> dict:
+  """Phase 2 for the banded DP (float32 costs): K13 without and with
+  rows, K14 on those rows, vs the plain banded DP and its autograd, at
+  W = 12 and W = 100 = m, loss_reg 0.1 and the hard minimum; at W = 100
+  also vs K11/K12, whose DP the band then covers."""
+  import numpy as np
+  import torch
+
+  from deepconsensus_tpu_torch.ops import wavefront
+  from deepconsensus_tpu_torch.ops import wavefront_cuda
+
+  dev = torch.device(device)
+  rng = np.random.default_rng(SEED + 6)
+  b, m = TRAIN_BATCH, LENGTH
+  lens = rng.integers(m // 2, m + 1, b).astype(np.int32)
+  lens[:2] = (0, m)
+  subs = torch.from_numpy(rng.uniform(0, 8, (b, m, m)).astype(np.float32))
+  ins = torch.from_numpy(rng.uniform(0, 8, (b, m)).astype(np.float32))
+  subs, ins, lens = subs.to(dev), ins.to(dev), torch.from_numpy(lens).to(dev)
+  grad = torch.from_numpy(rng.uniform(0.5, 2, b).astype(np.float32)).to(dev)
+  errs = {'K13': [], 'K14': [], 'K13_vs_K11': [], 'K14_vs_K12': []}
+  timed = {}
+  for width in (BAND_WIDTH, m):
+    for reg in (LOSS_REG, None):
+      def k13(s=subs, i=ins, lengths=lens, w=width, r=reg):
+        return wavefront_cuda.banded_alignment_scores_with_rows(
+            s, i, DEL_COST, lengths, w, r)
+
+      def plain(s=subs, i=ins, w=width, r=reg):
+        return wavefront.banded_alignment_scan(s, i, DEL_COST, lens, w, r)
+
+      want = plain()
+      no_rows = wavefront_cuda.banded_alignment_scores(subs, ins, DEL_COST,
+                                                       lens, width, reg)
+      scores, rows = k13()
+      s_req = subs.clone().requires_grad_(True)
+      i_req = ins.clone().requires_grad_(True)
+      plain_value = plain(s_req, i_req)
+
+      def k14(s=subs, i=ins, lengths=lens, r_=rows, g=grad, w=width, r=reg):
+        return wavefront_cuda.launch_band_bwd(s, i, lengths, r_, g, w,
+                                              DEL_COST, r)
+
+      def k14_plain(v=plain_value, s_=s_req, i_=i_req):
+        return torch.autograd.grad(v, (s_, i_), grad, retain_graph=True)
+
+      d_subs, d_ins = k14()
+      want_ds, want_di = k14_plain()
+      torch.cuda.synchronize()
+      if not bool(torch.isfinite(d_subs).all() and torch.isfinite(d_ins).all()):
+        raise AssertionError(f'K14 wrote non-finite gradients (W={width})')
+      errs['K13'].append(max(max_err(no_rows, want, 1e-5, 1e-4),
+                             max_err(scores, want, 1e-5, 1e-4)))
+      errs['K14'].append(max(max_err(d_subs, want_ds, 1e-4, 1e-5),
+                             max_err(d_ins, want_di, 1e-4, 1e-5)))
+      if width >= m:
+        full, full_rows = wavefront_cuda.alignment_scores_with_rows(
+            subs, ins, DEL_COST, lens, reg)
+        f_ds, f_di = wavefront_cuda.launch_bwd(subs, ins, lens, full_rows,
+                                               grad, DEL_COST, reg)
+        torch.cuda.synchronize()
+        errs['K13_vs_K11'].append(max_err(scores, full, 1e-5, 1e-4))
+        errs['K14_vs_K12'].append(max(max_err(d_subs, f_ds, 1e-4, 1e-5),
+                                      max_err(d_ins, f_di, 1e-4, 1e-5)))
+      if width == BAND_WIDTH and reg == LOSS_REG:
+        one = (subs[:1], ins[:1], lens[:1])
+        _, rows1 = k13(*one)
+        timed = dict(
+            k13_ms=cuda_ms(k13), no_rows_ms=cuda_ms(
+                lambda: wavefront_cuda.banded_alignment_scores(
+                    subs, ins, DEL_COST, lens, BAND_WIDTH, LOSS_REG)),
+            k13_plain_ms=cuda_ms(plain),
+            k13_floor_ms=cuda_ms(lambda: k13(*one)),
+            k14_ms=cuda_ms(k14), k14_plain_ms=cuda_ms(k14_plain),
+            k14_floor_ms=cuda_ms(lambda: k14(*one, rows1, grad[:1])),
+            rows_bytes=rows.numel() * 4)
+  # Bytes: each input read once (the costs: the band's cells only, the
+  # part the function reads), each output written once. Operations: the
+  # banded cells this run's lengths need.
+  cells = band_cells(lens.cpu(), m, BAND_WIDTH)
+  band_subs = b * sum(min(m - 1, i + BAND_WIDTH) - max(0, i - BAND_WIDTH) + 1
+                      for i in range(m))
+  in_bytes = (band_subs + ins.numel() + lens.numel()) * 4
+  fwd_bytes = in_bytes + b * 4 + timed['rows_bytes']
+  bwd_bytes = (in_bytes + timed['rows_bytes'] + b * 4
+               + (subs.numel() + ins.numel()) * 4)
+  out = {}
+  t_bound, by = bound(cells * FWD_OPS_PER_CELL, fwd_bytes, 'float32')
+  out['K13'] = dict(
+      max_abs_err=max(errs['K13']), ms=timed['k13_ms'],
+      no_rows_ms=timed['no_rows_ms'], plain_ms=timed['k13_plain_ms'],
+      library_ms=None, bound_ms=t_bound, bound_by=by,
+      serial_floor_ms=timed['k13_floor_ms'],
+      max_abs_err_vs_K11=max(errs['K13_vs_K11']),
+      flops=cells * FWD_OPS_PER_CELL, bytes=fwd_bytes)
+  t_bound, by = bound(cells * BWD_OPS_PER_CELL, bwd_bytes, 'float32')
+  out['K14'] = dict(
+      max_abs_err=max(errs['K14']), ms=timed['k14_ms'],
+      plain_ms=timed['k14_plain_ms'], library_ms=None, bound_ms=t_bound,
+      bound_by=by, serial_floor_ms=timed['k14_floor_ms'],
+      max_abs_err_vs_K12=max(errs['K14_vs_K12']),
+      flops=cells * BWD_OPS_PER_CELL, bytes=bwd_bytes)
+  return out
+
+
 def check_banded_attention_kernels(dtype: str, device: str = 'cuda') -> dict:
   """Phase 2 for one dtype: K5, K7 and K6 (with and without the mask)
   at the train path's attention shapes, vs their plain versions."""
@@ -626,7 +763,9 @@ def counted_modules():
           'K5': (ba, 'n_fwd_launches'), 'K6': (ba, 'n_bwd_launches'),
           'K7': (ba, 'n_dropout_fwd_launches'),
           'K11': (wavefront_cuda, 'n_fwd_launches'),
-          'K12': (wavefront_cuda, 'n_bwd_launches')}
+          'K12': (wavefront_cuda, 'n_bwd_launches'),
+          'K13': (wavefront_cuda, 'n_band_fwd_launches'),
+          'K14': (wavefront_cuda, 'n_band_bwd_launches')}
 
 
 def reset_launches() -> None:
@@ -642,7 +781,8 @@ def read_launches() -> dict:
 # The kernels each path must launch.
 PATH_KERNELS = {'L100': ('K1', 'K2', 'K3'), 'ragged': ('K4', 'K2', 'K3'),
                 'train': ('K11', 'K12'),
-                'train_attn': ('K5', 'K6', 'K7', 'K11', 'K12')}
+                'train_attn': ('K5', 'K6', 'K7', 'K11', 'K12'),
+                'train_band': ('K13', 'K14')}
 RUN_PATHS = ('L100', 'ragged')
 RAGGED_FLAGS = ('--use_ccs_smart_windows', '--window_buckets',
                 ','.join(map(str, BUCKETS)), '--use_ragged_kernel')
@@ -787,21 +927,25 @@ def path_gates(path: str, runs) -> dict:
 
 
 def run_train_path(shards, dtype: str, plain: bool = False,
-                   attn: bool = False) -> dict:
+                   attn: bool = False, band: bool = False) -> dict:
   """One `cli train` epoch over the synthetic shards (plain: the same
   through run_training with the plain DP; attn: with
-  --set use_pallas_attention=true); returns the run's launches,
-  per-step losses and gradient norms, eval metrics and summary."""
+  --set use_pallas_attention=true; band: with --set band_width=12);
+  returns the run's launches, per-step losses and gradient norms, eval
+  metrics and summary."""
   from deepconsensus_tpu_torch import cli
   from deepconsensus_tpu_torch.models import config as config_lib
   from deepconsensus_tpu_torch.models import train as train_lib
 
-  out = os.path.join(WORK, f'train{"_attn" if attn else ""}_{dtype}'
+  route = '_attn' if attn else '_band' if band else ''
+  out = os.path.join(WORK, f'train{route}_{dtype}'
                      f'{"_plain" if plain else ""}')
   shutil.rmtree(out, ignore_errors=True)
   overrides = {'dtype': dtype, 'log_every_n_steps': 1}
   if attn:
-    overrides['use_pallas_attention'] = 'true'
+    overrides['use_pallas_attention'] = True
+  if band:
+    overrides['band_width'] = BAND_WIDTH
   reset_launches()
   t0 = time.perf_counter()
   if plain:
@@ -815,7 +959,8 @@ def run_train_path(shards, dtype: str, plain: bool = False,
       'train', '--config', TRAIN_CONFIG, '--out_dir', out, '--train_path',
       shards[0], '--eval_path', shards[1], '--num_epochs', '1',
       '--batch_size', str(TRAIN_BATCH),
-      *(a for k, v in overrides.items() for a in ('--set', f'{k}={v}'))
+      *(a for k, v in overrides.items()
+        for a in ('--set', f'{k}={str(v).lower()}'))
   ]) != 0:
     raise AssertionError(f'cli train failed ({dtype})')
   seconds = time.perf_counter() - t0
@@ -918,6 +1063,150 @@ def train_attn_gates(runs, module_f32: dict) -> dict:
   return enforce('train_attn', gates, checks)
 
 
+def train_band_gates(runs, module: dict) -> dict:
+  """The train_band path's gates (K13/K14 against the plain banded DP on
+  the card); `module` holds the train path's runs, whose step times and
+  peak memory are printed beside. Raises on a failed gate."""
+  steps = TRAIN_EXAMPLES // TRAIN_BATCH
+  eval_batches = EVAL_EXAMPLES // TRAIN_BATCH
+  f32, plain = runs['float32'], runs['float32_plain']
+  rel = [abs(a - b) / abs(b) for a, b in zip(f32['losses'], plain['losses'])]
+  eval_rel = abs(f32['eval']['eval/loss'] - plain['eval']['eval/loss']
+                 ) / abs(plain['eval']['eval/loss'])
+  want = {'K11': 0, 'K12': 0, 'K13': steps + eval_batches, 'K14': steps}
+  gates, checks = common_train_gates(runs)
+  gates.update({
+      'launches': {k: {n: r['launches'][n] for n in want}
+                   for k, r in runs.items()},
+      'f32_vs_plain_max_rel_loss_diff': max(rel),
+      'f32_vs_plain_eval_loss_rel_diff': eval_rel,
+      'step_p50_ms': {k: 1e3 * r['summary']['train_step_p50_s']
+                      for k, r in runs.items()},
+      'train_step_p50_ms': {k: 1e3 * r['summary']['train_step_p50_s']
+                            for k, r in module.items()},
+      'peak_bytes': {k: r['summary']['peak_bytes'] for k, r in runs.items()},
+      'train_peak_bytes': {k: r['summary']['peak_bytes']
+                           for k, r in module.items()},
+  })
+  checks += [
+      (all(gates['launches'][k] == want for k in ('bfloat16', 'float32')),
+       f'launches differ from {want}'),
+      (all(v == 0 for v in gates['launches']['float32_plain'].values()),
+       'the plain run launched a DP kernel'),
+      (max(rel) <= 1e-4,
+       'f32 K13/K14 vs the plain banded DP: a step loss differs by > 1e-4 '
+       'relative'),
+      (eval_rel <= 1e-4, 'f32 K13 vs the plain banded DP: the eval loss '
+       'differs by > 1e-4 relative'),
+  ]
+  return enforce('train_band', gates, checks)
+
+
+def long_window_gates(device: str = 'cuda', batch: int = TRAIN_BATCH
+                      ) -> dict:
+  """Phase 3f (the ring route): one full-width forward and backward of
+  the model at LONG_INSERT_WINDOW_LEN = 500 with attention dropout 0
+  (the other dropouts at the config's rates, one seeded generator per
+  run), seeded non-zero ReZero alphas, in float32 and bfloat16: through
+  the ring route, through the module route forced on the same inputs,
+  weights and masks, and with use_pallas_attention (which must take the
+  ring route). Gates: float32 loss within 1e-5 relative; each
+  parameter's gradient (the norm of the difference over the norm)
+  within 1e-3: at L = 500 float32 rounding alone moves a leaf's gradient
+  by up to ~1e-3 of its norm (the two routes agree to 1e-12 in float64,
+  tests/test_torch_ring_attention.py; on an H100 the routes differ by
+  1.6e-4 at batch 256 and 1.7e-3 at batch 64, in an embedding or a
+  ReZero alpha); the ring route taken once per layer and no
+  attention kernel launched. Raises on a failed gate."""
+  import numpy as np
+  import torch
+
+  from deepconsensus_tpu_torch.models import config as config_lib
+  from deepconsensus_tpu_torch.models import model as model_lib
+  from deepconsensus_tpu_torch.models import train as train_lib
+  from deepconsensus_tpu_torch.parallel import ring_attention
+
+  dev = torch.device(device)
+  length = config_lib.LONG_INSERT_WINDOW_LEN
+  rng = np.random.default_rng(SEED + 7)
+  layers = make_params('float32').num_hidden_layers
+  host = {'rows': fake_rows(make_params('float32'), rng, batch, length),
+          'label': rng.integers(0, 5, (batch, length)).astype(np.float32)}
+  gates = {'batch': batch, 'length': length}
+  for dtype in ('float32', 'bfloat16'):
+    params = make_params(dtype)
+    params.attention_dropout = 0.0
+    batch_dev = train_lib.batch_to_device(host, dev)
+    loss_fn = train_lib.make_loss(params)
+    runs = {}
+    for route in ('ring', 'module', 'ring_flag'):
+      params.use_pallas_attention = route == 'ring_flag'
+      model = model_lib.DeepConsensusModel(params, device=dev)
+      model.init_weights(torch.Generator().manual_seed(SEED))
+      model.requires_grad_(True)
+      ring_min = config_lib.RING_ATTENTION_MIN_LEN
+      if route == 'module':  # force the [B, N, L, L] module route
+        config_lib.RING_ATTENTION_MIN_LEN = 10 ** 9
+      ring_attention.n_calls = 0
+      reset_launches()
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+      t0 = time.perf_counter()
+      try:
+        preds = model.forward_train(
+            batch_dev['rows'], torch.Generator(device=dev).manual_seed(SEED))
+        loss = loss_fn(batch_dev['label'], preds)
+        loss.backward()
+        torch.cuda.synchronize()
+      finally:
+        config_lib.RING_ATTENTION_MIN_LEN = ring_min
+      runs[route] = dict(
+          loss=loss.item(), ms=1e3 * (time.perf_counter() - t0),
+          peak_bytes=torch.cuda.max_memory_allocated(),
+          ring_calls=ring_attention.n_calls,
+          attention_launches=sum(read_launches()[n]
+                                 for n in ('K5', 'K6', 'K7')),
+          grads={n: p.grad for n, p in model.named_parameters()})
+    ring, module = runs['ring'], runs['module']
+    leaf_rel = {n: float((g.float() - module['grads'][n].float()).norm()
+                         / module['grads'][n].float().norm().clamp_min(1e-30))
+                for n, g in ring['grads'].items()}
+    worst = max(leaf_rel, key=leaf_rel.get)
+    gates[dtype] = {
+        'loss': {k: r['loss'] for k, r in runs.items()},
+        'loss_rel_diff': abs(ring['loss'] - module['loss'])
+                         / abs(module['loss']),
+        'max_leaf_grad_rel_diff': leaf_rel[worst], 'worst_leaf': worst,
+        'flag_vs_ring_loss_diff': abs(runs['ring_flag']['loss']
+                                      - ring['loss']),
+        'ring_calls': {k: r['ring_calls'] for k, r in runs.items()},
+        'attention_kernel_launches': {k: r['attention_launches']
+                                      for k, r in runs.items()},
+        'peak_bytes': {k: r['peak_bytes'] for k, r in runs.items()},
+        'ms': {k: r['ms'] for k, r in runs.items()},
+    }
+  f32 = gates['float32']
+  checks = [
+      (f32['loss_rel_diff'] <= 1e-5,
+       'f32 ring vs module route: the loss differs by > 1e-5 relative'),
+      (f32['max_leaf_grad_rel_diff'] <= 1e-3,
+       f'f32 ring vs module route: gradient of {f32["worst_leaf"]} differs '
+       'by > 1e-3 of its norm'),
+  ]
+  for dtype in ('float32', 'bfloat16'):
+    g = gates[dtype]
+    checks += [
+        (g['ring_calls'] == {'ring': layers, 'module': 0,
+                             'ring_flag': layers},
+         f'{dtype}: the ring route was not taken once per layer'),
+        (all(v == 0 for v in g['attention_kernel_launches'].values()),
+         f'{dtype}: an attention kernel launched at L = {length}'),
+        (all(math.isfinite(v) for v in g['loss'].values()),
+         f'{dtype}: a loss is not finite'),
+    ]
+  return enforce('long_window', gates, checks)
+
+
 def train_attn_step_gates(device: str = 'cuda') -> dict:
   """One full-width float32 training forward and backward with non-zero
   ReZero alphas (seeded U(0.1, 0.3)) on one batch and one dropout seed,
@@ -978,11 +1267,12 @@ def train_attn_step_gates(device: str = 'cuda') -> dict:
   ])
 
 
-def train_step_breakdown(dtype: str, steps: int = 5,
-                         attn: bool = False) -> dict:
+def train_step_breakdown(dtype: str, steps: int = 5, attn: bool = False,
+                         band: bool = False) -> dict:
   """Phase 4 for one dtype: one full-width batch of TRAIN_BATCH seeded
   windows, the training step split into its stages, then one step
-  under torch.profiler (attn: attention through K5-K7)."""
+  under torch.profiler (attn: attention through K5-K7; band: the loss
+  with band_width 12, K13/K14)."""
   import numpy as np
   import torch
   from torch.profiler import ProfilerActivity, profile
@@ -993,6 +1283,7 @@ def train_step_breakdown(dtype: str, steps: int = 5,
   dev = torch.device('cuda')
   params = make_params(dtype)
   params.use_pallas_attention = attn
+  params.band_width = BAND_WIDTH if band else None
   model = model_lib.DeepConsensusModel(params, device=dev)
   model.init_weights(torch.Generator().manual_seed(SEED))
   model.requires_grad_(True)
@@ -1048,6 +1339,10 @@ def train_step_breakdown(dtype: str, steps: int = 5,
       # K5-K7 (csrc/banded_attention.cu's kernels) in the profiled step.
       'banded_attention_ms': sum(e.self_device_time_total for e in kernels
                                  if 'banded_' in e.key) / 1e3,
+      # K11-K14 (csrc/wavefront.cu's kernels) in the profiled step.
+      'alignment_dp_ms': sum(e.self_device_time_total for e in kernels
+                             if 'wavefront_' in e.key or 'band_fwd' in e.key
+                             or 'band_bwd' in e.key) / 1e3,
       'top_kernels_ms': [[e.key[:100], e.self_device_time_total / 1e3,
                           e.count] for e in top],
   }
@@ -1105,6 +1400,7 @@ def main(argv) -> int:
                         **r}), flush=True)
     kernels[dtype] = result
   dp_kernels = check_wavefront_kernels()
+  dp_kernels.update(check_band_kernels())
   for name, r in dp_kernels.items():
     print(json.dumps({'phase': 'kernel', 'kernel': name, 'dtype': 'float32',
                       **r}), flush=True)
@@ -1198,11 +1494,33 @@ def main(argv) -> int:
   train_attn_gates(attn_runs, runs['float32'])
   train_attn_step_gates()
   launches_by_path['train_attn'] = attn_runs['bfloat16']['launches']
-  for dtype, attn in (('bfloat16', False), ('float32', False),
-                      ('bfloat16', True)):
+  band_runs = {}
+  for dtype, plain in (('bfloat16', False), ('float32', False),
+                       ('float32', True)):
+    label = dtype + ('_plain' if plain else '')
+    band_runs[label] = r = run_train_path(shards, dtype, plain, band=True)
+    summary = r['summary']
+    print(json.dumps({
+        'phase': 'main_path', 'path': 'train_band', 'run': label,
+        'launches': r['launches'], 'seconds': r['seconds'],
+        'losses': r['losses'], 'grad_norms': r['grad_norms'],
+        'step_ms': [1e3 * t for t in r['step_seconds']],
+        'step_p50_ms': 1e3 * summary['train_step_p50_s'],
+        'examples_per_s': summary['train_examples_per_s'],
+        'peak_bytes': summary['peak_bytes'],
+        'train_step_p50_ms': 1e3 * runs[label]['summary'][
+            'train_step_p50_s'],
+        'train_peak_bytes': runs[label]['summary']['peak_bytes'],
+        'eval_loss': r['eval']['eval/loss']}), flush=True)
+  train_band_gates(band_runs, runs)
+  launches_by_path['train_band'] = band_runs['bfloat16']['launches']
+  long_window_gates()
+  for dtype, route in (('bfloat16', 'train'), ('float32', 'train'),
+                       ('bfloat16', 'train_attn'), ('bfloat16', 'train_band')):
     print(json.dumps({'phase': 'train_breakdown', 'dtype': dtype,
-                      'route': 'train_attn' if attn else 'train',
-                      **train_step_breakdown(dtype, attn=attn)}), flush=True)
+                      'route': route, **train_step_breakdown(
+                          dtype, attn=route == 'train_attn',
+                          band=route == 'train_band')}), flush=True)
 
   sources = {
       'K1': ('deepconsensus_tpu_torch/csrc/embed_condense.cu',
@@ -1244,20 +1562,24 @@ def main(argv) -> int:
       entry['no_mask_ms'] = r['no_mask_ms']
       entry['no_mask_float32_ms'] = kernels['float32']['K6']['no_mask_ms']
     line.append(entry)
-  for name, replaces in (('K11', 'deepconsensus_tpu/ops/wavefront_pallas.py:231'),
-                         ('K12', 'deepconsensus_tpu/ops/wavefront_pallas.py:487')):
+  for name, replaces, path in (
+      ('K11', 'deepconsensus_tpu/ops/wavefront_pallas.py:231', 'train'),
+      ('K12', 'deepconsensus_tpu/ops/wavefront_pallas.py:487', 'train'),
+      ('K13', 'deepconsensus_tpu/ops/wavefront_pallas.py:698', 'train_band'),
+      ('K14', 'deepconsensus_tpu/ops/wavefront_pallas.py:905', 'train_band')):
     r = dp_kernels[name]
+    extra = {k: r[k] for k in ('no_rows_ms', 'max_abs_err_vs_K11',
+                               'max_abs_err_vs_K12') if k in r}
     line.append({
         'name': name, 'route': 'cuda',
         'source': 'deepconsensus_tpu_torch/csrc/wavefront.cu',
-        'replaces': replaces, 'launches': launches_by_path['train'][name],
+        'replaces': replaces, 'launches': launches_by_path[path][name],
         'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
         'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
         'bound_by': r['bound_by'], 'library_ms': None, 'dtype': 'float32',
-        'status': 'ported', 'path': 'train',
+        'status': 'ported', 'path': path,
         'launches_by_path': {k: v[name] for k, v in launches_by_path.items()},
-        'serial_floor_ms': r['serial_floor_ms'],
-        **({'no_rows_ms': r['no_rows_ms']} if name == 'K11' else {})})
+        'serial_floor_ms': r['serial_floor_ms'], **extra})
   print(json.dumps({'kernels': line}))
   print(card_line())
   print(json.dumps({'ok': True, 'device': {

@@ -26,6 +26,17 @@ WHOLE_L_LIMIT = 128
 # Default bucket set when params.window_buckets is requested but unset:
 # the reference L=100 plus one 2x bucket.
 DEFAULT_WINDOW_BUCKETS = (100, 200)
+# Long-insert geometry. Training windows at or past
+# RING_ATTENTION_MIN_LEN route BandedSelfAttention through the
+# blockwise ring-attention scan (parallel/ring_attention.py) instead
+# of materializing the [B, N, L, L] logits: at L=500 the full logits
+# tensor no longer fits the fused kernel's VMEM tiling, and the
+# banded structure makes the blockwise online-softmax pass both exact
+# and memory-bounded. Buckets below the crossover (100, 200) keep the
+# module route's einsums (or K5-K7 with use_pallas_attention).
+# (Reference: deepconsensus_tpu/models/config.py.)
+RING_ATTENTION_MIN_LEN = 256
+LONG_INSERT_WINDOW_LEN = 500
 # bf16 acceptance gate: per-base Phred QVs within this many units of
 # f32 on argmax-agreeing positions (same value as the reference).
 BF16_QV_GATE = 3

@@ -3,9 +3,11 @@
 AlignmentLoss is the reference's soft edit-distance training objective:
 a wavefront DP over cross-entropy substitution and insertion costs with
 a constant deletion cost and a logsumexp soft minimum. The costs are
-plain torch, as the reference computes them outside Pallas; the DP is
-K11/K12 (ops/wavefront_cuda.py) on the card and the plain DP on the
-CPU. The banded DP (band_width, K13/K14) is not ported.
+plain torch, as the reference computes them outside Pallas. The DP
+routes as the reference's `per_example`: with a band width (the
+config's band_width) the banded DP, K13/K14 on the card; otherwise the
+full DP, K11/K12 (ops/wavefront_cuda.py). On the CPU, or with
+plain=True, the plain DPs of ops/wavefront.py run instead.
 """
 from __future__ import annotations
 
@@ -50,19 +52,17 @@ class AlignmentLoss:
   """Soft alignment loss; calling it returns the mean over the batch.
 
   While autograd records and y_pred requires a gradient, the DP runs
-  with its rows saved (K11 with rows, then K12 in the backward);
-  otherwise K11 scores alone. plain=True takes the plain DP on any
-  device (the on-card reference run).
+  with its rows saved (K11 with rows, then K12 in the backward; banded,
+  K13 and K14); otherwise K11 (K13) scores alone. plain=True takes the
+  plain DP on any device (the on-card reference run). The kernels take
+  a width of at least 1; the plain banded DP also takes 0.
   """
 
   def __init__(self, del_cost: float = 1.0,
                loss_reg: Optional[float] = 1.0,
                width: Optional[int] = None, eps: float = 1e-7,
                inf: float = 1e9, plain: bool = False):
-    if width is not None:
-      raise NotImplementedError(
-          f'band_width={width}: the banded alignment DP (K13/K14) is not '
-          'ported yet (ROADMAP: training, banded loss)')
+    self.width = None if width is None else int(width)
     self.del_cost = float(del_cost)
     self.loss_reg = None if loss_reg is None else float(loss_reg)
     self.eps = eps
@@ -78,10 +78,23 @@ class AlignmentLoss:
     y_pred = y_pred / y_pred.sum(-1, keepdim=True)
     subs_costs = xentropy_subs_cost(y_true, y_pred, self.eps)
     ins_costs = xentropy_ins_cost(y_pred, self.eps)
+    differentiable = torch.is_grad_enabled() and y_pred.requires_grad
+    if self.width is not None:
+      if self.plain:
+        return wavefront.banded_alignment_scan(
+            subs_costs, ins_costs, self.del_cost, seq_lens, self.width,
+            self.loss_reg, self.inf)
+      if differentiable:
+        return wavefront_cuda.banded_alignment_scores_vjp(
+            subs_costs, ins_costs, seq_lens, self.del_cost, self.loss_reg,
+            self.width, self.inf)
+      return wavefront_cuda.banded_alignment_scores(
+          subs_costs, ins_costs, self.del_cost, seq_lens, self.width,
+          self.loss_reg, self.inf)
     if self.plain:
       return wavefront.alignment_scan(subs_costs, ins_costs, self.del_cost,
                                       seq_lens, self.loss_reg, self.inf)
-    if torch.is_grad_enabled() and y_pred.requires_grad:
+    if differentiable:
       return wavefront_cuda.alignment_scores_vjp(
           subs_costs, ins_costs, seq_lens, self.del_cost, self.loss_reg,
           self.inf)

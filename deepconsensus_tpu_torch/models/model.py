@@ -21,12 +21,18 @@ Training (`forward_train`) takes the module route on any device, as the
 reference's training path does, with dropout where Flax puts it: on the
 input (input_dropout), on the attention weights, after the FFN's ReLU
 and on each sublayer's output inside its ReZero wrapper. Masks are
-drawn from an explicit torch.Generator on the rows' device. With
-params.use_pallas_attention, BandedSelfAttention routes as the
-reference's does (ops/banded_attention.py): K7 with a keep-mask drawn
-where Dropout would draw it when attention dropout is on, else K5,
-both differentiated through K6; windows longer than WHOLE_L_LIMIT take
-the module route with dropout and are not ported without it.
+drawn from an explicit torch.Generator on the rows' device.
+BandedSelfAttention routes as the reference's does, in this order:
+
+* windows of RING_ATTENTION_MIN_LEN (256) and longer without attention
+  dropout take the blockwise ring scan (parallel/ring_attention.py),
+  whatever use_pallas_attention says;
+* with params.use_pallas_attention (ops/banded_attention.py), K7 with
+  a keep-mask drawn where Dropout would draw it when attention dropout
+  is on, else K5, both differentiated through K6; windows longer than
+  WHOLE_L_LIMIT (128) take the module route with dropout, and without
+  it (128 < L < 256) need K8-K10, which are not ported (it raises);
+* otherwise the module route's einsums over [B, N, L, L] logits.
 
 Ragged slots (`window_lengths`, inference with --use_ragged_kernel):
 rows [B, R, S] hold windows of bucket widths packed back to back per
@@ -52,6 +58,7 @@ from deepconsensus_tpu_torch.ops import banded_attention as ba
 from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
 from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
 from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
+from deepconsensus_tpu_torch.parallel import ring_attention as ring_lib
 
 _LN_EPS = 1e-6
 
@@ -157,7 +164,8 @@ class MaskedEmbed(nn.Module):
 
 class BandedSelfAttention(nn.Module):
   """Multi-head self-attention with a static banded mask: the
-  reference's XLA branch, or with use_kernels its Pallas branch (K5-K7)."""
+  reference's ring scan for long windows without dropout, its XLA
+  branch, or with use_kernels its Pallas branch (K5-K7)."""
 
   def __init__(self, hidden_size: int, num_heads: int,
                attn_win_size: Optional[int], device,
@@ -198,11 +206,19 @@ class BandedSelfAttention(nn.Module):
     """ragged_widths [B, S] (each position's window width, 0 = pad):
     each bucket width w attends over the slots reshaped to width-w
     windows, and each position takes the result of its own width."""
-    query = self.query(x, 1, dtype) * (self.head_dim ** -0.5)
+    query_raw = self.query(x, 1, dtype)
     key = self.key(x, 1, dtype)
     value = self.value(x, 1, dtype)
     length = x.shape[1]
     use_dropout = drop is not None and drop.rates['attention'] > 0.0
+    if (ragged_widths is None and not use_dropout
+        and length >= config_lib.RING_ATTENTION_MIN_LEN):
+      # Long-insert windows: the blockwise ring scan, which scales the
+      # scores itself (the unscaled query) and draws no dropout.
+      out = ring_lib.ring_attention_blockwise(query_raw, key, value,
+                                              self.attn_win_size)
+      return self.output_transform(out, 2, dtype)
+    query = query_raw * (self.head_dim ** -0.5)
     if ragged_widths is None and self.use_kernels and not (
         use_dropout and length > config_lib.WHOLE_L_LIMIT):
       out = self._attend_kernels(query, key, value, drop if use_dropout
@@ -227,10 +243,11 @@ class BandedSelfAttention(nn.Module):
     b, length, n, _ = query.shape
     if length > config_lib.WHOLE_L_LIMIT:
       raise NotImplementedError(
-          f'use_pallas_attention at L = {length} > WHOLE_L_LIMIT '
-          f'({config_lib.WHOLE_L_LIMIT}) without attention dropout needs '
-          'the block-banded flash kernels, which are not ported yet '
-          '(ROADMAP A1: K8-K10)')
+          f'use_pallas_attention at WHOLE_L_LIMIT '
+          f'({config_lib.WHOLE_L_LIMIT}) < L = {length} < '
+          f'RING_ATTENTION_MIN_LEN ({config_lib.RING_ATTENTION_MIN_LEN}) '
+          'without attention dropout needs the block-banded flash kernels, '
+          'which are not ported yet (ROADMAP A1b: K8-K10)')
     if drop is None:
       return ba.banded_attention_vjp(query, key, value, self.attn_win_size)
     mask, keep_prob = drop.keep_mask((b, n, length, length), 'attention',

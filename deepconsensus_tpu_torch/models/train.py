@@ -3,13 +3,14 @@ eval with checkpoints, crash resume.
 
 A trimmed port of deepconsensus_tpu/models/train.py for one device. The
 step is the reference's: training forward with dropout, AlignmentLoss
-(K11 with rows, then K12 in the backward on the card), autograd through
-the costs and the model, then LAMB written out per parameter leaf as
-optax.lamb composes it. Metrics keep the reference's keys, minus the
-identity metrics. Not ported (ROADMAP: training features): streaming
-loader and workers, augmentation, bucketed training, the NaN sentinel
-and rollback, multi-GPU and elastic training, preemption, TensorBoard
-and the metrics registry, warm start.
+(K11 with rows, then K12 in the backward on the card; K13/K14 with
+band_width), autograd through the costs and the model, then LAMB
+written out per parameter leaf as optax.lamb composes it. Metrics keep
+the reference's keys, minus the identity metrics. Not ported (ROADMAP:
+training features): streaming loader and workers, augmentation,
+bucketed training, the NaN sentinel and rollback, multi-GPU and
+elastic training, preemption, TensorBoard and the metrics registry,
+warm start.
 
 Outputs under out_dir: params.json, metrics.jsonl (one JSON object per
 logged step, eval and the final summary), checkpoint_metrics.tsv (eval

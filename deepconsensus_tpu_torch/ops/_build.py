@@ -45,6 +45,9 @@ SIGNATURES = {
                              _P),
         'dc_wavefront_bwd': (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P,
                              _P, _P),
+        'dc_band_fwd': (_P, _P, _P, _I, _I, _I, _F, _F, _I, _F, _P, _P, _P),
+        'dc_band_bwd': (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _F, _P,
+                        _P, _P),
     },
     'banded_attention': {
         'dc_banded_attention_smem_bytes': (_I, _I, _I),

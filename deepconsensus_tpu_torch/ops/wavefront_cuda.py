@@ -1,14 +1,16 @@
-"""K11 and K12: the alignment loss's wavefront DP on the card.
+"""K11-K14: the alignment loss's wavefront DP on the card.
 
 Counterpart of deepconsensus_tpu/ops/wavefront_pallas.py. The scorer
 `alignment_scores` is K11 without rows; `alignment_scores_vjp` is the
 differentiable twin: on a CUDA tensor its forward is K11 writing every
 DP row V[k] as the residual, and its backward K12, the reverse adjoint
-sweep over those rows (csrc/wavefront.cu). On a CPU tensor both run the
-plain DP (ops/wavefront.py::alignment_scan, differentiated by torch
-autograd), which is what the kernels are held against. Costs are
-float32, as the reference's kernels take them; gradients come back in
-the costs' dtype.
+sweep over those rows (csrc/wavefront.cu). `banded_alignment_scores`
+and `banded_alignment_scores_vjp` are the same pair for the band of
+width W (AlignmentLoss's band_width): K13 forward, K14 backward. On a
+CPU tensor they all run the plain DPs (ops/wavefront.py::alignment_scan
+and ::banded_alignment_scan, differentiated by torch autograd), which
+is what the kernels are held against. Costs are float32, as the
+reference's kernels take them; gradients come back in the costs' dtype.
 """
 from __future__ import annotations
 
@@ -20,15 +22,45 @@ from deepconsensus_tpu_torch.ops import _build
 from deepconsensus_tpu_torch.ops import wavefront
 
 # Launches of the CUDA kernels: K11 (forward, with or without rows) and
-# K12 (backward), one per call on CUDA tensors.
+# K12 (backward), K13 and K14 their banded twins, one per call on CUDA
+# tensors.
 n_fwd_launches = 0
 n_bwd_launches = 0
+n_band_fwd_launches = 0
+n_band_bwd_launches = 0
 
-# One block per batch row, one thread per DP row index i <= m.
+# One block per batch row, one thread per DP row index i <= m (K11/K12)
+# or per band slot d <= 2W (K13/K14).
 MAX_M = 1023
+MAX_WIDTH = 511
 
 
 def _check_inputs(subs_costs: torch.Tensor, ins_costs: torch.Tensor,
+                  seq_lens: torch.Tensor) -> Tuple[int, int, int]:
+  batch, m, n = _check_shapes(subs_costs, ins_costs, seq_lens)
+  if m > MAX_M:
+    raise ValueError(f'm = {m}: the kernels run one thread per DP row '
+                     f'and take m + 1 <= {MAX_M + 1}')
+  return batch, m, n
+
+
+def _check_band_inputs(subs_costs: torch.Tensor, ins_costs: torch.Tensor,
+                       seq_lens: torch.Tensor, width: int) -> None:
+  """The banded kernels' rules (K13/K14)."""
+  _, m, n = _check_shapes(subs_costs, ins_costs, seq_lens)
+  if m != n:
+    raise ValueError(f'banded alignment requires m == n, got {m} x {n}')
+  if not 1 <= width <= MAX_WIDTH:
+    raise ValueError(f'band width {width}: the kernels take 1 <= width and '
+                     f'2 * width + 1 <= {2 * MAX_WIDTH + 2} (one thread per '
+                     'band slot)')
+  for name, t in (('subs_costs', subs_costs), ('ins_costs', ins_costs)):
+    if t.dtype != torch.float32:
+      raise ValueError(f'{name} is {t.dtype}; the banded DP takes float32 '
+                       'costs')
+
+
+def _check_shapes(subs_costs: torch.Tensor, ins_costs: torch.Tensor,
                   seq_lens: torch.Tensor) -> Tuple[int, int, int]:
   if subs_costs.dim() != 3:
     raise ValueError(f'subs_costs must be [B, m, n], got '
@@ -40,9 +72,6 @@ def _check_inputs(subs_costs: torch.Tensor, ins_costs: torch.Tensor,
   if tuple(seq_lens.shape) != (batch,):
     raise ValueError(f'seq_lens shape {tuple(seq_lens.shape)}, want '
                      f'{(batch,)}')
-  if m > MAX_M:
-    raise ValueError(f'm = {m}: the kernels run one thread per DP row '
-                     f'and take m + 1 <= {MAX_M + 1}')
   for name, t in (('subs_costs', subs_costs), ('ins_costs', ins_costs),
                   ('seq_lens', seq_lens)):
     if t.device != subs_costs.device:
@@ -171,3 +200,124 @@ def alignment_scores_vjp(
                                     seq_lens, loss_reg, inf)
   return AlignmentScores.apply(subs_costs, ins_costs, seq_lens,
                                float(del_cost), loss_reg, float(inf))
+
+
+def _launch_band_fwd(subs, ins, lens, width, del_cost, loss_reg, inf,
+                     emit_rows):
+  """K13 on prepared operands; returns (scores [B], rows or None)."""
+  global n_band_fwd_launches
+  batch, m, _ = subs.shape
+  scores = torch.empty((batch,), dtype=torch.float32, device=subs.device)
+  rows = (torch.empty((2 * m - 1, batch, 2 * width + 1), dtype=torch.float32,
+                      device=subs.device) if emit_rows else None)
+  reg, soft = _soft(loss_reg)
+  lib = _build.load('wavefront')
+  _build.check(lib.dc_band_fwd(
+      _build.ptr(subs), _build.ptr(ins), _build.ptr(lens), batch, m, width,
+      float(del_cost), reg, soft, float(inf), _build.ptr(scores),
+      _build.ptr(rows), _build.stream_ptr(subs.device)), 'band_fwd')
+  n_band_fwd_launches += 1
+  return scores, rows
+
+
+def launch_band_bwd(subs, ins, lens, rows, grad, width, del_cost, loss_reg,
+                    inf=1e9):
+  """K14 on prepared operands (float32 costs, int32 lengths, the rows
+  K13 wrote, grad [B] float32); returns (d_subs [B, m, m], d_ins
+  [B, m])."""
+  global n_band_bwd_launches
+  batch, m, _ = subs.shape
+  if tuple(rows.shape) != (2 * m - 1, batch, 2 * width + 1):
+    raise ValueError(f'rows shape {tuple(rows.shape)}, want '
+                     f'{(2 * m - 1, batch, 2 * width + 1)}')
+  d_subs = torch.empty_like(subs)
+  d_ins = torch.empty_like(ins)
+  reg, soft = _soft(loss_reg)
+  grad = grad.float().contiguous()
+  lib = _build.load('wavefront')
+  _build.check(lib.dc_band_bwd(
+      _build.ptr(subs), _build.ptr(ins), _build.ptr(lens), _build.ptr(rows),
+      _build.ptr(grad), batch, m, width, float(del_cost), reg, soft,
+      float(inf), _build.ptr(d_subs), _build.ptr(d_ins),
+      _build.stream_ptr(subs.device)), 'band_bwd')
+  n_band_bwd_launches += 1
+  return d_subs, d_ins
+
+
+def banded_alignment_scores_with_rows(subs_costs, ins_costs, del_cost,
+                                      seq_lens, width, loss_reg=None,
+                                      inf=1e9):
+  """K13 with rows on CUDA tensors: (scores [B], rows [2m-1, B, 2W+1],
+  the band rows k = 2..2m)."""
+  _check_band_inputs(subs_costs, ins_costs, seq_lens, width)
+  if subs_costs.device.type != 'cuda':
+    raise ValueError('the rows residual is written by the CUDA kernel only')
+  return _launch_band_fwd(*_operands(subs_costs, ins_costs, seq_lens),
+                          int(width), del_cost, loss_reg, inf,
+                          emit_rows=True)
+
+
+def banded_alignment_scores(
+    subs_costs: torch.Tensor,
+    ins_costs: torch.Tensor,
+    del_cost: float,
+    seq_lens: torch.Tensor,
+    width: int,
+    loss_reg: Optional[float] = None,
+    inf: float = 1e9,
+) -> torch.Tensor:
+  """K13 without rows (same arguments and semantics as
+  wavefront.banded_alignment_scan, width >= 1): [B] float32 scores."""
+  _check_band_inputs(subs_costs, ins_costs, seq_lens, width)
+  if subs_costs.device.type == 'cpu':
+    return wavefront.banded_alignment_scan(subs_costs, ins_costs, del_cost,
+                                           seq_lens, int(width), loss_reg,
+                                           inf)
+  scores, _ = _launch_band_fwd(*_operands(subs_costs, ins_costs, seq_lens),
+                               int(width), del_cost, loss_reg, inf,
+                               emit_rows=False)
+  return scores
+
+
+class BandedAlignmentScores(torch.autograd.Function):
+  """Forward K13 with rows saved; backward K14."""
+
+  @staticmethod
+  def forward(ctx, subs_costs, ins_costs, seq_lens, del_cost, loss_reg,
+              width, inf):
+    subs, ins, lens = _operands(subs_costs, ins_costs, seq_lens)
+    scores, rows = _launch_band_fwd(subs, ins, lens, width, del_cost,
+                                    loss_reg, inf, emit_rows=True)
+    ctx.save_for_backward(subs, ins, lens, rows)
+    ctx.args = (width, del_cost, loss_reg, inf)
+    return scores
+
+  @staticmethod
+  def backward(ctx, grad):
+    subs, ins, lens, rows = ctx.saved_tensors
+    width, del_cost, loss_reg, inf = ctx.args
+    d_subs, d_ins = launch_band_bwd(subs, ins, lens, rows, grad, width,
+                                    del_cost, loss_reg, inf)
+    return d_subs, d_ins, None, None, None, None, None
+
+
+def banded_alignment_scores_vjp(
+    subs_costs: torch.Tensor,
+    ins_costs: torch.Tensor,
+    seq_lens: torch.Tensor,
+    del_cost: float,
+    loss_reg: Optional[float],
+    width: int,
+    inf: float = 1e9,
+) -> torch.Tensor:
+  """Differentiable banded scorer (argument order of the reference's
+  banded_alignment_scores_vjp): K13 with rows and K14 on CUDA tensors,
+  the plain banded DP under autograd on CPU tensors."""
+  _check_band_inputs(subs_costs, ins_costs, seq_lens, width)
+  if subs_costs.device.type == 'cpu':
+    return wavefront.banded_alignment_scan(subs_costs, ins_costs, del_cost,
+                                           seq_lens, int(width), loss_reg,
+                                           inf)
+  return BandedAlignmentScores.apply(subs_costs, ins_costs, seq_lens,
+                                     float(del_cost), loss_reg, int(width),
+                                     float(inf))

@@ -5,8 +5,9 @@ without one (decided in the fixture, never at import time). This file
 imports only torch, numpy and the port, so it runs on a machine without
 JAX:  python -m pytest tests/test_torch_gpu.py -m gpu
 Tolerances: float32 rtol = atol = 1e-4, bfloat16 2e-2, K3 exact; the
-alignment DP (K11/K12) scores rtol 1e-5, gradients rtol 1e-4, atol 1e-5;
-the banded-attention training kernels (K5-K7) as K1/K2.
+alignment DP (K11/K12) and the banded DP (K13/K14) scores rtol 1e-5
+(atol 1e-4), gradients rtol 1e-4, atol 1e-5; the banded-attention
+training kernels (K5-K7) as K1/K2.
 """
 import numpy as np
 import pytest
@@ -157,7 +158,7 @@ def test_phred_epilogue_exact(cuda):
 def wavefront_costs(device, batch, m, n, seed):
   rng = np.random.default_rng(seed)
   lens = rng.integers(0, m + 1, batch).astype(np.int32)
-  lens[:2] = (0, m)
+  lens[:2] = (0, m)[:batch]
   return (torch.from_numpy(rng.uniform(0, 5, (batch, m, n))
                            .astype(np.float32)).to(device),
           torch.from_numpy(rng.uniform(0, 5, (batch, n))
@@ -229,6 +230,98 @@ def test_training_step_on_the_card_matches_the_cpu(cuda):
         torch.Generator(device=device))
     losses.append(float(m['loss']))
     assert wavefront_cuda.n_bwd_launches == bwd + (device != 'cpu')
+  np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+
+
+@pytest.mark.parametrize('loss_reg', [None, 0.1])
+@pytest.mark.parametrize('b', [1, 5, 256])
+@pytest.mark.parametrize('m', [8, 100])
+@pytest.mark.parametrize('width_of_m', [1, 12, 'm', 'm+7'])
+def test_band_kernels_match_plain(cuda, loss_reg, b, m, width_of_m):
+  """K13 (without and with rows) and K14 against the plain banded DP
+  and its autograd, lengths 0 and m included; at W >= m, K13 against
+  K11 as well (the band then holds the whole DP)."""
+  width = {'m': m, 'm+7': m + 7}.get(width_of_m, width_of_m)
+  subs, ins, lens = wavefront_costs(cuda, b, m, m, seed=b + m + width)
+  fwd = wavefront_cuda.n_band_fwd_launches
+  bwd = wavefront_cuda.n_band_bwd_launches
+  got = wavefront_cuda.banded_alignment_scores(subs, ins, 10.0, lens, width,
+                                               loss_reg)
+  want = wavefront.banded_alignment_scan(subs, ins, 10.0, lens, width,
+                                         loss_reg)
+  torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+  if width >= m:
+    full = wavefront_cuda.alignment_scores(subs, ins, 10.0, lens, loss_reg)
+    torch.testing.assert_close(got, full, rtol=1e-5, atol=1e-4)
+
+  weights = torch.rand(b, device=cuda) + 0.5
+  grads = []
+  for fn in (wavefront_cuda.banded_alignment_scores_vjp,
+             lambda s, i, l, d, r, w: wavefront.banded_alignment_scan(
+                 s, i, d, l, w, r)):
+    s, i = subs.clone().requires_grad_(True), ins.clone().requires_grad_(True)
+    value = fn(s, i, lens, 10.0, loss_reg, width)
+    grads.append((value, *torch.autograd.grad(value, (s, i), weights)))
+  torch.cuda.synchronize()
+  assert wavefront_cuda.n_band_fwd_launches == fwd + 2
+  assert wavefront_cuda.n_band_bwd_launches == bwd + 1
+  (gv, gs, gi), (wv, ws, wi) = grads
+  torch.testing.assert_close(gv, wv, rtol=1e-5, atol=1e-4)
+  torch.testing.assert_close(gs, ws, rtol=1e-4, atol=1e-5)
+  torch.testing.assert_close(gi, wi, rtol=1e-4, atol=1e-5)
+  assert torch.isfinite(gs).all() and torch.isfinite(gi).all()
+  i, j = torch.meshgrid(torch.arange(m, device=cuda),
+                        torch.arange(m, device=cuda), indexing="ij")
+  assert (gs[:, (i - j).abs() > width] == 0).all()
+
+
+def test_band_wrappers_reject_bad_input(cuda):
+  subs, ins, lens = wavefront_costs(cuda, 2, 6, 6, seed=1)
+  for width in (0, 512):
+    with pytest.raises(ValueError, match='1 <= width'):
+      wavefront_cuda.banded_alignment_scores(subs, ins, 1.0, lens, width)
+    with pytest.raises(ValueError, match='1 <= width'):
+      wavefront_cuda.banded_alignment_scores_vjp(subs, ins, lens, 1.0, 0.1,
+                                                 width)
+  with pytest.raises(ValueError, match='m == n'):
+    wavefront_cuda.banded_alignment_scores(
+        torch.zeros(2, 6, 7, device=cuda), torch.zeros(2, 7, device=cuda),
+        1.0, lens, 2)
+  with pytest.raises(ValueError, match='float32 costs'):
+    wavefront_cuda.banded_alignment_scores(subs.double(), ins.double(), 1.0,
+                                           lens, 2)
+  with pytest.raises(ValueError, match='seq_lens is on'):
+    wavefront_cuda.banded_alignment_scores(subs, ins, 1.0, lens.cpu(), 2)
+
+
+def test_banded_training_step_on_the_card_matches_the_cpu(cuda):
+  """One float32 train step with band_width 12, dropout 0, the same
+  weights: the card's (K13 with rows, K14) loss within 1e-4 relative of
+  the CPU's (the plain banded DP)."""
+  from deepconsensus_tpu_torch.models import train as train_lib
+
+  params = small_params(attention_dropout=0.0, relu_dropout=0.0,
+                        layer_postprocess_dropout=0.0, band_width=12)
+  rows = fake_rows(params, 8, seed=5).numpy()[..., None]
+  label = np.random.default_rng(6).integers(0, 5, (8, 100)).astype(
+      np.float32)
+  state = seeded_model(params, 'cpu').state_dict()
+  losses = []
+  for device in ('cpu', cuda):
+    model = model_lib.DeepConsensusModel(params, device=device)
+    model.load_state_dict(state)
+    model.requires_grad_(True)
+    lamb = train_lib.Lamb(model.named_parameters(), params, 10)
+    counts = (wavefront_cuda.n_band_bwd_launches,
+              wavefront_cuda.n_bwd_launches)
+    m = train_lib.train_step(
+        model, lamb, train_lib.make_loss(params),
+        train_lib.batch_to_device({'rows': rows, 'label': label}, device),
+        torch.Generator(device=device))
+    losses.append(float(m['loss']))
+    assert (wavefront_cuda.n_band_bwd_launches,
+            wavefront_cuda.n_bwd_launches) == (
+                counts[0] + (device != 'cpu'), counts[1])
   np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
 
 

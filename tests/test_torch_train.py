@@ -9,7 +9,14 @@ What is held against JAX, with its tolerance:
   1e-4, as tests/test_wavefront_pallas.py;
 * its gradients (the CPU side of K12) vs jax.grad through
   alignment_scores_vjp(interpret=True): rtol 1e-4, atol 1e-5;
-* AlignmentLoss value (rtol 1e-5) and gradient wrt y_pred (rtol 1e-4);
+* the plain banded DP (the CPU side of K13) vs
+  wavefront.banded_alignment_scan and, at b = 3, m = 8, W = 2,
+  banded_alignment_scores(interpret=True): rtol 1e-5, atol 1e-4; its
+  gradients (K14's CPU side) vs jax.grad through
+  banded_alignment_scores_vjp(interpret=True), and at a score on band
+  row 1 vs jax.grad through the plain scan: rtol 1e-4, atol 1e-5;
+* AlignmentLoss value (rtol 1e-5) and gradient wrt y_pred (rtol 1e-4),
+  unbanded and with width 4;
 * the training forward with dropout 0 vs model.apply(train=True): atol
   1e-5, and its loss gradients leaf by leaf: rtol 1e-4, atol 1e-5;
   each dropout rate at 1.0 alone (both frameworks then drop everything):
@@ -228,13 +235,185 @@ def test_dp_wrapper_rejects_what_the_kernels_do_not_take():
   with pytest.raises(ValueError, match='ins_costs shape'):
     wavefront_cuda.alignment_scores(torch.zeros(2, 5, 4), torch.zeros(2, 5),
                                     1.0, torch.zeros(2, dtype=torch.int32))
-  with pytest.raises(NotImplementedError, match='K13/K14'):
-    torch_train.make_loss(torch_params(band_width=4))
+  # band_width builds the banded loss (K13/K14), whose wrappers take
+  # what those kernels take.
+  loss = torch_train.make_loss(torch_params(band_width=4))
+  assert loss.width == 4
+  subs, ins, lens = (torch.from_numpy(x) for x in random_costs(1, 2, 6, 6))
+  for width in (0, 512):
+    with pytest.raises(ValueError, match='2 \\* width \\+ 1 <= 1024'):
+      wavefront_cuda.banded_alignment_scores(subs, ins, 1.0, lens, width)
+    with pytest.raises(ValueError, match='1 <= width'):
+      wavefront_cuda.banded_alignment_scores_vjp(subs, ins, lens, 1.0, 0.1,
+                                                 width)
+  with pytest.raises(ValueError, match='m == n'):
+    wavefront_cuda.banded_alignment_scores(
+        torch.zeros(2, 6, 7), torch.zeros(2, 7), 1.0, lens, 2)
+  with pytest.raises(ValueError, match='float32 costs'):
+    wavefront_cuda.banded_alignment_scores(subs.double(), ins.double(), 1.0,
+                                           lens, 2)
+
+
+# ---------------------------------------------------------------------------
+# The banded DP: K13's and K14's plain side.
+# ---------------------------------------------------------------------------
+
+
+def band_launches():
+  return (wavefront_cuda.n_band_fwd_launches,
+          wavefront_cuda.n_band_bwd_launches)
+
+
+@pytest.mark.parametrize('loss_reg', [None, 0.1, 0.5])
+@pytest.mark.parametrize('width', [1, 3, 12, 16])
+def test_banded_dp_scores_match_jax_scan(loss_reg, width):
+  """m = 12, widths 1, 3, m and m + 4; a batch of 5 (no tile multiple),
+  lengths 0 and m included: scores rtol 1e-5, atol 1e-4."""
+  subs, ins, lens = random_costs(width + 31, 5, 12, 12)
+  before = band_launches()
+  got = wavefront_cuda.banded_alignment_scores(
+      torch.from_numpy(subs), torch.from_numpy(ins), 3.0,
+      torch.from_numpy(lens), width, loss_reg)
+  assert band_launches() == before  # CPU: the plain banded DP
+  want = jax_wavefront.banded_alignment_scan(
+      jnp.asarray(subs), jnp.asarray(ins), jnp.float32(3.0),
+      jnp.asarray(lens), width, jax_minop(loss_reg))
+  np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                             atol=1e-4)
+  plain = torch_wavefront.banded_alignment_scan(
+      torch.from_numpy(subs), torch.from_numpy(ins), 3.0,
+      torch.from_numpy(lens), width, loss_reg)
+  assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize('loss_reg', [None, 0.1])
+def test_banded_dp_scores_match_jax_kernel(loss_reg):
+  """b = 3, m = 8, W = 2 against the Pallas kernel (K13) in interpret
+  mode; and width 0, which only the plain versions take."""
+  subs, ins, lens = random_costs(4, 3, 8, 8)
+  args = (jnp.asarray(subs), jnp.asarray(ins), 3.0, jnp.asarray(lens))
+  got = wavefront_cuda.banded_alignment_scores(
+      torch.from_numpy(subs), torch.from_numpy(ins), 3.0,
+      torch.from_numpy(lens), 2, loss_reg)
+  kernel = wavefront_pallas.banded_alignment_scores(
+      *args, 2, loss_reg=loss_reg, interpret=True)
+  np.testing.assert_allclose(got.numpy(), np.asarray(kernel), rtol=1e-5,
+                             atol=1e-4)
+  zero = torch_wavefront.banded_alignment_scan(
+      torch.from_numpy(subs), torch.from_numpy(ins), 3.0,
+      torch.from_numpy(lens), 0, loss_reg)
+  want = jax_wavefront.banded_alignment_scan(
+      args[0], args[1], jnp.float32(3.0), args[3], 0, jax_minop(loss_reg))
+  np.testing.assert_allclose(zero.numpy(), np.asarray(want), rtol=1e-5,
+                             atol=1e-4)
+
+
+def banded_grads_port(subs, ins, lens, weights, width, loss_reg):
+  s = torch.from_numpy(subs).requires_grad_(True)
+  i = torch.from_numpy(ins).requires_grad_(True)
+  val = (wavefront_cuda.banded_alignment_scores_vjp(
+      s, i, torch.from_numpy(lens), 3.0, loss_reg, width)
+         * torch.from_numpy(weights)).sum()
+  val.backward()
+  return val.item(), s.grad.numpy(), i.grad.numpy()
+
+
+@pytest.mark.parametrize('loss_reg', [None, 0.1, 1.0])
+@pytest.mark.parametrize('width', [2, 5, 10])
+def test_banded_dp_gradients_match_jax_vjp_kernel(loss_reg, width):
+  """Autograd through the plain banded DP vs jax.grad through the
+  Pallas custom VJP (K14 in interpret mode), m = 8 (width 10 > m),
+  lengths 0 and m included, hard minimum included: rtol 1e-4, atol
+  1e-5. Out-of-band cells get exactly 0 and every gradient is finite."""
+  subs, ins, lens = random_costs(width + 11, 4, 8, 8)
+  weights = np.random.default_rng(8).uniform(0.5, 2, 4).astype(np.float32)
+
+  def jax_loss(s, i):
+    return jnp.sum(wavefront_pallas.banded_alignment_scores_vjp(
+        s, i, jnp.asarray(lens), 3.0, loss_reg, width, interpret=True)
+                   * weights)
+
+  want_val, (want_ds, want_di) = jax.value_and_grad(jax_loss, (0, 1))(
+      jnp.asarray(subs), jnp.asarray(ins))
+  before = band_launches()
+  val, d_subs, d_ins = banded_grads_port(subs, ins, lens, weights, width,
+                                         loss_reg)
+  assert band_launches() == before
+  np.testing.assert_allclose(val, float(want_val), rtol=1e-5)
+  np.testing.assert_allclose(d_subs, np.asarray(want_ds), rtol=1e-4,
+                             atol=1e-5)
+  np.testing.assert_allclose(d_ins, np.asarray(want_di), rtol=1e-4,
+                             atol=1e-5)
+  assert np.isfinite(d_subs).all() and np.isfinite(d_ins).all()
+  i, j = np.indices((8, 8))
+  assert (d_subs[:, np.abs(i - j) > width] == 0).all()
+
+
+@pytest.mark.parametrize('loss_reg', [None, 0.1])
+def test_banded_dp_gradient_at_a_score_on_row_one(loss_reg):
+  """Length 0 at width 1 scores the k = 1 slot (0, 1), which holds
+  ins[0]: its gradient reaches d_ins[0], as jax.grad through the
+  reference's plain scan gives it. (The reference's Pallas VJP injects
+  the score's cotangent only on rows k >= 2 and gives 0 there; the port
+  follows the plain scan.) Elsewhere the Pallas VJP agrees."""
+  subs, ins, lens = random_costs(12, 4, 8, 8)
+  weights = np.random.default_rng(9).uniform(0.5, 2, 4).astype(np.float32)
+  minop = jax_minop(loss_reg)
+
+  def jax_loss(fn):
+    return lambda s, i: jnp.sum(fn(s, i) * weights)
+
+  scan = jax_loss(lambda s, i: jax_wavefront.banded_alignment_scan(
+      s, i, jnp.float32(3.0), jnp.asarray(lens), 1, minop))
+  kernel = jax_loss(lambda s, i: wavefront_pallas.banded_alignment_scores_vjp(
+      s, i, jnp.asarray(lens), 3.0, loss_reg, 1, interpret=True))
+  costs = (jnp.asarray(subs), jnp.asarray(ins))
+  want_ds, want_di = jax.grad(scan, (0, 1))(*costs)
+  kernel_ds, kernel_di = jax.grad(kernel, (0, 1))(*costs)
+  _, d_subs, d_ins = banded_grads_port(subs, ins, lens, weights, 1, loss_reg)
+  np.testing.assert_allclose(d_subs, np.asarray(want_ds), rtol=1e-4,
+                             atol=1e-5)
+  np.testing.assert_allclose(d_ins, np.asarray(want_di), rtol=1e-4,
+                             atol=1e-5)
+  assert lens[0] == 0 and d_ins[0, 0] == pytest.approx(weights[0])
+  assert float(kernel_di[0, 0]) == 0.0  # the reference kernel's omission
+  np.testing.assert_allclose(d_ins[1:], np.asarray(kernel_di)[1:],
+                             rtol=1e-4, atol=1e-5)
+  np.testing.assert_allclose(d_subs, np.asarray(kernel_ds), rtol=1e-4,
+                             atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
 # The loss and the metrics.
 # ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize('loss_reg', [None, 0.1])
+def test_banded_alignment_loss_matches_jax(loss_reg):
+  """AlignmentLoss(width=4), value (rtol 1e-5) and gradient wrt y_pred
+  (the DP gradients' rtol 1e-4, atol 1e-5), against the reference's
+  AlignmentLoss(width=4)."""
+  rng = np.random.default_rng(15)
+  label = gapped_labels(6, 16)
+  logits = rng.normal(0, 2, (6, LENGTH, 5)).astype(np.float32)
+  y_pred = np.array(jax.nn.softmax(jnp.asarray(logits), -1))
+  jax_loss = jax_losses.AlignmentLoss(del_cost=10.0, loss_reg=loss_reg,
+                                      width=4)
+  want, want_grad = jax.jit(jax.value_and_grad(
+      lambda p: jax_loss(jnp.asarray(label), p)))(jnp.asarray(y_pred))
+  pred = torch.from_numpy(y_pred).requires_grad_(True)
+  before = band_launches()
+  got = torch_losses.AlignmentLoss(del_cost=10.0, loss_reg=loss_reg,
+                                   width=4)(torch.from_numpy(label), pred)
+  got.backward()
+  assert band_launches() == before
+  np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
+  np.testing.assert_allclose(pred.grad.numpy(), np.asarray(want_grad),
+                             rtol=1e-4, atol=1e-5)
+  plain = torch_losses.AlignmentLoss(del_cost=10.0, loss_reg=loss_reg,
+                                     width=4, plain=True)
+  with torch.no_grad():
+    assert plain(torch.from_numpy(label), pred).item() == got.item()
 
 
 @pytest.mark.parametrize('loss_reg', [None, 0.1])
@@ -522,6 +701,41 @@ def test_cli_train_on_cpu_resumes_and_feeds_run(train_shards, tmp_path):
       'cpu']) == 0
   with open(fastq) as f:
     assert len(f.read().splitlines()) == 4 * 3
+
+
+def test_cli_train_with_band_width_on_cpu(train_shards, tmp_path,
+                                         monkeypatch):
+  """`cli train --set band_width=12`: 3 steps of 8 and one eval batch
+  through the plain banded DP (no kernel launch on the CPU; the full DP
+  is not called), and params.json keeps the width."""
+  from deepconsensus_tpu_torch import cli
+
+  calls = {'banded': 0, 'full': 0}
+  for name, key in (('banded_alignment_scan', 'banded'),
+                    ('alignment_scan', 'full')):
+    fn = getattr(torch_wavefront, name)
+
+    def counted(*args, _fn=fn, _key=key, **kwargs):
+      calls[_key] += 1
+      return _fn(*args, **kwargs)
+
+    monkeypatch.setattr(torch_wavefront, name, counted)
+  out = str(tmp_path / 'model')
+  before = (band_launches(), wavefront_cuda.n_fwd_launches,
+            wavefront_cuda.n_bwd_launches)
+  assert cli.main(['train', '--out_dir', out, '--train_path',
+                   train_shards[0], '--eval_path', train_shards[1],
+                   '--device', 'cpu', '--num_epochs', '1', *TRAIN_FLAGS,
+                   '--set', 'band_width=12']) == 0
+  assert (band_launches(), wavefront_cuda.n_fwd_launches,
+          wavefront_cuda.n_bwd_launches) == before
+  assert calls == {'banded': 3 + 1, 'full': 0}
+  assert torch_config.read_params_from_json(out)['band_width'] == 12
+  train = [e for e in read_jsonl(os.path.join(out, 'metrics.jsonl'))
+           if e['split'] == 'train']
+  assert len(train) == 3
+  assert all(np.isfinite(e['loss']) and np.isfinite(e['grad_norm'])
+             for e in train)
 
 
 def test_cli_train_defaults_to_the_card(train_shards, tmp_path,
