@@ -28,9 +28,14 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    at W = 100, against K11/K12 too; K5 (banded attention
    forward), K7 (its dropout forward) and K6 (its backward, with and
    without the mask) at 256 windows x 100 positions x 2 heads of 140,
-   band 12, with the float32 / bfloat16 tolerances above; library
+   band 12, with the float32 / bfloat16 tolerances above; K8 (the
+   block-banded flash forward, without and with its logsumexp, lse
+   rtol = atol = 1e-4), K9 (dq) and K10 (dk/dv) at 256 windows x 200
+   positions x 2 heads of 140, band 12, the same tolerances; library
    yardsticks: scaled_dot_product_attention with the band as its mask
-   (K5) and its autograd backward (K6), timed only.
+   (K5, K8) and its autograd backward (K6; K9 and K10 together), timed
+   only; and K11/K12 once more at m = n = 200 (train_flash's DP),
+   untimed.
 3. The paths, each with every kernel's launch count reset just before
    its run and read just after, in bfloat16 and float32, then float32
    again through the plain versions on the card; full-width seeded
@@ -54,7 +59,18 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    f. `long_window`: one full-width forward and backward at L = 500
       (batch 256, attention dropout 0) through the ring route, through
       the module route forced on the same inputs and weights, and with
-      use_pallas_attention, in float32 and bfloat16.
+      use_pallas_attention, in float32 and bfloat16;
+   g. `train_flash`: c's `cli train` with --set max_length=200 --set
+      attention_dropout=0 --set use_pallas_attention=true on shards of
+      200-wide windows (1,024 training, 256 eval), in bfloat16 and
+      float32, and float32 with the flag off (the module route at the
+      same masks: the reference); then one full-width float32 forward
+      and backward at L = 200 with non-zero alphas, K8-K10 vs the
+      module route;
+   h. `buckets`: b's BAMs with --use_ccs_smart_windows --window_buckets
+      100,200 and no --use_ragged_kernel (per-bucket packs of 1,024),
+      use_pallas_attention set: bfloat16, float32, float32 through the
+      plain versions, float32 with the flag off.
    Gates: each path's kernels launched (a: K1-K3, b: K4, K2, K3, c: K11
    once per step and eval batch, K12 once per step, no K5-K7; d: K7 and
    K6 once per layer and step, K5 once per layer and eval batch, K11
@@ -82,16 +98,29 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    f: float32 loss within 1e-5 relative, each parameter's gradient
    within 1e-3 of its norm (long_window_gates says why), the ring route
    once per layer on both ring runs, no attention kernel launched; both
-   routes' peak memory printed.
+   routes' peak memory printed. g: K8 with lse, K9 and K10 once per layer
+   and step, K8 without lse once per layer and eval batch, K11/K12 as
+   c, K5-K7 never (and no attention kernel on the module run); every
+   loss and gradient norm finite; float32 losses (every step, and eval)
+   within 1e-4 relative of the module route's; bfloat16's first loss
+   within 2% of float32's; step p50 and peak memory printed beside the
+   module route's; the one-batch check as d's (loss 1e-4, gradients
+   1e-3). h: one read per ZMW, each bucket >= 20% of model windows, K1
+   and K2 (per layer) on each 100-wide pack, K8 without lse once per
+   layer of each 200-wide pack, K3 on every pack, no other kernel
+   (plain run: none; flag off: no K8); float32 kernels vs the float32
+   plain run and vs the flag-off run, and bfloat16 vs float32, with a's
+   id and quality gates.
 4. Where a full-width train step's time goes, in bfloat16 and float32,
-   and in bfloat16 with attention through K5-K7 and with band_width 12:
+   and in bfloat16 with attention through K5-K7, with band_width 12 and
+   with attention through K8-K10 at L = 200:
    forward, loss (costs and K11), backward (K12 and autograd) and LAMB
    timed apart (synchronized, median of 5 steps after 2), and one step
    under torch.profiler: the device's busy time (its kernels' time
    summed), the idle share of the unprofiled step, and the kernels that
    take most of it.
-5. A `{"kernels": [...]}` line (K1-K7, K11-K14), the card line again,
-   and the last line `{"ok": true, "device": {...}}`.
+5. A `{"kernels": [...]}` line (K1-K14), the card line again, and the
+   last line `{"ok": true, "device": {...}}`.
 
 `--kernels-only` stops after phase 2 and prints no result (a first
 check of newly written kernels). Without a CUDA device, or away from the repository, it exits 2 and
@@ -120,6 +149,9 @@ TRAIN_BATCH, TRAIN_EXAMPLES, EVAL_EXAMPLES = 256, 1024, 256
 DEL_COST, LOSS_REG = 10.0, 0.1
 # The train_band path's AlignmentLoss band width (--set band_width=12).
 BAND_WIDTH = 12
+# The train_flash path's window (--set max_length=200): past
+# WHOLE_L_LIMIT (128), below RING_ATTENTION_MIN_LEN (256).
+FLASH_LENGTH = 200
 # float32 operations per DP cell: forward, the soft minimum of three
 # options (3 adds, 3 scalings, 2 max, 3 subtractions, 3 exp, 2 adds, a
 # log, an add and a multiply); backward, the same recomputed plus 3
@@ -516,6 +548,24 @@ def check_wavefront_kernels(device: str = 'cuda') -> dict:
               max_err(scores, want, 1e-5, 1e-4))
   err12 = max(max_err(d_subs, want_ds, 1e-4, 1e-5),
               max_err(d_ins, want_di, 1e-4, 1e-5))
+  # train_flash's DP, m = n = FLASH_LENGTH: held to the same gates,
+  # untimed.
+  m2 = FLASH_LENGTH
+  lens2 = rng.integers(m2 // 2, m2 + 1, b).astype(np.int32)
+  lens2[:2] = (0, m2)
+  subs2, ins2 = (torch.from_numpy(rng.uniform(0, 8, shape).astype(np.float32))
+                 .to(dev).requires_grad_(True)
+                 for shape in ((b, m2, m2), (b, m2)))
+  lens2 = torch.from_numpy(lens2).to(dev)
+  grads2 = []
+  for fn in (wavefront_cuda.alignment_scores_vjp,
+             lambda s, i, l, d, r: wavefront.alignment_scan(s, i, d, l, r)):
+    value = fn(subs2, ins2, lens2, DEL_COST, LOSS_REG)
+    grads2.append((value.detach(),
+                   *torch.autograd.grad(value, (subs2, ins2), grad)))
+  err11 = max(err11, max_err(grads2[0][0], grads2[1][0], 1e-5, 1e-4))
+  err12 = max(err12, *(max_err(g, w, 1e-4, 1e-5)
+                       for g, w in zip(grads2[0][1:], grads2[1][1:])))
   # Bytes: each input read once, each output written once. Operations:
   # the cells this run's lengths need, (len + 1) x (n + 1) per row.
   cells = int(((lens.long() + 1) * (n + 1)).sum())
@@ -749,9 +799,106 @@ def check_banded_attention_kernels(dtype: str, device: str = 'cuda') -> dict:
   return out
 
 
+def check_flash_kernels(dtype: str, device: str = 'cuda') -> dict:
+  """Phase 2 for one dtype: K8 (without and with its logsumexp), K9 and
+  K10 at train_flash's attention shapes (256 windows x 200 positions x 2
+  heads of 140, band 12) vs their plain versions; K9 and K10 on the plain
+  forward's lse and delta."""
+  import numpy as np
+  import torch
+  import torch.nn.functional as F
+
+  from deepconsensus_tpu_torch.ops import flash_band_attention as fba
+  from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
+
+  dev = torch.device(device)
+  params = make_params(dtype)
+  dt = fwa.resolve_dtype(dtype)
+  isz = 4 if dtype == 'float32' else 2
+  b, length, heads = TRAIN_BATCH, FLASH_LENGTH, params.num_heads
+  d, win = params.hidden_size // heads, params.attn_win_size
+  rng = np.random.default_rng(SEED + 8)
+  q, k, v, do = (torch.from_numpy(rng.normal(size=(b, length, heads, d))
+                                  .astype(np.float32)).to(dev, dt)
+                 for _ in range(4))
+  q = (q * d ** -0.5).contiguous()
+  tol = TOL[dtype]
+  want_o, lse = fba.flash_band_attention_plain(q, k, v, win, with_lse=True)
+  delta = fba.row_delta(do, want_o)
+  stats = (lse, delta)
+
+  def k8(with_lse=False):
+    return fba.flash_band_attention(q, k, v, win, with_lse=with_lse)
+
+  def k8_plain():
+    return fba.flash_band_attention_plain(q, k, v, win)
+
+  def k9():
+    return fba.flash_band_dq(q, k, v, do, *stats, win)
+
+  def k9_plain():
+    return fba.flash_band_dq_plain(q, k, v, do, *stats, win)
+
+  def k10():
+    return fba.flash_band_dkdv(q, k, v, do, *stats, win)
+
+  def k10_plain():
+    return fba.flash_band_dkdv_plain(q, k, v, do, *stats, win)
+
+  got_o, got_lse = k8(with_lse=True)
+  err8 = max(max_err(k8(), want_o, tol), max_err(got_o, want_o, tol),
+             max_err(got_lse, lse, 1e-4))
+  err9 = max_err(k9(), k9_plain(), tol)
+  err10 = max(max_err(g, w, tol) for g, w in zip(k10(), k10_plain()))
+  torch.cuda.synchronize()
+  # Bytes: each input read once, each output written once (lse and delta
+  # [B, H, L] float32). Operations: the band's products, 2*D per (query,
+  # key) pair for q.k and p.v forward, q.k, do.v and ds.k for dq, and
+  # q.k, do.v, w.do and ds.q for dk/dv.
+  pairs = band_pairs(length, win) * b * heads
+  tensor = q.numel() * isz
+  row = b * heads * length * 4
+  sdpa_in = [x.transpose(1, 2) for x in (q, k, v)]
+  band = (torch.arange(length, device=dev)[:, None]
+          - torch.arange(length, device=dev)[None, :]).abs() <= win
+
+  def k8_library():
+    return F.scaled_dot_product_attention(*sdpa_in, attn_mask=band,
+                                          scale=1.0)
+
+  leaves = [x.detach().requires_grad_(True) for x in sdpa_in]
+  sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=band,
+                                            scale=1.0)
+  do_t = do.transpose(1, 2)
+  # One call computes dq, dk and dv: the yardstick of K9 and K10 together.
+  bwd_library_ms = cuda_ms(lambda: torch.autograd.grad(
+      sdpa_out, leaves, do_t, retain_graph=True))
+  out = {}
+  t_bound, by = bound(4 * d * pairs, 4 * tensor, dtype)
+  lse_bound, _ = bound(4 * d * pairs, 4 * tensor + row, dtype)
+  out['K8'] = dict(max_abs_err=err8, ms=cuda_ms(k8),
+                   lse_ms=cuda_ms(lambda: k8(with_lse=True)),
+                   plain_ms=cuda_ms(k8_plain), library_ms=cuda_ms(k8_library),
+                   bound_ms=t_bound, bound_by=by, lse_bound_ms=lse_bound,
+                   flops=4 * d * pairs, bytes=4 * tensor)
+  t_bound, by = bound(6 * d * pairs, 5 * tensor + 2 * row, dtype)
+  out['K9'] = dict(max_abs_err=err9, ms=cuda_ms(k9), plain_ms=cuda_ms(k9_plain),
+                   library_ms=bwd_library_ms, library_covers='K9+K10',
+                   bound_ms=t_bound, bound_by=by, flops=6 * d * pairs,
+                   bytes=5 * tensor + 2 * row)
+  t_bound, by = bound(8 * d * pairs, 6 * tensor + 2 * row, dtype)
+  out['K10'] = dict(max_abs_err=err10, ms=cuda_ms(k10),
+                    plain_ms=cuda_ms(k10_plain), library_ms=bwd_library_ms,
+                    library_covers='K9+K10', bound_ms=t_bound, bound_by=by,
+                    flops=8 * d * pairs, bytes=6 * tensor + 2 * row)
+  return out
+
+
 def counted_modules():
-  """Kernel name -> (module, launch counter attribute)."""
+  """Kernel name -> (module, launch counter attribute); K8_lse is K8
+  with its logsumexp."""
   from deepconsensus_tpu_torch.ops import banded_attention as ba
+  from deepconsensus_tpu_torch.ops import flash_band_attention as fba
   from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
   from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
   from deepconsensus_tpu_torch.ops import output_plane
@@ -762,6 +909,8 @@ def counted_modules():
           'K3': (output_plane, 'n_launches'), 'K4': (rwa, 'n_launches'),
           'K5': (ba, 'n_fwd_launches'), 'K6': (ba, 'n_bwd_launches'),
           'K7': (ba, 'n_dropout_fwd_launches'),
+          'K8': (fba, 'n_fwd_launches'), 'K8_lse': (fba, 'n_fwd_lse_launches'),
+          'K9': (fba, 'n_dq_launches'), 'K10': (fba, 'n_dkdv_launches'),
           'K11': (wavefront_cuda, 'n_fwd_launches'),
           'K12': (wavefront_cuda, 'n_bwd_launches'),
           'K13': (wavefront_cuda, 'n_band_fwd_launches'),
@@ -782,16 +931,21 @@ def read_launches() -> dict:
 PATH_KERNELS = {'L100': ('K1', 'K2', 'K3'), 'ragged': ('K4', 'K2', 'K3'),
                 'train': ('K11', 'K12'),
                 'train_attn': ('K5', 'K6', 'K7', 'K11', 'K12'),
-                'train_band': ('K13', 'K14')}
+                'train_band': ('K13', 'K14'),
+                'train_flash': ('K8', 'K8_lse', 'K9', 'K10', 'K11', 'K12'),
+                'buckets': ('K1', 'K2', 'K3', 'K8')}
 RUN_PATHS = ('L100', 'ragged')
-RAGGED_FLAGS = ('--use_ccs_smart_windows', '--window_buckets',
-                ','.join(map(str, BUCKETS)), '--use_ragged_kernel')
+BUCKET_FLAGS = ('--use_ccs_smart_windows', '--window_buckets',
+                ','.join(map(str, BUCKETS)))
+RAGGED_FLAGS = BUCKET_FLAGS + ('--use_ragged_kernel',)
 
 
-def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False):
-  """One `run` over the synthetic BAMs on one path ('L100' or
-  'ragged'); returns (counters, launch counts, delivered-position ids
-  and quals, per-pack lengths, seconds, peak bytes)."""
+def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
+                  attn: bool = False):
+  """One `run` over the synthetic BAMs on one path ('L100', 'ragged' or
+  'buckets'; attn: params with use_pallas_attention); returns (counters,
+  launch counts, delivered-position ids and quals, per-pack lengths,
+  seconds, peak bytes)."""
   import numpy as np
   import torch
 
@@ -799,11 +953,15 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False):
   from deepconsensus_tpu_torch.inference import runner as runner_lib
 
   ragged = path == 'ragged'
-  params_path = os.path.join(WORK, f'params_{dtype}.json')
+  smart = path != 'L100'
+  flag = '_attn' if attn else ''
+  params_path = os.path.join(WORK, f'params_{dtype}{flag}.json')
+  params = make_params(dtype)
+  params.use_pallas_attention = attn
   with open(params_path, 'w') as f:
-    json.dump(make_params(dtype).to_dict(), f)
+    json.dump(params.to_dict(), f)
   out = os.path.join(
-      WORK, f'out_{path}_{dtype}{"_plain" if plain else ""}.fastq')
+      WORK, f'out_{path}_{dtype}{flag}{"_plain" if plain else ""}.fastq')
   planes = []
   predict = runner_lib.ModelRunner.predict
   predict_ragged = runner_lib.ModelRunner.predict_ragged
@@ -822,8 +980,8 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False):
           '--weights', weights, '--params', params_path, '--output', out,
           '--batch_size', str(BATCH), '--batch_zmws', str(N_ZMWS),
           '--min_quality', '0', '--skip_windows_above', '0']
-  if ragged:
-    argv += RAGGED_FLAGS
+  if smart:
+    argv += RAGGED_FLAGS if ragged else BUCKET_FLAGS
   runner_lib.ModelRunner.predict = recording_predict
   runner_lib.ModelRunner.predict_ragged = recording_predict_ragged
   torch.cuda.reset_peak_memory_stats()
@@ -837,8 +995,8 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False):
       params = config_lib.read_params_from_json(params_path)
       options = runner_lib.InferenceOptions(
           batch_size=BATCH, batch_zmws=N_ZMWS, min_quality=0,
-          skip_windows_above=0, use_ccs_smart_windows=ragged,
-          window_buckets=BUCKETS if ragged else None,
+          skip_windows_above=0, use_ccs_smart_windows=smart,
+          window_buckets=BUCKETS if smart else None,
           use_ragged_kernel=ragged)
       runner = runner_lib.ModelRunner(
           params, weights_lib.from_flax_params(
@@ -927,21 +1085,26 @@ def path_gates(path: str, runs) -> dict:
 
 
 def run_train_path(shards, dtype: str, plain: bool = False,
-                   attn: bool = False, band: bool = False) -> dict:
+                   attn: bool = False, band: bool = False,
+                   flash: bool = False) -> dict:
   """One `cli train` epoch over the synthetic shards (plain: the same
   through run_training with the plain DP; attn: with
-  --set use_pallas_attention=true; band: with --set band_width=12);
-  returns the run's launches, per-step losses and gradient norms, eval
-  metrics and summary."""
+  --set use_pallas_attention=true; band: with --set band_width=12;
+  flash: with --set max_length=200 --set attention_dropout=0, on shards
+  of that width); returns the run's launches, per-step losses and
+  gradient norms, eval metrics and summary."""
   from deepconsensus_tpu_torch import cli
   from deepconsensus_tpu_torch.models import config as config_lib
   from deepconsensus_tpu_torch.models import train as train_lib
 
-  route = '_attn' if attn else '_band' if band else ''
+  route = ''.join(name for name, on in (('_flash', flash), ('_attn', attn),
+                                        ('_band', band)) if on)
   out = os.path.join(WORK, f'train{route}_{dtype}'
                      f'{"_plain" if plain else ""}')
   shutil.rmtree(out, ignore_errors=True)
   overrides = {'dtype': dtype, 'log_every_n_steps': 1}
+  if flash:
+    overrides.update(max_length=FLASH_LENGTH, attention_dropout=0.0)
   if attn:
     overrides['use_pallas_attention'] = True
   if band:
@@ -1102,6 +1265,108 @@ def train_band_gates(runs, module: dict) -> dict:
   return enforce('train_band', gates, checks)
 
 
+def train_flash_gates(runs, module_f32: dict) -> dict:
+  """The train_flash path's gates against the module-route float32 run
+  at the same window, shards, seed and masks; raises on a failed one."""
+  steps = TRAIN_EXAMPLES // TRAIN_BATCH
+  eval_batches = EVAL_EXAMPLES // TRAIN_BATCH
+  layers = make_params('float32').num_hidden_layers
+  f32 = runs['float32']
+  rel = [abs(a - b) / abs(b) for a, b in zip(f32['losses'],
+                                             module_f32['losses'])]
+  eval_rel = abs(f32['eval']['eval/loss'] - module_f32['eval']['eval/loss']
+                 ) / abs(module_f32['eval']['eval/loss'])
+  want = {'K8': layers * eval_batches, 'K8_lse': layers * steps,
+          'K9': layers * steps, 'K10': layers * steps, 'K5': 0, 'K6': 0,
+          'K7': 0, 'K11': steps + eval_batches, 'K12': steps}
+  gates, checks = common_train_gates(runs)
+  gates.update({
+      'launches': {k: {n: r['launches'][n] for n in want}
+                   for k, r in runs.items()},
+      'module_route_launches': {n: module_f32['launches'][n] for n in want},
+      'f32_vs_module_route_max_rel_loss_diff': max(rel),
+      'f32_vs_module_route_eval_loss_rel_diff': eval_rel,
+      'step_p50_ms': {k: 1e3 * r['summary']['train_step_p50_s']
+                      for k, r in runs.items()},
+      'module_route_step_p50_ms': 1e3 * module_f32['summary'][
+          'train_step_p50_s'],
+      'peak_bytes': {k: r['summary']['peak_bytes'] for k, r in runs.items()},
+      'module_route_peak_bytes': module_f32['summary']['peak_bytes'],
+  })
+  checks += [
+      (all(v == want for v in gates['launches'].values()),
+       f'launches differ from {want}'),
+      (all(gates['module_route_launches'][n] == 0
+           for n in ('K5', 'K6', 'K7', 'K8', 'K8_lse', 'K9', 'K10')),
+       'the module-route run launched an attention kernel'),
+      (max(rel) <= 1e-4, 'f32 flash kernels vs the module route: a step '
+       'loss differs by > 1e-4 relative'),
+      (eval_rel <= 1e-4, 'f32 flash kernels vs the module route: the eval '
+       'loss differs by > 1e-4 relative'),
+  ]
+  return enforce('train_flash', gates, checks)
+
+
+def buckets_gates(runs) -> dict:
+  """The buckets path's gates: one read per ZMW, each bucket >= 20% of
+  model windows, K1-K3 on each 100-wide pack, K8 (no lse) once per
+  layer of each 200-wide pack and K3 there, no other kernel; float32
+  kernels vs the float32 plain run and vs the float32 flag-off run
+  (module route) on delivered positions, and bfloat16 vs float32.
+  Raises on a failed gate."""
+  import numpy as np
+
+  from deepconsensus_tpu_torch.models import config as config_lib
+
+  layers = make_params('float32').num_hidden_layers
+  ids32, q32 = runs['float32'][2:4]
+  ids16, q16 = runs['bfloat16'][2:4]
+  agree16 = ids16 == ids32
+  gates = {
+      'bf16_vs_f32_id_agreement': float(agree16.mean()),
+      'bf16_vs_f32_max_qv_diff': int(np.abs(q16 - q32)[agree16].max()),
+  }
+  checks = [
+      (gates['bf16_vs_f32_id_agreement'] >= 0.99,
+       'bf16 vs f32: ids agree on < 99% of positions'),
+      (gates['bf16_vs_f32_max_qv_diff'] <= config_lib.BF16_QV_GATE,
+       'bf16 vs f32: QV differs by > BF16_QV_GATE'),
+  ]
+  for ref in ('float32_plain', 'float32_flag_off'):
+    ids, quals = runs[ref][2:4]
+    same = ids32 == ids
+    gates[f'f32_vs_{ref[8:]}_id_mismatch'] = float(1 - same.mean())
+    gates[f'f32_vs_{ref[8:]}_max_qual_diff'] = int(
+        np.abs(q32 - quals)[same].max())
+    checks += [
+        (gates[f'f32_vs_{ref[8:]}_id_mismatch'] <= 1e-4,
+         f'f32 kernels vs {ref}: too many id mismatches'),
+        (gates[f'f32_vs_{ref[8:]}_max_qual_diff'] <= 1,
+         f'f32 kernels vs {ref}: qualities differ by > 1'),
+    ]
+  counters = runs['bfloat16'][0]
+  by_bucket = counters['n_windows_by_bucket']
+  total = sum(by_bucket.values())
+  gates['bucket_share'] = {w: n / total for w, n in by_bucket.items()}
+  gates['packs_by_bucket'] = counters['n_model_packs_by_bucket']
+  gates['launches'] = {}
+  for label, run in runs.items():
+    packs = run[0]['n_model_packs_by_bucket']
+    p100, p200 = packs.get(str(BUCKETS[0]), 0), packs.get(str(BUCKETS[1]), 0)
+    want = dict.fromkeys(counted_modules(), 0)
+    if label != 'float32_plain':
+      want.update(K1=p100, K2=layers * p100, K3=p100 + p200)
+    if label in ('bfloat16', 'float32'):
+      want['K8'] = layers * p200
+    gates['launches'][label] = {n: run[1][n] for n in want if want[n]
+                                or run[1][n]}
+    checks.append((run[1] == want, f'{label}: launches differ from {want}'))
+  checks.append((len(by_bucket) == len(BUCKETS)
+                 and min(gates['bucket_share'].values()) >= 0.2,
+                 'a bucket holds < 20% of model windows'))
+  return enforce('buckets', gates, checks)
+
+
 def long_window_gates(device: str = 'cuda', batch: int = TRAIN_BATCH
                       ) -> dict:
   """Phase 3f (the ring route): one full-width forward and backward of
@@ -1207,16 +1472,18 @@ def long_window_gates(device: str = 'cuda', batch: int = TRAIN_BATCH
   return enforce('long_window', gates, checks)
 
 
-def train_attn_step_gates(device: str = 'cuda') -> dict:
+def train_attn_step_gates(device: str = 'cuda', flash: bool = False,
+                          batch_size: int = TRAIN_BATCH) -> dict:
   """One full-width float32 training forward and backward with non-zero
   ReZero alphas (seeded U(0.1, 0.3)) on one batch and one dropout seed,
-  attention through K7 and K6 vs the module route. The train runs start
-  from Flax's zero alphas, where attention does not reach the loss; here
-  it does. Gates: the loss within 1e-4 relative, each parameter's
-  gradient (the norm of the difference over the norm) within 1e-3
-  (a ReZero alpha's gradient is one sum over 7M products, taken in
-  another order on each route; 1e-5 in a CPU rehearsal at batch 2),
-  and K7 and K6 launched once per layer. Raises on a failed gate."""
+  attention through K7 and K6 (flash: at L = 200 with attention dropout
+  0, through K8 with lse, K9 and K10) vs the module route. The train
+  runs start from Flax's zero alphas, where attention does not reach
+  the loss; here it does. Gates: the loss within 1e-4 relative, each
+  parameter's gradient (the norm of the difference over the norm) within
+  1e-3 (a ReZero alpha's gradient is one sum over 7M products, taken in
+  another order on each route; 1e-5 in a CPU rehearsal at batch 2), and
+  the kernels launched once per layer. Raises on a failed gate."""
   import numpy as np
   import torch
 
@@ -1225,10 +1492,13 @@ def train_attn_step_gates(device: str = 'cuda') -> dict:
 
   dev = torch.device(device)
   params = make_params('float32')
-  rng = np.random.default_rng(SEED + 5)
+  length = FLASH_LENGTH if flash else LENGTH
+  if flash:
+    params.attention_dropout = 0.0
+  rng = np.random.default_rng(SEED + (9 if flash else 5))
   batch = train_lib.batch_to_device({
-      'rows': fake_rows(params, rng, TRAIN_BATCH),
-      'label': rng.integers(0, 5, (TRAIN_BATCH, LENGTH)).astype(np.float32),
+      'rows': fake_rows(params, rng, batch_size, length),
+      'label': rng.integers(0, 5, (batch_size, length)).astype(np.float32),
   }, dev)
   loss_fn = train_lib.make_loss(params)
   runs = {}
@@ -1251,16 +1521,21 @@ def train_attn_step_gates(device: str = 'cuda') -> dict:
               for n, p in m_params.items()}
   worst = max(leaf_rel, key=leaf_rel.get)
   layers = params.num_hidden_layers
+  want = {'K5': 0, 'K6': layers, 'K7': layers, 'K8': 0, 'K8_lse': 0,
+          'K9': 0, 'K10': 0}
+  if flash:
+    want.update(K6=0, K7=0, K8_lse=layers, K9=layers, K10=layers)
   gates = {
+      'length': length, 'batch': batch_size,
       'loss_rel_diff': abs(k_loss - m_loss) / abs(m_loss),
       'max_leaf_grad_rel_diff': leaf_rel[worst], 'worst_leaf': worst,
       'attention_leaf_grad_rel_diff': max(
           v for n, v in leaf_rel.items() if 'self_attention' in n),
-      'launches': {n: launches[n] for n in ('K5', 'K6', 'K7')},
+      'launches': {n: launches[n] for n in want},
   }
-  return enforce('train_attn_step', gates, [
-      (gates['launches'] == {'K5': 0, 'K6': layers, 'K7': layers},
-       'K7/K6 did not launch once per layer'),
+  return enforce('train_flash_step' if flash else 'train_attn_step', gates, [
+      (gates['launches'] == want,
+       f'the attention kernels did not launch as {want}'),
       (gates['loss_rel_diff'] <= 1e-4, 'the loss differs by > 1e-4'),
       (gates['max_leaf_grad_rel_diff'] <= 1e-3,
        f'gradient of {worst} differs by > 1e-3 relative'),
@@ -1268,11 +1543,12 @@ def train_attn_step_gates(device: str = 'cuda') -> dict:
 
 
 def train_step_breakdown(dtype: str, steps: int = 5, attn: bool = False,
-                         band: bool = False) -> dict:
+                         band: bool = False, flash: bool = False) -> dict:
   """Phase 4 for one dtype: one full-width batch of TRAIN_BATCH seeded
   windows, the training step split into its stages, then one step
   under torch.profiler (attn: attention through K5-K7; band: the loss
-  with band_width 12, K13/K14)."""
+  with band_width 12, K13/K14; flash: attention through K8-K10 at
+  L = 200, attention dropout 0)."""
   import numpy as np
   import torch
   from torch.profiler import ProfilerActivity, profile
@@ -1282,8 +1558,11 @@ def train_step_breakdown(dtype: str, steps: int = 5, attn: bool = False,
 
   dev = torch.device('cuda')
   params = make_params(dtype)
-  params.use_pallas_attention = attn
+  params.use_pallas_attention = attn or flash
   params.band_width = BAND_WIDTH if band else None
+  length = FLASH_LENGTH if flash else LENGTH
+  if flash:
+    params.attention_dropout = 0.0
   model = model_lib.DeepConsensusModel(params, device=dev)
   model.init_weights(torch.Generator().manual_seed(SEED))
   model.requires_grad_(True)
@@ -1291,8 +1570,8 @@ def train_step_breakdown(dtype: str, steps: int = 5, attn: bool = False,
   loss_fn = train_lib.make_loss(params)
   rng = np.random.default_rng(SEED + 3)
   batch = train_lib.batch_to_device({
-      'rows': fake_rows(params, rng, TRAIN_BATCH),
-      'label': rng.integers(0, 5, (TRAIN_BATCH, LENGTH)).astype(np.float32),
+      'rows': fake_rows(params, rng, TRAIN_BATCH, length),
+      'label': rng.integers(0, 5, (TRAIN_BATCH, length)).astype(np.float32),
   }, dev)
   generator = torch.Generator(device=dev).manual_seed(SEED)
   stages = ('forward', 'loss', 'backward', 'optimizer')
@@ -1339,6 +1618,10 @@ def train_step_breakdown(dtype: str, steps: int = 5, attn: bool = False,
       # K5-K7 (csrc/banded_attention.cu's kernels) in the profiled step.
       'banded_attention_ms': sum(e.self_device_time_total for e in kernels
                                  if 'banded_' in e.key) / 1e3,
+      # K8-K10 (csrc/flash_band_attention.cu's kernels) in the profiled
+      # step.
+      'flash_attention_ms': sum(e.self_device_time_total for e in kernels
+                                if 'flash_' in e.key) / 1e3,
       # K11-K14 (csrc/wavefront.cu's kernels) in the profiled step.
       'alignment_dp_ms': sum(e.self_device_time_total for e in kernels
                              if 'wavefront_' in e.key or 'band_fwd' in e.key
@@ -1388,13 +1671,18 @@ def main(argv) -> int:
       'dynamic_smem_bytes': {
           length: _kernels.attention_smem_bytes(
               length, p.hidden_size, p.num_heads, p.attn_win_size)
-          for length in (LENGTH, SLOT_LEN, 256)}}), flush=True)
+          for length in (LENGTH, SLOT_LEN, 256)},
+      # K8-K10's tiles: one size for every L and band.
+      'flash_smem_bytes': _build.load(
+          'flash_band_attention').dc_flash_band_smem_bytes(
+              p.hidden_size // p.num_heads)}), flush=True)
 
   kernels = {}
   for dtype in ('float32', 'bfloat16'):
     result = check_kernels(dtype)
     result.update(check_ragged_kernels(dtype))
     result.update(check_banded_attention_kernels(dtype))
+    result.update(check_flash_kernels(dtype))
     for name, r in result.items():
       print(json.dumps({'phase': 'kernel', 'kernel': name, 'dtype': dtype,
                         **r}), flush=True)
@@ -1449,6 +1737,34 @@ def main(argv) -> int:
             f'{launches}')
     path_gates(path, runs)
     launches_by_path[path] = runs['bfloat16'][1]
+  runs = {}
+  for dtype, plain, attn in (('bfloat16', False, True),
+                             ('float32', False, True),
+                             ('float32', True, True),
+                             ('float32', False, False)):
+    label = dtype + ('_plain' if plain else '') + ('' if attn else '_flag_off')
+    counters, launches, ids, quals, _, seconds, peak = run_main_path(
+        'buckets', bams['ragged'], weights, dtype, plain, attn)
+    runs[label] = (counters, launches, ids, quals)
+    n_win = counters['n_windows_to_model']
+    print(json.dumps({
+        'phase': 'main_path', 'path': 'buckets', 'run': label,
+        'launches': launches, 'reads': counters['success'],
+        'windows': n_win, 'packs': counters['n_model_packs'],
+        'packs_by_bucket': counters['n_model_packs_by_bucket'],
+        'windows_by_bucket': counters['n_windows_by_bucket'],
+        'pad_rows_by_bucket': counters['n_model_pad_rows_by_bucket'],
+        'seconds': seconds,
+        'windows_per_s': n_win / counters['total_seconds'],
+        'model_windows_per_s': n_win / counters['model_seconds'],
+        'model_seconds': counters['model_seconds'],
+        'featurize_seconds': counters['featurize_seconds'],
+        'peak_bytes': peak}), flush=True)
+    if counters['success'] != N_ZMWS:
+      raise AssertionError(f'buckets {label}: {counters["success"]} reads, '
+                           f'want {N_ZMWS}')
+  buckets_gates(runs)
+  launches_by_path['buckets'] = runs['bfloat16'][1]
 
   shards = []
   for split, count, seed in (('train', TRAIN_EXAMPLES, SEED),
@@ -1514,13 +1830,44 @@ def main(argv) -> int:
         'eval_loss': r['eval']['eval/loss']}), flush=True)
   train_band_gates(band_runs, runs)
   launches_by_path['train_band'] = band_runs['bfloat16']['launches']
+  flash_shards = []
+  for split, count, seed in (('train', TRAIN_EXAMPLES, SEED + 2),
+                             ('eval', EVAL_EXAMPLES, SEED + 3)):
+    out = os.path.join(WORK, f'flash_shards_{split}')
+    shutil.rmtree(out, ignore_errors=True)
+    synthetic.write_synthetic_tfrecords(
+        out, n_shards=4, n_examples=count, max_passes=20,
+        max_length=FLASH_LENGTH, seed=seed)
+    flash_shards.append(os.path.join(out, '*.tfrecord.gz'))
+  flash_runs = {}
+  for dtype, attn in (('bfloat16', True), ('float32', True),
+                      ('float32', False)):
+    label = dtype + ('' if attn else '_module')
+    flash_runs[label] = r = run_train_path(flash_shards, dtype, attn=attn,
+                                           flash=True)
+    summary = r['summary']
+    print(json.dumps({
+        'phase': 'main_path', 'path': 'train_flash', 'run': label,
+        'launches': r['launches'], 'seconds': r['seconds'],
+        'losses': r['losses'], 'grad_norms': r['grad_norms'],
+        'step_ms': [1e3 * t for t in r['step_seconds']],
+        'step_p50_ms': 1e3 * summary['train_step_p50_s'],
+        'examples_per_s': summary['train_examples_per_s'],
+        'peak_bytes': summary['peak_bytes'],
+        'eval_loss': r['eval']['eval/loss']}), flush=True)
+  module_f32 = flash_runs.pop('float32_module')
+  train_flash_gates(flash_runs, module_f32)
+  train_attn_step_gates(flash=True)
+  launches_by_path['train_flash'] = flash_runs['bfloat16']['launches']
   long_window_gates()
   for dtype, route in (('bfloat16', 'train'), ('float32', 'train'),
-                       ('bfloat16', 'train_attn'), ('bfloat16', 'train_band')):
+                       ('bfloat16', 'train_attn'), ('bfloat16', 'train_band'),
+                       ('bfloat16', 'train_flash')):
     print(json.dumps({'phase': 'train_breakdown', 'dtype': dtype,
                       'route': route, **train_step_breakdown(
                           dtype, attn=route == 'train_attn',
-                          band=route == 'train_band')}), flush=True)
+                          band=route == 'train_band',
+                          flash=route == 'train_flash')}), flush=True)
 
   sources = {
       'K1': ('deepconsensus_tpu_torch/csrc/embed_condense.cu',
@@ -1538,7 +1885,19 @@ def main(argv) -> int:
              'deepconsensus_tpu/ops/banded_attention.py:222', 'train_attn'),
       'K7': ('deepconsensus_tpu_torch/csrc/banded_attention.cu',
              'deepconsensus_tpu/ops/banded_attention.py:281', 'train_attn'),
+      'K8': ('deepconsensus_tpu_torch/csrc/flash_band_attention.cu',
+             'deepconsensus_tpu/ops/flash_band_attention.py:182',
+             'train_flash'),
+      'K9': ('deepconsensus_tpu_torch/csrc/flash_band_attention.cu',
+             'deepconsensus_tpu/ops/flash_band_attention.py:370',
+             'train_flash'),
+      'K10': ('deepconsensus_tpu_torch/csrc/flash_band_attention.cu',
+              'deepconsensus_tpu/ops/flash_band_attention.py:417',
+              'train_flash'),
   }
+  # K8's launches count both its variants (without and with lse).
+  launches_by_path = {k: {**v, 'K8': v['K8'] + v['K8_lse']}
+                      for k, v in launches_by_path.items()}
   line = []
   for name, (source, replaces, path) in sources.items():
     r = kernels['bfloat16'][name]
@@ -1561,6 +1920,11 @@ def main(argv) -> int:
     if name == 'K6':  # K5's backward: no mask
       entry['no_mask_ms'] = r['no_mask_ms']
       entry['no_mask_float32_ms'] = kernels['float32']['K6']['no_mask_ms']
+    if name == 'K8':  # with its logsumexp (train_flash's steps)
+      entry.update(lse_ms=r['lse_ms'], lse_bound_ms=r['lse_bound_ms'],
+                   lse_float32_ms=kernels['float32']['K8']['lse_ms'])
+    if name in ('K9', 'K10'):
+      entry['library_covers'] = r['library_covers']
     line.append(entry)
   for name, replaces, path in (
       ('K11', 'deepconsensus_tpu/ops/wavefront_pallas.py:231', 'train'),

@@ -5,7 +5,8 @@
       --weights weights.npz --params params.json --output out.fastq
 
 Mixed-width windows from the CCS `wl` tag: add --use_ccs_smart_windows
---window_buckets 100,200 --use_ragged_kernel.
+--window_buckets 100,200 (each bucket in its own packs), and
+--use_ragged_kernel to pack them into ragged slots instead.
 
   python -m deepconsensus_tpu_torch.cli train \\
       --config transformer_learn_values+custom --out_dir model_out \\
@@ -136,8 +137,9 @@ def _add_run(sub) -> None:
                  help='Window length buckets, e.g. 100,200: each window '
                  'pads to the smallest bucket that fits; wider ones '
                  'adopt the CCS. The smallest must equal max_length. '
-                 'Several buckets need --use_ragged_kernel. Default: '
-                 'params.json "window_buckets" (one bucket when unset).')
+                 'Each bucket runs in its own packs of --batch_size. '
+                 'Default: params.json "window_buckets" (one bucket when '
+                 'unset).')
   p.add_argument('--use_ragged_kernel', action='store_true',
                  help='Pack windows of every bucket back to back into '
                  'slots of the largest bucket with a per-slot lengths '

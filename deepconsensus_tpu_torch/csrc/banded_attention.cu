@@ -55,10 +55,10 @@
 // staged row (32 + 2 win) / 32 = 1.75 times, mostly from L2; the lane
 // products run from shared memory on the CUDA cores. A first version
 // that is right: tensor cores and TMA are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "attention_util.cuh"
 
 namespace {
 
@@ -66,26 +66,10 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using dc::store;
+using dc::to_f;
+using dc::warp_max;
+using dc::warp_sum;
 
 // Rows a tile reaches, and partners of one position.
 __host__ __device__ inline int span_rows(int L, int win) {

@@ -37,9 +37,10 @@
 // Bound: ~4*L*(2*win+1)*H flop per window against 4*4*L*H bytes moved:
 // memory-bound. Each K/V element is read (32 + 2*win)/32 times, once
 // per query tile whose halo covers it.
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "attention_util.cuh"
 
 namespace {
 
@@ -47,17 +48,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kQueryTile = 32;
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using dc::warp_max;
+using dc::warp_sum;
 
 // Rows of K/V a query tile reaches, and keys one query reaches.
 __host__ __device__ inline int span_rows(int L, int win) {

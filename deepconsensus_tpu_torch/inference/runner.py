@@ -10,9 +10,14 @@ fault quarantine are not part of the port yet (ROADMAP); a decode or
 model error fails the run.
 
 Mixed-width windows (--use_ccs_smart_windows with --window_buckets, e.g.
-100,200) need --use_ragged_kernel: each featurize batch's model windows
-pack into ragged slots of the largest bucket (inference/engine.py) and
-run through the model's ragged forward (K4, then K2 with lengths).
+100,200) run per bucket by default: each featurize batch's model
+windows group by width, and each bucket runs in packs of batch_size
+windows, padded to batch_size, in featurize order. Windows of at most
+128 positions take the fused route (K1, K2), wider ones the encoder's
+module route (K8 under use_pallas_attention). With --use_ragged_kernel
+they pack instead into ragged slots of the largest bucket
+(inference/engine.py) and run through the model's ragged forward (K4,
+then K2 with lengths).
 
 The model stage ships each pack to the card compactly, as in the
 reference: uint8 rows (the ccs_bq row biased by +1 so its -1 gaps
@@ -63,8 +68,8 @@ class InferenceOptions:
   use_ccs_bq: bool = False
   use_ccs_smart_windows: bool = False
   # Window length buckets: None follows params.window_buckets (one
-  # bucket, max_length, when that is unset too). Several buckets need
-  # use_ragged_kernel.
+  # bucket, max_length, when that is unset too). Each bucket runs in its
+  # own packs unless use_ragged_kernel.
   window_buckets: Optional[Tuple[int, ...]] = None
   # Pack mixed-width windows into ragged slots of the largest bucket
   # and run the ragged forward (the buckets must form a divisibility
@@ -148,11 +153,6 @@ class ModelRunner:
         self.options.window_buckets or params.get('window_buckets'),
         params.max_length)
     if len(self.window_buckets) > 1:
-      if not self.options.use_ragged_kernel:
-        raise NotImplementedError(
-            f'window_buckets {self.window_buckets} without '
-            '--use_ragged_kernel: per-bucket dispatch is not ported yet '
-            '(ROADMAP: per-bucket dispatch); pass --use_ragged_kernel')
       params = config_lib.Params(params,
                                  window_buckets=list(self.window_buckets))
     self.options.window_buckets = self.window_buckets
@@ -167,6 +167,11 @@ class ModelRunner:
     self.n_packs = 0
     self.n_pack_rows = 0
     self.n_pad_rows = 0
+    # Per bucket width, for dispatch(): windows, packs and pad rows.
+    self.n_windows_by_bucket = collections.Counter(
+        dict.fromkeys(self.window_buckets, 0))
+    self.n_packs_by_bucket = collections.Counter()
+    self.n_pad_rows_by_bucket = collections.Counter()
     self.model_seconds = 0.0
     self.d2h_bytes_per_pack = 0
 
@@ -202,9 +207,13 @@ class ModelRunner:
     sn_dev = torch.from_numpy(sn).to(self.device)
     preds = self.model(_assemble_rows(main_dev, sn_dev, self._bq_row),
                        plain=self.plain)
+    width = rows.shape[2]
     self.n_packs += 1
     self.n_pack_rows += n
     self.n_pad_rows += batch - n
+    self.n_windows_by_bucket[width] += n
+    self.n_packs_by_bucket[width] += 1
+    self.n_pad_rows_by_bucket[width] += batch - n
     return self._epilogue(preds), n
 
   def _main_rows_to_device(self, rows: np.ndarray) -> torch.Tensor:
@@ -344,8 +353,10 @@ def _polish_batch(windows: List[Dict[str, Any]], runner: ModelRunner,
                   packer: Optional[engine_lib._RaggedPacker] = None
                   ) -> Dict[str, Dict[str, list]]:
   """Triage + model for one featurize batch: molecule name ->
-  {'pos', 'ids', 'quals'} window lists. With a packer the model windows
-  run through ragged slots, grouped by width in featurize order."""
+  {'pos', 'ids', 'quals'} window lists. The model windows group by
+  width, in featurize order within a width; with a packer they run
+  through ragged slots, else each width in its own packs of
+  batch_size."""
   mols: Dict[str, Dict[str, list]] = {}
 
   def add(fd, ids, quals):
@@ -358,25 +369,27 @@ def _polish_batch(windows: List[Dict[str, Any]], runner: ModelRunner,
   to_model, to_skip = triage_windows(windows, options, counter)
   for fd in to_skip:
     add(fd, *skipped_window_arrays(fd, options))
-  if packer is not None:
-    by_width: Dict[int, List[Dict[str, Any]]] = {}
-    for fd in to_model:
-      by_width.setdefault(fd['subreads'].shape[1], []).append(fd)
-    for width in sorted(by_width):
-      group = by_width[width]
+  by_width: Dict[int, List[Dict[str, Any]]] = {}
+  for fd in to_model:
+    by_width.setdefault(fd['subreads'].shape[1], []).append(fd)
+  for width in sorted(by_width):
+    group = by_width[width]
+    if packer is not None:
       rows = data_lib.format_rows_batch(
           np.stack([fd['subreads'] for fd in group]), runner.params,
           window_buckets=runner.window_buckets)
       packer.add(rows, [(add, fd) for fd in group])
+      continue
+    for start in range(0, len(group), options.batch_size):
+      chunk = group[start:start + options.batch_size]
+      rows = data_lib.format_rows_batch(
+          np.stack([fd['subreads'] for fd in chunk]), runner.params,
+          window_buckets=runner.window_buckets)
+      ids, quals = runner.predict(rows)
+      for fd, i, q in zip(chunk, ids, quals):
+        add(fd, i, q)
+  if packer is not None:
     packer.flush()
-    return mols
-  for start in range(0, len(to_model), options.batch_size):
-    chunk = to_model[start:start + options.batch_size]
-    rows = data_lib.format_rows_batch(
-        np.stack([fd['subreads'] for fd in chunk]), runner.params)
-    ids, quals = runner.predict(rows)
-    for fd, i, q in zip(chunk, ids, quals):
-      add(fd, i, q)
   return mols
 
 
@@ -461,17 +474,24 @@ def run_inference(
   counters.update(dataclasses.asdict(outcome))
   counters.update({k: round(v, 6) for k, v in timings.items()})
   packs = runner if packer is None else packer
+  if packer is None:
+    by_bucket = (runner.n_windows_by_bucket, runner.n_packs_by_bucket,
+                 runner.n_pad_rows_by_bucket)
+  else:  # every ragged pack is one slot_len-wide shape
+    slot_len = runner.window_buckets[-1]
+    by_bucket = (packer.n_windows_by_bucket, {slot_len: packer.n_packs},
+                 {slot_len: packer.n_pad_rows})
   counters.update(
       total_seconds=round(time.perf_counter() - t_start, 6),
       window_buckets=list(runner.window_buckets),
       use_ragged_kernel=int(packer is not None),
-      n_windows_by_bucket=(
-          dict(packer.n_windows_by_bucket) if packer is not None
-          else {options.max_length: counter.get('n_windows_to_model', 0)}),
+      n_windows_by_bucket=dict(by_bucket[0]),
       n_model_packs=packs.n_packs,
+      n_model_packs_by_bucket=dict(by_bucket[1]),
       n_model_pack_rows=packs.n_pack_rows,
       # Ragged packs count unused slot capacity in min-bucket units.
       n_model_pad_rows=packs.n_pad_rows,
+      n_model_pad_rows_by_bucket=dict(by_bucket[2]),
       device_epilogue=int(runner.device_epilogue),
       d2h_bytes_per_pack=runner.d2h_bytes_per_pack,
       device=str(runner.device),

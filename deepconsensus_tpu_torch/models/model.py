@@ -9,13 +9,16 @@ Flax's DenseGeneral, `output_transform.kernel` [heads, head_dim, H].
 Two routes, as in the reference:
 
 * the fused route (K1 -> K2 -> final LayerNorm, logits, softmax)
-  through ops/fused_window_attention.py and ops/fused_encoder_block.py.
-  It always runs on the card, where those wrappers launch the CUDA
-  kernels, and on the CPU when params.use_fused_hotpath is set, where
-  they run their plain versions;
+  through ops/fused_window_attention.py and ops/fused_encoder_block.py,
+  for windows of at most FUSED_MAX_WINDOW_LEN (128) positions, as the
+  reference's _fused_hotpath_eligible. It runs on the card, where those
+  wrappers launch the CUDA kernels, and on the CPU when
+  params.use_fused_hotpath is set, where they run their plain versions;
 * the module route (MaskedEmbed, condenser, BandedSelfAttention,
   FeedForward, ReZero ResidualWrapper, LayerNorm), the counterpart of
-  the reference's XLA path, on the CPU only.
+  the reference's XLA path: on the CPU otherwise, and on any device for
+  wider windows (the 200 bucket of per-bucket dispatch), where
+  attention routes as below.
 
 Training (`forward_train`) takes the module route on any device, as the
 reference's training path does, with dropout where Flax puts it: on the
@@ -27,11 +30,13 @@ BandedSelfAttention routes as the reference's does, in this order:
 * windows of RING_ATTENTION_MIN_LEN (256) and longer without attention
   dropout take the blockwise ring scan (parallel/ring_attention.py),
   whatever use_pallas_attention says;
-* with params.use_pallas_attention (ops/banded_attention.py), K7 with
-  a keep-mask drawn where Dropout would draw it when attention dropout
-  is on, else K5, both differentiated through K6; windows longer than
-  WHOLE_L_LIMIT (128) take the module route with dropout, and without
-  it (128 < L < 256) need K8-K10, which are not ported (it raises);
+* with params.use_pallas_attention, windows up to WHOLE_L_LIMIT (128)
+  take K7 with a keep-mask drawn where Dropout would draw it when
+  attention dropout is on, else K5, both differentiated through K6
+  (ops/banded_attention.py); longer windows take the module route with
+  dropout, and without it the block-banded flash kernels
+  (ops/flash_band_attention.py): K8, with its logsumexp when a gradient
+  is wanted, differentiated through K9 and K10;
 * otherwise the module route's einsums over [B, N, L, L] logits.
 
 Ragged slots (`window_lengths`, inference with --use_ragged_kernel):
@@ -55,6 +60,7 @@ from deepconsensus_tpu_torch import constants
 from deepconsensus_tpu_torch.devices import resolve_device
 from deepconsensus_tpu_torch.models import config as config_lib
 from deepconsensus_tpu_torch.ops import banded_attention as ba
+from deepconsensus_tpu_torch.ops import flash_band_attention as fba
 from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
 from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
 from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
@@ -165,7 +171,8 @@ class MaskedEmbed(nn.Module):
 class BandedSelfAttention(nn.Module):
   """Multi-head self-attention with a static banded mask: the
   reference's ring scan for long windows without dropout, its XLA
-  branch, or with use_kernels its Pallas branch (K5-K7)."""
+  branch, or with use_kernels its Pallas branch (K5-K7, or K8-K10 past
+  WHOLE_L_LIMIT)."""
 
   def __init__(self, hidden_size: int, num_heads: int,
                attn_win_size: Optional[int], device,
@@ -202,10 +209,12 @@ class BandedSelfAttention(nn.Module):
   def forward(self, x: torch.Tensor, dtype,
               ragged_widths: Optional[torch.Tensor] = None,
               ragged_buckets: Tuple[int, ...] = (),
-              drop: Optional[Dropout] = None) -> torch.Tensor:
+              drop: Optional[Dropout] = None,
+              plain: bool = False) -> torch.Tensor:
     """ragged_widths [B, S] (each position's window width, 0 = pad):
     each bucket width w attends over the slots reshaped to width-w
-    windows, and each position takes the result of its own width."""
+    windows, and each position takes the result of its own width.
+    plain: the kernels' plain versions in place of K8 (inference)."""
     query_raw = self.query(x, 1, dtype)
     key = self.key(x, 1, dtype)
     value = self.value(x, 1, dtype)
@@ -222,7 +231,7 @@ class BandedSelfAttention(nn.Module):
     if ragged_widths is None and self.use_kernels and not (
         use_dropout and length > config_lib.WHOLE_L_LIMIT):
       out = self._attend_kernels(query, key, value, drop if use_dropout
-                                 else None)
+                                 else None, plain)
     elif ragged_widths is None:
       out = self._attend(query, key, value, dtype, drop)
     else:
@@ -236,18 +245,17 @@ class BandedSelfAttention(nn.Module):
                                 cand, torch.zeros((), dtype=cand.dtype))
     return self.output_transform(out, 2, dtype)
 
-  def _attend_kernels(self, query, key, value,
-                      drop: Optional[Dropout]) -> torch.Tensor:
-    """K7 with drop (its keep-mask drawn where `_attend` draws the
-    weights' dropout), else K5; both differentiate through K6."""
+  def _attend_kernels(self, query, key, value, drop: Optional[Dropout],
+                      plain: bool = False) -> torch.Tensor:
+    """Past WHOLE_L_LIMIT (no dropout reaches here) K8, differentiated
+    through K9 and K10, or its plain version; else K7 with drop (its
+    keep-mask drawn where `_attend` draws the weights' dropout), or K5;
+    both differentiate through K6."""
     b, length, n, _ = query.shape
     if length > config_lib.WHOLE_L_LIMIT:
-      raise NotImplementedError(
-          f'use_pallas_attention at WHOLE_L_LIMIT '
-          f'({config_lib.WHOLE_L_LIMIT}) < L = {length} < '
-          f'RING_ATTENTION_MIN_LEN ({config_lib.RING_ATTENTION_MIN_LEN}) '
-          'without attention dropout needs the block-banded flash kernels, '
-          'which are not ported yet (ROADMAP A1b: K8-K10)')
+      attend = (fba.flash_band_attention_plain if plain
+                else fba.flash_band_attention_vjp)
+      return attend(query, key, value, self.attn_win_size)
     if drop is None:
       return ba.banded_attention_vjp(query, key, value, self.attn_win_size)
     mask, keep_prob = drop.keep_mask((b, n, length, length), 'attention',
@@ -328,11 +336,13 @@ class EncoderStack(nn.Module):
   def forward(self, x: torch.Tensor, dtype,
               ragged_widths: Optional[torch.Tensor] = None,
               ragged_buckets: Tuple[int, ...] = (),
-              drop: Optional[Dropout] = None) -> torch.Tensor:
+              drop: Optional[Dropout] = None,
+              plain: bool = False) -> torch.Tensor:
     for n in range(self.num_layers):
       x = self.layer('attention_wrapper', n)(
           x, self.layer('self_attention', n)(x, dtype, ragged_widths,
-                                             ragged_buckets, drop), drop)
+                                             ragged_buckets, drop, plain),
+          drop)
       x = self.layer('ffn_wrapper', n)(
           x, self.layer('ffn', n)(x, dtype, drop), drop)
     return self.output_normalization(x)
@@ -387,15 +397,10 @@ class DeepConsensusModel(nn.Module):
     if not (params.condense_transformer_input and params.rezero):
       raise NotImplementedError(
           'the port runs the condensed ReZero transformer only')
-    buckets = config_lib.resolve_window_buckets(params)
-    try:
-      rwa.validate_ragged_buckets(buckets)
-    except ValueError as e:
-      raise NotImplementedError(
-          f'window_buckets {buckets}: the port serves several buckets only '
-          'through ragged slots, which need a divisibility chain; the '
-          'per-bucket path is not ported yet (ROADMAP: per-bucket '
-          f'dispatch): {e}') from None
+    # Any set normalize_window_buckets accepts: each bucket runs on its
+    # own (per-bucket dispatch); ragged slots check their divisibility
+    # chain where they pack.
+    config_lib.resolve_window_buckets(params)
     if params.get('quantize_matmuls') not in (None, 'none'):
       raise NotImplementedError(
           'int8 matmuls are not ported yet (ROADMAP: K2 int8 variant)')
@@ -466,9 +471,17 @@ class DeepConsensusModel(nn.Module):
     return {k: getattr(self, f'{k}_embedding').embedding
             for k in table_keys}, table_keys
 
-  def use_fused(self, device: torch.device) -> bool:
-    return device.type == 'cuda' or bool(
-        self.params.get('use_fused_hotpath', False))
+  def use_fused(self, device: torch.device, length: int,
+                ragged: bool = False, plain: bool = False) -> bool:
+    """The fused route (K1 or K4, then K2): windows of at most
+    FUSED_MAX_WINDOW_LEN positions (ragged slots: RAGGED_MAX_SLOT_LEN),
+    as the reference's _fused_hotpath_eligible, on the card, through
+    the plain versions (plain), or on the CPU with use_fused_hotpath."""
+    limit = (rwa.RAGGED_MAX_SLOT_LEN if ragged
+             else config_lib.FUSED_MAX_WINDOW_LEN)
+    return length <= limit and (
+        plain or device.type == 'cuda'
+        or bool(self.params.get('use_fused_hotpath', False)))
 
   def _embed_rows(self, rows: torch.Tensor) -> torch.Tensor:
     """[B, R, L] -> [B, L, cond_in] in the family concat order."""
@@ -489,9 +502,10 @@ class DeepConsensusModel(nn.Module):
   def encode(self, rows: torch.Tensor, plain: bool = False,
              window_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Encoder output after the final LayerNorm, float32 [B, L, H].
-    plain=True runs the fused route through the kernels' plain versions
-    on any device (the on-card reference run). window_lengths [B, wps]:
-    rows are ragged slots (module docstring)."""
+    plain=True runs the kernels' plain versions on any device (the
+    on-card reference run): the fused route's, or K8's on the module
+    route of wider windows. window_lengths [B, wps]: rows are ragged
+    slots (module docstring)."""
     p = self.params
     dt = self.compute_dtype
     if rows.dim() == 4:
@@ -503,12 +517,12 @@ class DeepConsensusModel(nn.Module):
     if window_lengths is not None:
       lengths = window_lengths.to(device=rows.device, dtype=torch.int32)
     win = p.attn_win_size or None
-    if not (plain or self.use_fused(rows.device)):
+    if not self.use_fused(rows.device, length, lengths is not None, plain):
       x = self.condenser(self._embed_rows(rows), 1, dt)
       if lengths is None:
         if pos is not None:
           x = x + pos
-        return self.encoder(x, dt)
+        return self.encoder(x, dt, plain=plain)
       # Only widths that tile the slot are recoverable by reshape.
       buckets = rwa.validate_ragged_buckets(tuple(
           b for b in config_lib.resolve_window_buckets(p) if length % b == 0))
@@ -546,7 +560,7 @@ class DeepConsensusModel(nn.Module):
                     generator: Optional[torch.Generator] = None
                     ) -> torch.Tensor:
     """The training forward: module route on any device (attention
-    through K5-K7 with use_pallas_attention), differentiable
+    through K5-K10 with use_pallas_attention), differentiable
     (the caller sets requires_grad on the parameters), dropout drawn
     from `generator` (on the rows' device); without a generator no
     dropout, the reference's eval forward. Returns float32 softmax

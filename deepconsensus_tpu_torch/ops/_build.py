@@ -21,7 +21,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
 SOURCES = ('gemm', 'embed_condense', 'ragged_attention', 'phred_epilogue',
-           'wavefront', 'banded_attention')
+           'wavefront', 'banded_attention', 'flash_band_attention')
 NVCC_FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
@@ -55,6 +55,15 @@ SIGNATURES = {
                                     _I, _I, _P),
         'dc_banded_attention_bwd': (_P, _P, _P, _P, _P, _F, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _P),
+    },
+    'flash_band_attention': {
+        'dc_flash_band_smem_bytes': (_I,),
+        'dc_flash_band_fwd': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _P),
+        'dc_flash_band_dq': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _P),
+        'dc_flash_band_dkdv': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _P),
     },
 }
 

@@ -44,7 +44,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 MAX_SMEM_BYTES = 232448
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            mask: Optional[torch.Tensor] = None,
            do: Optional[torch.Tensor] = None) -> None:
   """Raises unless q, k, v (and do) are one contiguous [B, L, H, D]
@@ -154,7 +154,7 @@ def banded_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _kernel_win(length: int, attn_win_size: Optional[int]) -> int:
+def kernel_win(length: int, attn_win_size: Optional[int]) -> int:
   """The kernels' band half-width: no band is a band that covers the
   window."""
   if attn_win_size is None:
@@ -166,7 +166,7 @@ def _kernel_win(length: int, attn_win_size: Optional[int]) -> int:
 
 def _launch_args(q: torch.Tensor, attn_win_size: Optional[int]):
   b, length, h, d = q.shape
-  win = _kernel_win(length, attn_win_size)
+  win = kernel_win(length, attn_win_size)
   lib = _build.load('banded_attention')
   smem = lib.dc_banded_attention_smem_bytes(length, d, win)
   if smem > MAX_SMEM_BYTES:
@@ -190,7 +190,7 @@ def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      attn_win_size: Optional[int]) -> torch.Tensor:
   """K5: [B, L, H, D] q (pre-scaled), k, v -> o in q's dtype."""
   global n_fwd_launches
-  _check(q, k, v)
+  check_inputs(q, k, v)
   if q.device.type == 'cpu':
     return banded_attention_plain(q, k, v, attn_win_size)
   out = _launch_fwd(q, k, v, None, attn_win_size, 1.0)
@@ -207,7 +207,7 @@ def banded_attention_dropout(q: torch.Tensor, k: torch.Tensor,
   global n_dropout_fwd_launches
   if mask is None:
     raise ValueError('the dropout forward needs a keep-mask')
-  _check(q, k, v, mask)
+  check_inputs(q, k, v, mask)
   keep_prob = _check_keep_prob(keep_prob)
   if q.device.type == 'cpu':
     return banded_attention_dropout_plain(q, k, v, mask, attn_win_size,
@@ -224,7 +224,7 @@ def banded_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     torch.Tensor]:
   """K6: (dq, dk, dv) for the cotangent do of K5 (mask None) or K7."""
   global n_bwd_launches
-  _check(q, k, v, mask, do)
+  check_inputs(q, k, v, mask, do)
   keep_prob = _check_keep_prob(keep_prob)
   if q.device.type == 'cpu':
     return banded_attention_bwd_plain(q, k, v, mask, do, attn_win_size,

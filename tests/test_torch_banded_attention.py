@@ -369,9 +369,22 @@ def test_dropout_kernel_route_matches_module_route(flax_params, plain_calls):
   assert np.abs(other.numpy() - kp.numpy()).max() > 1e-3
 
 
-def test_long_windows_route_as_the_reference(flax_params, plain_calls):
+def test_long_windows_route_as_the_reference(flax_params, plain_calls,
+                                             monkeypatch):
   """L > WHOLE_L_LIMIT: with attention dropout the module route (the
-  same numbers as the flag off), without it NotImplementedError."""
+  same numbers as the flag off), without it the block-banded flash
+  kernels (K8's plain version once per layer, within atol 1e-5 of the
+  flag-off numbers)."""
+  from deepconsensus_tpu_torch.ops import flash_band_attention as fba
+
+  flash = {'n': 0}
+  real = fba.flash_band_attention_plain
+
+  def counted(*args, **kwargs):
+    flash['n'] += 1
+    return real(*args, **kwargs)
+
+  monkeypatch.setattr(fba, 'flash_band_attention_plain', counted)
   length = torch_config.WHOLE_L_LIMIT + 8
   rows = t(fake_rows(2, 6, length=length))
   with torch.no_grad():
@@ -380,13 +393,17 @@ def test_long_windows_route_as_the_reference(flax_params, plain_calls):
     want = port_model(flax_params).forward_train(
         rows, torch.Generator().manual_seed(3))
   assert torch.equal(got, want)
-  assert sum(plain_calls.values()) == 0
+  assert sum(plain_calls.values()) == 0 and flash['n'] == 0
   model = port_model(flax_params, use_pallas_attention=True,
                      attention_dropout=0.0)
-  with pytest.raises(NotImplementedError, match='K8-K10'):
-    model.forward_train(rows, torch.Generator())
-  with pytest.raises(NotImplementedError, match='K8-K10'):
-    model.forward_train(rows)  # eval: no dropout
+  module = port_model(flax_params, attention_dropout=0.0)
+  with torch.no_grad():
+    for gen in (lambda: torch.Generator().manual_seed(4), lambda: None):
+      np.testing.assert_allclose(
+          model.forward_train(rows, gen()).numpy(),
+          module.forward_train(rows, gen()).numpy(), atol=1e-5)
+  assert flash['n'] == 2 * 2  # 2 layers, 2 forwards (the second eval)
+  assert sum(plain_calls.values()) == 0
 
 
 def test_cli_train_with_the_flag_on_cpu(tmp_path, plain_calls):

@@ -7,7 +7,9 @@ JAX:  python -m pytest tests/test_torch_gpu.py -m gpu
 Tolerances: float32 rtol = atol = 1e-4, bfloat16 2e-2, K3 exact; the
 alignment DP (K11/K12) and the banded DP (K13/K14) scores rtol 1e-5
 (atol 1e-4), gradients rtol 1e-4, atol 1e-5; the banded-attention
-training kernels (K5-K7) as K1/K2.
+training kernels (K5-K7) and the block-banded flash kernels (K8-K10) as
+K1/K2, K8's logsumexp rtol = atol = 1e-4 in both types (float32 from
+the same inputs).
 """
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ from deepconsensus_tpu_torch.inference import runner
 from deepconsensus_tpu_torch.models import config
 from deepconsensus_tpu_torch.models import model as model_lib
 from deepconsensus_tpu_torch.ops import banded_attention as ba
+from deepconsensus_tpu_torch.ops import flash_band_attention as fba
 from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
 from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
 from deepconsensus_tpu_torch.ops import output_plane
@@ -167,7 +170,7 @@ def wavefront_costs(device, batch, m, n, seed):
 
 
 @pytest.mark.parametrize('loss_reg', [None, 0.1, 1.0])
-@pytest.mark.parametrize('m,n', [(100, 100), (30, 57)])
+@pytest.mark.parametrize('m,n', [(100, 100), (30, 57), (200, 200)])
 def test_wavefront_kernels_match_plain(cuda, loss_reg, m, n):
   """K11 (without and with rows) and K12 against the plain DP and its
   autograd, on one launch each: scores rtol 1e-5 (atol 1e-4),
@@ -433,4 +436,100 @@ def test_training_step_with_attention_kernels_matches_the_cpu(cuda):
     n = params.num_hidden_layers * (device != 'cpu')
     assert (ba.n_fwd_launches, ba.n_bwd_launches) == (before[0] + n,
                                                       before[1] + n)
+  np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+
+
+def flash_inputs(device, b, length, dtype, seed, h=2, d=140):
+  """q (scaled by d^-1/2), k, v, do [b, length, h, d] from a seeded
+  generator on the card."""
+  gen = torch.Generator(device=device).manual_seed(seed)
+  q, k, v, do = (torch.randn((b, length, h, d), generator=gen, device=device)
+                 .to(dtype) for _ in range(4))
+  return (q * d ** -0.5).contiguous(), k, v, do
+
+
+def flash_launches():
+  return (fba.n_fwd_launches, fba.n_fwd_lse_launches, fba.n_dq_launches,
+          fba.n_dkdv_launches)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b', [1, 256])
+@pytest.mark.parametrize('length', [129, 200, 255, 257, 384])
+@pytest.mark.parametrize('win', [0, 12, 130, None])
+def test_flash_band_kernels_match_plain(cuda, dtype, b, length, win):
+  """K8 without and with lse, K9 and K10 (on the plain lse and delta),
+  one launch each, at full head width: past any tile multiple (129,
+  200, 255), past 256 (257, 384), with the diagonal alone (win 0), a band
+  wider than a tile (130) and no band."""
+  q, k, v, do = flash_inputs(cuda, b, length, dtype, seed=length + b)
+  tol = TOL[dtype]
+  before = flash_launches()
+  o = fba.flash_band_attention(q, k, v, win)
+  o_lse, lse = fba.flash_band_attention(q, k, v, win, with_lse=True)
+  want_o, want_lse = fba.flash_band_attention_plain(q, k, v, win,
+                                                    with_lse=True)
+  delta = fba.row_delta(do, want_o)
+  dq = fba.flash_band_dq(q, k, v, do, want_lse, delta, win)
+  dk, dv = fba.flash_band_dkdv(q, k, v, do, want_lse, delta, win)
+  want_dq = fba.flash_band_dq_plain(q, k, v, do, want_lse, delta, win)
+  want_dk, want_dv = fba.flash_band_dkdv_plain(q, k, v, do, want_lse, delta,
+                                               win)
+  torch.cuda.synchronize()
+  assert flash_launches() == tuple(n + 1 for n in before)
+  assert torch.equal(o, o_lse)
+  torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+  for got, want in ((o, want_o), (dq, want_dq), (dk, want_dk),
+                    (dv, want_dv)):
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_flash_band_wrappers_reject_bad_input(cuda):
+  q, k, v, do = flash_inputs(cuda, 2, 140, torch.float32, 0, d=8)
+  lse = torch.zeros(2, 2, 140, device=cuda)
+  with pytest.raises(ValueError, match='one of'):
+    fba.flash_band_attention(q.half(), k.half(), v.half(), 4)
+  with pytest.raises(ValueError, match='contiguous'):
+    fba.flash_band_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                             k, v, 4)
+  with pytest.raises(ValueError, match='k is on'):
+    fba.flash_band_attention(q, k.cpu(), v, 4)
+  with pytest.raises(ValueError, match='lse is on'):
+    fba.flash_band_dq(q, k, v, do, lse.cpu(), lse, 4)
+  with pytest.raises(ValueError, match='delta shape'):
+    fba.flash_band_dkdv(q, k, v, do, lse, lse[:, :1].contiguous(), 4)
+  with pytest.raises(ValueError, match='head width'):
+    wide = torch.zeros(1, 140, 1, 264, device=cuda)
+    fba.flash_band_attention(wide, wide, wide, 4)
+
+
+def test_training_step_with_flash_kernels_matches_the_cpu(cuda):
+  """One float32 train step at L = 200 with use_pallas_attention and
+  dropout 0: the card's (K8 with lse, K9 and K10 per layer, K11/K12 at
+  m = 200) loss within 1e-4 relative of the CPU's (plain versions)."""
+  from deepconsensus_tpu_torch.models import train as train_lib
+
+  params = small_params(length=200, attention_dropout=0.0, relu_dropout=0.0,
+                        layer_postprocess_dropout=0.0,
+                        use_pallas_attention=True)
+  rows = fake_rows(params, 8, seed=7).numpy()[..., None]
+  label = np.random.default_rng(8).integers(0, 5, (8, 200)).astype(
+      np.float32)
+  state = seeded_model(params, 'cpu').state_dict()
+  losses = []
+  for device in ('cpu', cuda):
+    model = model_lib.DeepConsensusModel(params, device=device)
+    model.load_state_dict(state)
+    model.requires_grad_(True)
+    lamb = train_lib.Lamb(model.named_parameters(), params, 10)
+    before = flash_launches()
+    m = train_lib.train_step(
+        model, lamb, train_lib.make_loss(params),
+        train_lib.batch_to_device({'rows': rows, 'label': label}, device),
+        torch.Generator(device=device))
+    losses.append(float(m['loss']))
+    n = params.num_hidden_layers * (device != 'cpu')
+    assert flash_launches() == (before[0], before[1] + n, before[2] + n,
+                                before[3] + n)
   np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)

@@ -153,17 +153,23 @@ def test_seeded_init_is_reproducible_with_nonzero_alphas():
 
 
 def test_unported_configs_raise():
-  """int8, several buckets without ragged slots (the per-bucket path)
-  and a non-float32 softmax stay unported."""
+  """int8 and a non-float32 softmax stay unported. Several buckets
+  without ragged slots are served per bucket: the runner and the model
+  take any set normalize_window_buckets accepts (no divisibility chain
+  needed), and only an invalid set raises."""
   with pytest.raises(NotImplementedError, match='int8'):
     torch_model.DeepConsensusModel(
         torch_params(20, quantize_matmuls='int8'), device='cpu')
-  with pytest.raises(NotImplementedError, match='use_ragged_kernel'):
-    runner_lib.ModelRunner(torch_params(20, window_buckets='20,40'), {},
-                           runner_lib.InferenceOptions(), device='cpu')
-  with pytest.raises(NotImplementedError, match='buckets'):
+  params = torch_params(20, window_buckets='20,40')
+  state = torch_model.DeepConsensusModel(params, device='cpu').state_dict()
+  runner = runner_lib.ModelRunner(params, state,
+                                  runner_lib.InferenceOptions(), device='cpu')
+  assert runner.window_buckets == (20, 40)
+  torch_model.DeepConsensusModel(torch_params(20, window_buckets='20,30'),
+                                 device='cpu')
+  with pytest.raises(ValueError, match='ascending'):
     torch_model.DeepConsensusModel(
-        torch_params(20, window_buckets='20,30'), device='cpu')
+        torch_params(20, window_buckets='20,30,25'), device='cpu')
   with pytest.raises(NotImplementedError, match='float32'):
     torch_model.DeepConsensusModel(
         torch_params(20, attn_softmax_dtype='bfloat16'), device='cpu')

@@ -456,8 +456,9 @@ def test_cli_run_ragged_on_cpu(wl_bams, ragged_model, tmp_path):
           '--batch_size', '8', '--min_quality', '0', '--skip_windows_above',
           '0', '--device', 'cpu', '--use_ccs_smart_windows',
           '--window_buckets', '100,200']
-  with pytest.raises(NotImplementedError, match='use_ragged_kernel'):
-    cli.main(argv)
+  assert cli.main(argv) == 0  # per-bucket packs (no ragged slots)
+  with open(out + '.inference.json') as f:
+    assert json.load(f)['use_ragged_kernel'] == 0
   assert cli.main(argv + ['--use_ragged_kernel']) == 0
   with open(out + '.inference.json') as f:
     counters = json.load(f)

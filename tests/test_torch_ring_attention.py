@@ -252,18 +252,34 @@ def test_long_windows_take_the_ring_route(flax_params, plain_attention_calls,
   assert plain_attention_calls['n'] == 0
 
 
-def test_flag_below_the_ring_route_still_raises(flax_params):
+def test_flag_below_the_ring_route_still_raises(flax_params, monkeypatch):
   """128 < L < 256 with use_pallas_attention and no attention dropout
-  needs K8-K10, which are not ported."""
+  takes the block-banded flash kernels (K8-K10; on the CPU K8's plain
+  version, once per layer), not the ring route: the Flax model's
+  numbers with the flag, atol 1e-5."""
+  from deepconsensus_tpu_torch.ops import flash_band_attention as fba
+
+  calls = {'n': 0}
+  real = fba.flash_band_attention_plain
+
+  def counted(*args, **kwargs):
+    calls['n'] += 1
+    return real(*args, **kwargs)
+
+  monkeypatch.setattr(fba, 'flash_band_attention_plain', counted)
   model = port_model(flax_params, 200, attention_dropout=0.0,
                      use_pallas_attention=True)
-  rows = torch.from_numpy(fake_rows(1, 200, seed=8))
+  rows = fake_rows(1, 200, seed=8)
+  want = np.asarray(jax_model.get_model(jax_params(
+      200, use_pallas_attention=True, **NO_DROPOUT)).apply(
+          {'params': flax_params}, jnp.asarray(rows)))
   before = ring_attention.n_calls
-  with pytest.raises(NotImplementedError, match='K8-K10'):
-    model.forward_train(rows, torch.Generator())
-  with pytest.raises(NotImplementedError, match='K8-K10'):
-    model.forward_train(rows)
+  with torch.no_grad():
+    got = model.forward_train(torch.from_numpy(rows))
+    model.forward_train(torch.from_numpy(rows), torch.Generator())
   assert ring_attention.n_calls == before
+  assert calls['n'] == 2 * 2  # 2 layers, 2 forwards
+  np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
 
 
 @pytest.mark.parametrize('flag', [False, True])
