@@ -17,7 +17,13 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    1024 windows x 100 positions; K4 ragged embed-condense-attention and
    one K2 block with lengths at 512 slots x 200 positions holding every
    slot composition (one 200, two 100s, a lone 100, empty), compared on
-   valid positions only; K11 (the alignment DP's forward, with and
+   valid positions only; K2's int8 variant (the same weights quantized
+   as `run --quantize_matmuls int8` loads them, in bfloat16 also cast as
+   --inference_dtype bfloat16 casts them) on the same inputs: a full
+   block and the FFN-only layer-0 block at 1024 x 100, and a full block
+   with lengths at 512 x 200, bounded by the float32 peak in either type
+   (its products run in float32), its library yardstick K2's PyTorch
+   calls on the dequantized weights; K11 (the alignment DP's forward, with and
    without its rows) and K12 (its backward) at 256 x 100 x 100 float32
    costs, loss_reg 0.1, mixed lengths: scores rtol 1e-5 (atol 1e-4),
    gradients rtol 1e-4, atol 1e-5, plus each kernel's time at one batch
@@ -70,7 +76,13 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    h. `buckets`: b's BAMs with --use_ccs_smart_windows --window_buckets
       100,200 and no --use_ragged_kernel (per-bucket packs of 1,024),
       use_pallas_attention set: bfloat16, float32, float32 through the
-      plain versions, float32 with the flag off.
+      plain versions, float32 with the flag off;
+   i. `int8`: a's `cli run` with --quantize_matmuls int8, over float32
+      params: with --inference_dtype bfloat16, in float32, and float32
+      through the plain versions;
+   j. `evaluate`: `cli evaluate` on c's float32 checkpoint over c's 256
+      eval examples, float32 and with --quantize_matmuls int8; and the
+      same on a's seeded weights (--weights/--params), printed only.
    Gates: each path's kernels launched (a: K1-K3, b: K4, K2, K3, c: K11
    once per step and eval batch, K12 once per step, no K5-K7; d: K7 and
    K6 once per layer and step, K5 once per layer and eval batch, K11
@@ -110,7 +122,15 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    layer of each 200-wide pack, K3 on every pack, no other kernel
    (plain run: none; flag off: no K8); float32 kernels vs the float32
    plain run and vs the flag-off run, and bfloat16 vs float32, with a's
-   id and quality gates.
+   id and quality gates. i: one read per ZMW, K2 int8 once per layer and
+   pack and the float K2 never (no K2 int8 on a, b and h), a's gates
+   between the int8 runs (float32 kernels vs plain, bfloat16 vs
+   float32), the float32 int8 ids agreeing with a's float32 run on >=
+   95% of positions (the reference's bar), n_quantized_matmuls 36 and
+   the inference_dtype labels in the sidecar; windows/s and peak memory
+   printed beside a's. j: |int8 - float32| alignment_identity within
+   INT8_IDENTITY_GATE, every metric finite, K1, K2 int8 and K11 on the
+   int8 run (the float K2 on the float32 run); both CSV rows printed.
 4. Where a full-width train step's time goes, in bfloat16 and float32,
    and in bfloat16 with attention through K5-K7, with band_width 12 and
    with attention through K8-K10 at L = 200:
@@ -119,8 +139,8 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    under torch.profiler: the device's busy time (its kernels' time
    summed), the idle share of the unprofiled step, and the kernels that
    take most of it.
-5. A `{"kernels": [...]}` line (K1-K14), the card line again, and the
-   last line `{"ok": true, "device": {...}}`.
+5. A `{"kernels": [...]}` line (K1-K14 and K2_int8), the card line
+   again, and the last line `{"ok": true, "device": {...}}`.
 
 `--kernels-only` stops after phase 2 and prints no result (a first
 check of newly written kernels). Without a CUDA device, or away from the repository, it exits 2 and
@@ -248,6 +268,64 @@ def ragged_slots(params, rng, device):
   return torch.from_numpy(rows).to(device) * valid[:, None, :], lengths
 
 
+def k2_library(x, ws, block, heads: int, attn_mask):
+  """K2's block as PyTorch calls on float32 matrices ws = (wq, wk, wv,
+  wo, w_filter, w_output): SDPA with attn_mask, matmuls, F.linear."""
+  import torch
+  import torch.nn.functional as F
+
+  b, length, h = x.shape
+  wq, wk, wv, wo, wf, wout = ws
+  xf = x.float()
+  qkv = [(xf @ w).view(b, length, heads, -1).transpose(1, 2)
+         for w in (wq, wk, wv)]
+  o = F.scaled_dot_product_attention(*qkv, attn_mask=attn_mask)
+  y = xf + block.attn_alpha.float() * (
+      o.transpose(1, 2).reshape(b, length, h) @ wo)
+  hh = torch.relu(F.linear(y, wf.t(), block.b_filter.float()))
+  return y + block.ffn_alpha.float() * F.linear(hh, wout.t(),
+                                                block.b_output.float())
+
+
+def block_matrices(block, dt):
+  """A K2 block's six weights as float32 matrices: float weights in the
+  compute dtype, int8 ones dequantized (values * scale)."""
+  from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
+
+  out = []
+  for w in (block.wq, block.wk, block.wv, block.wo, block.w_filter,
+            block.w_output):
+    qw = fwa.as_quantized(w)
+    out.append(qw.values.to(dt).float() if qw.scale is None
+               else qw.values.float() * qw.scale)
+  return out
+
+
+def int8_blocks(model, dtype: str):
+  """K2's blocks of `model`'s weights as `run --quantize_matmuls int8`
+  loads them (and, in bfloat16, --inference_dtype bfloat16): the CPU
+  state quantized by models/quantize.py, then moved to the model's
+  device."""
+  from deepconsensus_tpu_torch.models import model as model_lib
+  from deepconsensus_tpu_torch.models import quantize
+
+  params = make_params(dtype)
+  params.quantize_matmuls = 'int8'
+  if dtype == 'bfloat16':
+    params.inference_dtype = 'bfloat16'
+  state = {k: v.cpu() for k, v in model.state_dict().items()}
+  state, _ = quantize.prepare_inference_variables(state, params)
+  return model_lib.inference_model(params, state,
+                                   model.device).encoder.kernel_blocks()
+
+
+def int8_k2_bytes(m: int, h: int, f: int, isz: int, extra: int = 0) -> int:
+  """Bytes one int8 K2 block must move: activations in and out in the
+  compute dtype, int8 weights, float32 scales, biases and alphas."""
+  return (2 * m * h * isz + (4 * h * h + 2 * h * f)
+          + (4 * h + f + h + f + h + 2) * 4 + extra)
+
+
 def check_kernels(dtype: str, device: str = 'cuda') -> dict:
   """Phase 2 for one dtype: each kernel vs its plain version."""
   import numpy as np
@@ -333,26 +411,44 @@ def check_kernels(dtype: str, device: str = 'cuda') -> dict:
   flops = 2 * m * h * 4 * h + 4 * pairs * h + 4 * m * h * f
   nbytes = (2 * m * h + 4 * h * h + 2 * h * f) * isz + (f + h + 2) * 4
 
-  def k2_library():
-    xf = x.float()
-    qkv = [(xf @ w.to(dt).float()).view(BATCH, LENGTH, heads, -1)
-           .transpose(1, 2) for w in (b1.wq, b1.wk, b1.wv)]
-    o = F.scaled_dot_product_attention(*qkv, attn_mask=band)
-    y = xf + b1.attn_alpha * (o.transpose(1, 2).reshape(BATCH, LENGTH, h)
-                              @ b1.wo.to(dt).float())
-    hh = torch.relu(F.linear(y, b1.w_filter.to(dt).float().t(), b1.b_filter))
-    return y + b1.ffn_alpha * F.linear(hh, b1.w_output.to(dt).float().t(),
-                                       b1.b_output)
-
+  ws = block_matrices(b1, dt)
   t_bound, by = bound(flops, nbytes, dtype)
   out['K2'] = dict(
       max_abs_err=max(errs), ms=cuda_ms(
           lambda: feb.fused_encoder_stack(x, [b1], **k2_kw)),
       plain_ms=cuda_ms(lambda: feb.fused_encoder_stack_plain(
           x, [b1], **k2_kw)),
-      library_ms=cuda_ms(k2_library), bound_ms=t_bound, bound_by=by,
+      library_ms=cuda_ms(lambda: k2_library(x, ws, b1, heads, band)),
+      bound_ms=t_bound, bound_by=by,
       ffn_only_ms=cuda_ms(
           lambda: feb.fused_encoder_stack(x, [blocks[0]], **k2_kw)),
+      flops=flops, bytes=nbytes)
+
+  # K2 int8: the same activations, the same weights quantized as `run
+  # --quantize_matmuls int8` loads them; float32 math, so the float32
+  # peak bounds it in either type.
+  qblocks = int8_blocks(model, dtype)
+  errs = []
+  for block in (qblocks[1], qblocks[0]):
+    got = feb.fused_encoder_stack(x, [block], **k2_kw)
+    want2 = feb.fused_encoder_stack_plain(x, [block], **k2_kw)
+    torch.cuda.synchronize()
+    errs.append(max_err(got, want2, TOL[dtype]))
+  q1 = qblocks[1]
+  qws = block_matrices(q1, dt)
+  nbytes = int8_k2_bytes(m, h, f, isz)
+  t_bound, by = bound(flops, nbytes, 'float32')
+  out['K2_int8'] = dict(
+      max_abs_err=max(errs), ms=cuda_ms(
+          lambda: feb.fused_encoder_stack(x, [q1], **k2_kw)),
+      plain_ms=cuda_ms(lambda: feb.fused_encoder_stack_plain(
+          x, [q1], **k2_kw)),
+      library_ms=cuda_ms(lambda: k2_library(x, qws, q1, heads, band)),
+      bound_ms=t_bound, bound_by=by,
+      ffn_only_ms=cuda_ms(
+          lambda: feb.fused_encoder_stack(x, [qblocks[0]], **k2_kw)),
+      ffn_only_plain_ms=cuda_ms(
+          lambda: feb.fused_encoder_stack_plain(x, [qblocks[0]], **k2_kw)),
       flops=flops, bytes=nbytes)
 
   # K3 (float32 preds in both runs; exact), with tied maxima and
@@ -480,25 +576,32 @@ def check_ragged_kernels(dtype: str, device: str = 'cuda') -> dict:
   nbytes = ((2 * m * h + 4 * h * h + 2 * h * f) * isz + (f + h + 2) * 4
             + lengths.numel() * 4)
 
-  def k2_library():
-    xf = x.float()
-    qkv = [(xf @ w.to(dt).float()).view(SLOTS, SLOT_LEN, heads, -1)
-           .transpose(1, 2) for w in (b1.wq, b1.wk, b1.wv)]
-    o = F.scaled_dot_product_attention(*qkv, attn_mask=sdpa_mask)
-    y = xf + b1.attn_alpha * (o.transpose(1, 2).reshape(SLOTS, SLOT_LEN, h)
-                              @ b1.wo.to(dt).float())
-    hh = torch.relu(F.linear(y, b1.w_filter.to(dt).float().t(), b1.b_filter))
-    return y + b1.ffn_alpha * F.linear(hh, b1.w_output.to(dt).float().t(),
-                                       b1.b_output)
-
+  ws = block_matrices(b1, dt)
   t_bound, by = bound(flops, nbytes, dtype)
   out['K2_lengths'] = dict(
       max_abs_err=err, ms=cuda_ms(
           lambda: feb.fused_encoder_stack(x, [b1], **k2_kw)),
       plain_ms=cuda_ms(lambda: feb.fused_encoder_stack_plain(
           x, [b1], **k2_kw)),
-      library_ms=cuda_ms(k2_library), bound_ms=t_bound, bound_by=by,
-      flops=flops, bytes=nbytes)
+      library_ms=cuda_ms(lambda: k2_library(x, ws, b1, heads, sdpa_mask)),
+      bound_ms=t_bound, bound_by=by, flops=flops, bytes=nbytes)
+
+  # K2 int8 with lengths: the same slots, the weights quantized.
+  q1 = int8_blocks(model, dtype)[1]
+  got = feb.fused_encoder_stack(x, [q1], **k2_kw)
+  want2 = feb.fused_encoder_stack_plain(x, [q1], **k2_kw)
+  torch.cuda.synchronize()
+  err = max_err(got[valid], want2[valid], TOL[dtype])
+  qws = block_matrices(q1, dt)
+  nbytes = int8_k2_bytes(m, h, f, isz, lengths.numel() * 4)
+  t_bound, by = bound(flops, nbytes, 'float32')
+  out['K2_int8_lengths'] = dict(
+      max_abs_err=err, ms=cuda_ms(
+          lambda: feb.fused_encoder_stack(x, [q1], **k2_kw)),
+      plain_ms=cuda_ms(lambda: feb.fused_encoder_stack_plain(
+          x, [q1], **k2_kw)),
+      library_ms=cuda_ms(lambda: k2_library(x, qws, q1, heads, sdpa_mask)),
+      bound_ms=t_bound, bound_by=by, flops=flops, bytes=nbytes)
   return out
 
 
@@ -906,6 +1009,7 @@ def counted_modules():
   from deepconsensus_tpu_torch.ops import wavefront_cuda
 
   return {'K1': (fwa, 'n_launches'), 'K2': (feb, 'n_launches'),
+          'K2_int8': (feb, 'n_launches_int8'),
           'K3': (output_plane, 'n_launches'), 'K4': (rwa, 'n_launches'),
           'K5': (ba, 'n_fwd_launches'), 'K6': (ba, 'n_bwd_launches'),
           'K7': (ba, 'n_dropout_fwd_launches'),
@@ -933,7 +1037,9 @@ PATH_KERNELS = {'L100': ('K1', 'K2', 'K3'), 'ragged': ('K4', 'K2', 'K3'),
                 'train_attn': ('K5', 'K6', 'K7', 'K11', 'K12'),
                 'train_band': ('K13', 'K14'),
                 'train_flash': ('K8', 'K8_lse', 'K9', 'K10', 'K11', 'K12'),
-                'buckets': ('K1', 'K2', 'K3', 'K8')}
+                'buckets': ('K1', 'K2', 'K3', 'K8'),
+                'int8': ('K1', 'K2_int8', 'K3'),
+                'evaluate': ('K1', 'K2_int8', 'K11')}
 RUN_PATHS = ('L100', 'ragged')
 BUCKET_FLAGS = ('--use_ccs_smart_windows', '--window_buckets',
                 ','.join(map(str, BUCKETS)))
@@ -942,8 +1048,10 @@ RAGGED_FLAGS = BUCKET_FLAGS + ('--use_ragged_kernel',)
 
 def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
                   attn: bool = False):
-  """One `run` over the synthetic BAMs on one path ('L100', 'ragged' or
-  'buckets'; attn: params with use_pallas_attention); returns (counters,
+  """One `run` over the synthetic BAMs on one path ('L100', 'ragged',
+  'buckets' or 'int8'; attn: params with use_pallas_attention; 'int8':
+  the L100 run with --quantize_matmuls int8, and in bfloat16
+  --inference_dtype bfloat16 over float32 params); returns (counters,
   launch counts, delivered-position ids and quals, per-pack lengths,
   seconds, peak bytes)."""
   import numpy as np
@@ -953,11 +1061,18 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
   from deepconsensus_tpu_torch.inference import runner as runner_lib
 
   ragged = path == 'ragged'
-  smart = path != 'L100'
+  smart = path not in ('L100', 'int8')
+  levers = []
+  if path == 'int8':
+    levers = ['--quantize_matmuls', 'int8']
+    if dtype == 'bfloat16':
+      levers += ['--inference_dtype', 'bfloat16']
   flag = '_attn' if attn else ''
   params_path = os.path.join(WORK, f'params_{dtype}{flag}.json')
-  params = make_params(dtype)
+  params = make_params('float32' if levers else dtype)
   params.use_pallas_attention = attn
+  if levers:
+    params_path = os.path.join(WORK, f'params_{path}_{dtype}.json')
   with open(params_path, 'w') as f:
     json.dump(params.to_dict(), f)
   out = os.path.join(
@@ -982,6 +1097,7 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
           '--min_quality', '0', '--skip_windows_above', '0']
   if smart:
     argv += RAGGED_FLAGS if ragged else BUCKET_FLAGS
+  argv += levers
   runner_lib.ModelRunner.predict = recording_predict
   runner_lib.ModelRunner.predict_ragged = recording_predict_ragged
   torch.cuda.reset_peak_memory_stats()
@@ -997,7 +1113,11 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
           batch_size=BATCH, batch_zmws=N_ZMWS, min_quality=0,
           skip_windows_above=0, use_ccs_smart_windows=smart,
           window_buckets=BUCKETS if smart else None,
-          use_ragged_kernel=ragged)
+          use_ragged_kernel=ragged,
+          quantize_matmuls='int8' if levers else None,
+          inference_dtype='bfloat16' if '--inference_dtype' in levers
+          else None)
+      runner_lib._apply_quant_levers(params, options)
       runner = runner_lib.ModelRunner(
           params, weights_lib.from_flax_params(
               weights_lib.load_npz(weights), params),
@@ -1082,6 +1202,125 @@ def path_gates(path: str, runs) -> dict:
         (gates['last_pack_fill'] < 1, 'the last pack is not partial'),
     ]
   return enforce(path, gates, checks)
+
+
+def int8_gates(runs, l100_f32) -> dict:
+  """The int8 path's gates: the kernel run vs the plain run (float32)
+  as slice 1's, bfloat16 vs float32 (both int8) with the bf16 gates,
+  and the float32 int8 run's ids against the unquantized float32 L100
+  run's at the reference's bar (tests/test_quantized_inference.py:
+  agreement >= 0.95). Raises on a failed gate."""
+  import numpy as np
+
+  from deepconsensus_tpu_torch.models import config as config_lib
+
+  ids32, q32 = runs['float32'][2:4]
+  idsp, qp = runs['float32_plain'][2:4]
+  ids16, q16 = runs['bfloat16'][2:4]
+  same = ids32 == idsp
+  agree16 = ids16 == ids32
+  gates = {
+      'f32_vs_plain_id_mismatch': float(1 - same.mean()),
+      'f32_vs_plain_max_qual_diff': int(np.abs(q32 - qp)[same].max()),
+      'bf16_vs_f32_id_agreement': float(agree16.mean()),
+      'bf16_vs_f32_max_qv_diff': int(np.abs(q16 - q32)[agree16].max()),
+      'int8_vs_float_f32_id_agreement': float((ids32 == l100_f32).mean()),
+      'n_quantized_matmuls': {k: r[0]['n_quantized_matmuls']
+                              for k, r in runs.items()},
+      'inference_dtype': {k: r[0]['inference_dtype']
+                          for k, r in runs.items()},
+  }
+  layers = make_params('float32').num_hidden_layers
+  checks = [
+      (gates['f32_vs_plain_id_mismatch'] <= 1e-4,
+       'f32 kernels vs plain: too many id mismatches'),
+      (gates['f32_vs_plain_max_qual_diff'] <= 1,
+       'f32 kernels vs plain: qualities differ by > 1'),
+      (gates['bf16_vs_f32_id_agreement'] >= 0.99,
+       'bf16 vs f32: ids agree on < 99% of positions'),
+      (gates['bf16_vs_f32_max_qv_diff'] <= config_lib.BF16_QV_GATE,
+       'bf16 vs f32: QV differs by > BF16_QV_GATE'),
+      (len(ids32) == len(l100_f32)
+       and gates['int8_vs_float_f32_id_agreement'] >= 0.95,
+       'int8 vs float32 weights: ids agree on < 95% of positions'),
+      (all(v == 6 * layers for v in gates['n_quantized_matmuls'].values()),
+       f'n_quantized_matmuls is not {6 * layers}'),
+      (gates['inference_dtype'] == {'bfloat16': 'bfloat16',
+                                    'float32': 'float32',
+                                    'float32_plain': 'float32'},
+       'inference_dtype labels are wrong'),
+  ]
+  for label in ('bfloat16', 'float32'):
+    counters, launches = runs[label][:2]
+    checks.append((launches['K2_int8'] == layers * counters['n_model_packs']
+                   and launches['K2'] == 0,
+                   f'{label}: K2 int8 did not launch once per block and '
+                   'pack, or the float K2 launched'))
+  plain = runs['float32_plain'][1]
+  checks.append((plain['K2_int8'] == plain['K2'] == 0,
+                 'the plain run launched K2'))
+  return enforce('int8', gates, checks)
+
+
+def run_evaluate_path(source, eval_shards: str, quantize: bool,
+                      tag: str = ''):
+  """`cli evaluate` over eval shards in float32 (quantize: with
+  --quantize_matmuls int8); source: its weight arguments (--checkpoint
+  of a `cli train` run, or --weights/--params). Returns (metrics read
+  back from inference.csv, launch counts, seconds, peak bytes)."""
+  import csv
+
+  import torch
+
+  from deepconsensus_tpu_torch import cli
+
+  out = os.path.join(
+      WORK, f'evaluate{tag}_{"int8" if quantize else "float32"}')
+  argv = ['evaluate', *source, '--eval_path', eval_shards, '--out_dir', out,
+          '--batch_size', str(TRAIN_BATCH)]
+  if quantize:
+    argv += ['--quantize_matmuls', 'int8']
+  torch.cuda.reset_peak_memory_stats()
+  reset_launches()
+  t0 = time.perf_counter()
+  if cli.main(argv) != 0:
+    raise AssertionError(f'cli evaluate failed ({argv})')
+  seconds = time.perf_counter() - t0
+  launches = read_launches()
+  with open(os.path.join(out, 'inference.csv')) as f:
+    header, row = list(csv.reader(f))
+  return (dict(zip(header, map(float, row))), launches, seconds,
+          torch.cuda.max_memory_allocated())
+
+
+def evaluate_gates(runs) -> dict:
+  """The evaluate path's gates: |int8 - float32| alignment identity
+  within INT8_IDENTITY_GATE, every metric finite, and the int8 run
+  through K1, K2 int8 and K11 (the float32 run through the float K2).
+  Raises on a failed gate."""
+  from deepconsensus_tpu_torch.models import config as config_lib
+
+  f32, q = runs['float32'][0], runs['int8'][0]
+  gates = {
+      'alignment_identity_delta': abs(q['alignment_identity']
+                                      - f32['alignment_identity']),
+      'launches': {k: {n: r[1][n] for n in ('K1', 'K2', 'K2_int8', 'K11')}
+                   for k, r in runs.items()},
+  }
+  checks = [
+      (gates['alignment_identity_delta'] <= config_lib.INT8_IDENTITY_GATE,
+       'int8 alignment identity differs from float32 by more than '
+       'INT8_IDENTITY_GATE'),
+      (all(math.isfinite(v) for r in runs.values() for v in r[0].values()),
+       'a metric is not finite'),
+      (all(runs['int8'][1][k] for k in PATH_KERNELS['evaluate'])
+       and runs['int8'][1]['K2'] == 0,
+       'the int8 run did not launch K1, K2 int8 and K11 (or launched the '
+       'float K2)'),
+      (runs['float32'][1]['K2'] and runs['float32'][1]['K2_int8'] == 0,
+       'the float32 run did not take the float K2'),
+  ]
+  return enforce('evaluate', gates, checks)
 
 
 def run_train_path(shards, dtype: str, plain: bool = False,
@@ -1707,15 +1946,16 @@ def main(argv) -> int:
       model.state_dict()))
 
   launches_by_path = {}
+  main_runs = {}
   for path in RUN_PATHS:
     path_kernels = PATH_KERNELS[path]
-    runs = {}
+    runs = main_runs[path] = {}
     for dtype, plain in (('bfloat16', False), ('float32', False),
                          ('float32', True)):
       counters, launches, ids, quals, lengths, seconds, peak = run_main_path(
           path, bams[path], weights, dtype, plain)
       label = dtype + ('_plain' if plain else '')
-      runs[label] = (counters, launches, ids, quals, lengths)
+      runs[label] = (counters, launches, ids, quals, lengths, seconds, peak)
       n_win = counters['n_windows_to_model']
       print(json.dumps({
           'phase': 'main_path', 'path': path, 'run': label,
@@ -1735,8 +1975,39 @@ def main(argv) -> int:
         raise AssertionError(
             f'{path} {label}: a kernel of the path never launched: '
             f'{launches}')
-    path_gates(path, runs)
+      if launches['K2_int8']:
+        raise AssertionError(f'{path} {label}: K2 int8 launched without '
+                             'int8 weights')
+    path_gates(path, {k: r[:5] for k, r in runs.items()})
     launches_by_path[path] = runs['bfloat16'][1]
+  int8_runs = {}
+  for dtype, plain in (('bfloat16', False), ('float32', False),
+                       ('float32', True)):
+    label = dtype + ('_plain' if plain else '')
+    counters, launches, ids, quals, _, seconds, peak = run_main_path(
+        'int8', bams['L100'], weights, dtype, plain)
+    int8_runs[label] = (counters, launches, ids, quals)
+    n_win = counters['n_windows_to_model']
+    l100 = main_runs['L100'][label]
+    print(json.dumps({
+        'phase': 'main_path', 'path': 'int8', 'run': label,
+        'launches': launches, 'reads': counters['success'],
+        'windows': n_win, 'packs': counters['n_model_packs'],
+        'n_quantized_matmuls': counters['n_quantized_matmuls'],
+        'inference_dtype': counters['inference_dtype'], 'seconds': seconds,
+        'windows_per_s': n_win / counters['total_seconds'],
+        'model_windows_per_s': n_win / counters['model_seconds'],
+        'model_seconds': counters['model_seconds'], 'peak_bytes': peak,
+        'l100_windows_per_s': l100[0]['n_windows_to_model']
+        / l100[0]['total_seconds'],
+        'l100_model_windows_per_s': l100[0]['n_windows_to_model']
+        / l100[0]['model_seconds'],
+        'l100_peak_bytes': l100[6]}), flush=True)
+    if counters['success'] != N_ZMWS:
+      raise AssertionError(f'int8 {label}: {counters["success"]} reads, '
+                           f'want {N_ZMWS}')
+  int8_gates(int8_runs, main_runs['L100']['float32'][2])
+  launches_by_path['int8'] = int8_runs['bfloat16'][1]
   runs = {}
   for dtype, plain, attn in (('bfloat16', False, True),
                              ('float32', False, True),
@@ -1763,6 +2034,9 @@ def main(argv) -> int:
     if counters['success'] != N_ZMWS:
       raise AssertionError(f'buckets {label}: {counters["success"]} reads, '
                            f'want {N_ZMWS}')
+    if launches['K2_int8']:
+      raise AssertionError(f'buckets {label}: K2 int8 launched without '
+                           'int8 weights')
   buckets_gates(runs)
   launches_by_path['buckets'] = runs['bfloat16'][1]
 
@@ -1791,6 +2065,38 @@ def main(argv) -> int:
         'eval_loss': r['eval']['eval/loss']}), flush=True)
   train_gates(runs)
   launches_by_path['train'] = runs['bfloat16']['launches']
+  from deepconsensus_tpu_torch.models import train as train_lib
+
+  checkpoint = train_lib.latest_checkpoint(
+      os.path.join(WORK, 'train_float32', 'checkpoints'))
+  eval_runs = {}
+  for quantize in (False, True):
+    label = 'int8' if quantize else 'float32'
+    eval_runs[label] = r = run_evaluate_path(
+        ['--checkpoint', checkpoint], shards[1], quantize)
+    print(json.dumps({
+        'phase': 'main_path', 'path': 'evaluate', 'run': label,
+        'checkpoint': os.path.relpath(checkpoint, REPO), 'csv': r[0],
+        'launches': r[1], 'seconds': r[2], 'peak_bytes': r[3]}),
+          flush=True)
+  evaluate_gates(eval_runs)
+  launches_by_path['evaluate'] = eval_runs['int8'][1]
+  # Printed, not gated: the checkpoint's ReZero alphas are still near
+  # Flax's zeros after 4 steps, so int8 barely reaches its predictions;
+  # the seeded `run` weights (alphas U(0.1, 0.3)) show the lever's
+  # effect on a model whose residual branches count.
+  seeded = {}
+  for quantize in (False, True):
+    seeded[quantize] = run_evaluate_path(
+        ['--weights', weights, '--params',
+         os.path.join(WORK, 'params_float32.json')], shards[1], quantize,
+        tag='_seeded')[0]
+  print(json.dumps({
+      'phase': 'main_path', 'path': 'evaluate', 'run': 'seeded_weights',
+      'csv_float32': seeded[False], 'csv_int8': seeded[True],
+      'alignment_identity_delta': abs(
+          seeded[True]['alignment_identity']
+          - seeded[False]['alignment_identity'])}), flush=True)
   attn_runs = {}
   for dtype in ('bfloat16', 'float32'):
     attn_runs[dtype] = r = run_train_path(shards, dtype, attn=True)
@@ -1874,6 +2180,9 @@ def main(argv) -> int:
              'deepconsensus_tpu/ops/fused_window_attention.py:349', 'L100'),
       'K2': ('deepconsensus_tpu_torch/csrc/gemm.cu',
              'deepconsensus_tpu/ops/fused_encoder_block.py:264', 'L100'),
+      'K2_int8': ('deepconsensus_tpu_torch/csrc/gemm.cu',
+                  'deepconsensus_tpu/ops/fused_encoder_block.py:264',
+                  'int8'),
       'K3': ('deepconsensus_tpu_torch/csrc/phred_epilogue.cu',
              'deepconsensus_tpu/ops/output_plane.py:236', 'L100'),
       'K4': ('deepconsensus_tpu_torch/csrc/ragged_attention.cu',
@@ -1912,11 +2221,17 @@ def main(argv) -> int:
         'float32_ms': kernels['float32'][name]['ms'],
         'float32_max_abs_err': kernels['float32'][name]['max_abs_err'],
     }
-    if name == 'K2':  # its lengths variant, on the ragged path
-      lv = kernels['bfloat16']['K2_lengths']
+    if name in ('K2', 'K2_int8'):  # the lengths variant
+      lname = 'K2_lengths' if name == 'K2' else 'K2_int8_lengths'
+      lv = kernels['bfloat16'][lname]
       entry.update({f'lengths_{k}': lv[k] for k in (
           'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'library_ms')})
-      entry['lengths_float32_ms'] = kernels['float32']['K2_lengths']['ms']
+      entry['lengths_float32_ms'] = kernels['float32'][lname]['ms']
+    if name == 'K2_int8':
+      entry.update(float32_bound_ms=kernels['float32'][name]['bound_ms'],
+                   ffn_only_ms=r['ffn_only_ms'],
+                   lengths_float32_max_abs_err=kernels['float32'][
+                       'K2_int8_lengths']['max_abs_err'])
     if name == 'K6':  # K5's backward: no mask
       entry['no_mask_ms'] = r['no_mask_ms']
       entry['no_mask_float32_ms'] = kernels['float32']['K6']['no_mask_ms']

@@ -1,4 +1,5 @@
-"""Command line of the port: `run` (BAMs -> polished FASTQ) and `train`.
+"""Command line of the port: `run` (BAMs -> polished FASTQ), `train` and
+`evaluate`.
 
   python -m deepconsensus_tpu_torch.cli run \\
       --subreads_to_ccs subreads_to_ccs.bam --ccs_bam ccs.bam \\
@@ -15,7 +16,20 @@ Mixed-width windows from the CCS `wl` tag: add --use_ccs_smart_windows
 writes model_out/params.json, checkpoints and weights.npz, which `run`
 takes as --params and --weights.
 
-Both run on the card unless --device cpu is given; without a card the
+Inference levers, on `run` and `evaluate`: --inference_dtype bfloat16
+casts the weights once at load and runs the model in bfloat16;
+--quantize_matmuls int8 quantizes the encoder matmuls per output
+channel (K2's int8 variant on the card).
+
+  python -m deepconsensus_tpu_torch.cli evaluate \\
+      --checkpoint model_out/checkpoints/checkpoint-4.pt \\
+      --eval_path 'eval/*.tfrecord.gz' --out_dir eval_out \\
+      [--quantize_matmuls int8]
+
+writes eval_out/inference.csv (loss, alignment_identity, ...); it also
+takes `run`'s --weights/--params pair in place of --checkpoint.
+
+Each runs on the card unless --device cpu is given; without a card the
 default raises. Weights are a `models/weights.save_npz` file (see the
 README for the one-liner that writes one from a JAX checkpoint).
 """
@@ -116,6 +130,70 @@ def _train(args) -> int:
   return 0
 
 
+def _add_quant_flags(p) -> None:
+  p.add_argument('--inference_dtype', default=None,
+                 choices=['float32', 'bfloat16'],
+                 help='bfloat16: cast the weights once at load and run the '
+                 'model in bfloat16 (softmax accumulation stays float32). '
+                 'Default keeps the float32 weights.')
+  p.add_argument('--quantize_matmuls', default=None,
+                 choices=['none', 'int8'],
+                 help='int8: per-output-channel symmetric quantization of '
+                 'the encoder attention/FFN matmul weights at load; the '
+                 'dequantization runs in the GEMM epilogue.')
+
+
+def _add_evaluate(sub) -> None:
+  p = sub.add_parser(
+      'evaluate', help='Offline eval over labeled TFRecords -> '
+      'inference.csv.')
+  source = p.add_mutually_exclusive_group(required=True)
+  source.add_argument('--checkpoint',
+                      help='A `train` checkpoint-<step>.pt; params.json '
+                      'is read from beside its checkpoints directory.')
+  source.add_argument('--weights', help='Params tree as .npz (with '
+                      '--params), as `run` takes it.')
+  p.add_argument('--params', help='params.json of the model (with '
+                 '--weights).')
+  p.add_argument('--eval_path', nargs='+', required=True)
+  p.add_argument('--out_dir', required=True)
+  p.add_argument('--limit', type=int, default=-1,
+                 help='Max eval examples (-1 = all).')
+  p.add_argument('--batch_size', type=int)
+  _add_quant_flags(p)
+  p.add_argument('--device', default=None, help='cuda (default) or cpu.')
+
+
+def _evaluate(args) -> int:
+  from deepconsensus_tpu_torch.devices import resolve_device
+  from deepconsensus_tpu_torch.inference import runner as runner_lib
+  from deepconsensus_tpu_torch.models import config as config_lib
+  from deepconsensus_tpu_torch.models import evaluate as evaluate_lib
+  from deepconsensus_tpu_torch.models import quantize as quantize_lib
+  from deepconsensus_tpu_torch.models import weights as weights_lib
+
+  device = resolve_device(args.device)
+  if args.weights and not args.params:
+    raise ValueError('--weights needs --params')
+  params = config_lib.read_params_from_json(args.params or args.checkpoint)
+  if args.batch_size:
+    params.batch_size = args.batch_size
+  runner_lib._apply_quant_levers(params, runner_lib.InferenceOptions(
+      inference_dtype=args.inference_dtype,
+      quantize_matmuls=args.quantize_matmuls))
+  if args.checkpoint:
+    state = evaluate_lib.load_checkpoint_state(args.checkpoint)
+  else:
+    state = weights_lib.from_flax_params(
+        weights_lib.load_npz(args.weights), params)
+  state, _ = quantize_lib.prepare_inference_variables(state, params)
+  metrics = evaluate_lib.run_evaluation(
+      params, args.checkpoint, args.eval_path, args.out_dir, state=state,
+      limit=args.limit, device=device)
+  print(' '.join(f'{k}={v:.5f}' for k, v in sorted(metrics.items())))
+  return 0
+
+
 def _add_run(sub) -> None:
   p = sub.add_parser('run', help='Run inference: BAMs -> polished FASTQ.')
   p.add_argument('--subreads_to_ccs', required=True)
@@ -152,6 +230,7 @@ def _add_run(sub) -> None:
   p.add_argument('--limit', type=int, default=0)
   p.add_argument('--dtype', default=None, choices=['float32', 'bfloat16'],
                  help='Compute dtype (default: params.json "dtype").')
+  _add_quant_flags(p)
   p.add_argument('--device', default=None,
                  help='cuda (default) or cpu.')
 
@@ -161,9 +240,12 @@ def main(argv: Optional[List[str]] = None) -> int:
   sub = parser.add_subparsers(dest='command', required=True)
   _add_run(sub)
   _add_train(sub)
+  _add_evaluate(sub)
   args = parser.parse_args(argv)
   if args.command == 'train':
     return _train(args)
+  if args.command == 'evaluate':
+    return _evaluate(args)
 
   from deepconsensus_tpu_torch.calibration import lib as calibration_lib
   from deepconsensus_tpu_torch.devices import resolve_device
@@ -182,6 +264,8 @@ def main(argv: Optional[List[str]] = None) -> int:
       min_length=args.min_length,
       min_quality=args.min_quality,
       skip_windows_above=args.skip_windows_above,
+      inference_dtype=args.inference_dtype,
+      quantize_matmuls=args.quantize_matmuls,
       ins_trim=args.ins_trim,
       use_ccs_smart_windows=args.use_ccs_smart_windows,
       window_buckets=args.window_buckets,
@@ -192,6 +276,7 @@ def main(argv: Optional[List[str]] = None) -> int:
       ccs_calibration_values=calibration_lib.parse_calibration_string(
           args.ccs_calibration),
   )
+  runner_lib._apply_quant_levers(params, options)
   state = weights_lib.from_flax_params(
       weights_lib.load_npz(args.weights), params)
   runner = runner_lib.ModelRunner(params, state, options, device=device)

@@ -1,8 +1,15 @@
 // Shared tiled GEMM for the port's Hopper kernels (K1 and K2).
 //
 // out[M, N] = epilogue(A[M, K] @ B[K, N]), float32 accumulation, with A
-// and B read as float32 or bfloat16. The A operand comes through a
-// loader functor, so the same main loop serves a dense row-major matrix
+// read as float32 or bfloat16 and B as float32, bfloat16 or int8. An
+// int8 B is K2's int8-weight variant: each value widens to float32 as
+// it is staged into shared memory (one byte per thread, neighbouring
+// threads on neighbouring columns), so the weight stays int8 in device
+// memory, the shared-memory tile is the same float tile as for the
+// other types (no int8 alignment to keep there), and the
+// per-output-channel scale runs in the epilogue. The A operand comes
+// through a loader functor, so the same main loop serves a dense
+// row-major matrix
 // (projections, FFN) and K1's embedding gather, whose "A" is the
 // 560-wide embedded pileup row built on the fly from the id planes and
 // the embedding tables, so it never exists in device memory.
@@ -29,6 +36,7 @@ typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
 __device__ __forceinline__ float load_any(const void* p, int64_t i,
                                           int is_bf16) {
@@ -46,7 +54,8 @@ __device__ __forceinline__ void store_any(void* p, int64_t i, float v,
 }
 
 // Applied per output element, in the reference's op order:
-//   y = acc; y *= scale (columns < scale_cols); y += bias[n];
+//   y = acc; y *= col_scale[n] (int8 weights: the dequantization,
+//   (x @ q) * scale); y *= scale (columns < scale_cols); y += bias[n];
 //   y += pos[pos_row(m), n]; y = relu(y); y = res[m, n] + alpha * y
 // then y is stored to out (and, when out2 is set, a bfloat16 copy).
 // pos_row(m) is m % pos_period; with lengths (ragged slots of
@@ -69,6 +78,7 @@ struct Epilogue {
   bf16* out2;
   const int* lengths = nullptr;
   int wps = 0;
+  const float* col_scale = nullptr;
 };
 
 // Row of the position table for token m, or -1 for none.
@@ -179,6 +189,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
       const int n = n0 + tx * TN + j;
       if (n >= N) continue;
       float y = acc[i][j];
+      if (ep.col_scale) y *= ep.col_scale[n];
       if (n < ep.scale_cols) y *= ep.scale;
       if (ep.bias) y += ep.bias[n];
       if (prow >= 0) y += load_any(ep.pos, pos_off + n, ep.pos_bf16);

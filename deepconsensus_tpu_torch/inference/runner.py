@@ -19,6 +19,12 @@ they pack instead into ragged slots of the largest bucket
 (inference/engine.py) and run through the model's ragged forward (K4,
 then K2 with lengths).
 
+The inference levers (--inference_dtype bfloat16, --quantize_matmuls
+int8) apply once when ModelRunner loads the weights
+(models/quantize.py); the sidecar records `inference_dtype` and
+`n_quantized_matmuls`. Under int8 each encoder block runs K2's int8
+variant.
+
 The model stage ships each pack to the card compactly, as in the
 reference: uint8 rows (the ccs_bq row biased by +1 so its -1 gaps
 survive) plus float SN scalars ([B, 4] per window, or [slots, wps, 4]
@@ -43,6 +49,7 @@ from deepconsensus_tpu_torch.inference import engine as engine_lib
 from deepconsensus_tpu_torch.models import config as config_lib
 from deepconsensus_tpu_torch.models import data as data_lib
 from deepconsensus_tpu_torch.models import model as model_lib
+from deepconsensus_tpu_torch.models import quantize as quantize_lib
 from deepconsensus_tpu_torch.ops import output_plane
 from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
 from deepconsensus_tpu_torch.postprocess import stitch
@@ -76,6 +83,13 @@ class InferenceOptions:
   # chain).
   use_ragged_kernel: bool = False
   skip_windows_above: int = 45
+  # Inference levers (models/quantize.py), folded into params by
+  # _apply_quant_levers and applied once at load. inference_dtype: None
+  # keeps the checkpoint's float32 weights and params.dtype; 'bfloat16'
+  # casts the weights and runs the model in bfloat16. quantize_matmuls:
+  # None or 'none' off; 'int8' quantizes the encoder matmuls.
+  inference_dtype: Optional[str] = None
+  quantize_matmuls: Optional[str] = None
   ins_trim: int = 5
   max_base_quality: int = 93
   limit: int = 0
@@ -136,13 +150,27 @@ def _bq_row_index(params) -> Optional[int]:
   return row_indices(params.max_passes, True)[5][0]
 
 
+def _apply_quant_levers(params, options: InferenceOptions) -> None:
+  """Folds the quantization levers of options into params (the
+  reference's runner._apply_quant_levers): inference_dtype also sets
+  the compute dtype, so activations run in it end to end. The weights
+  are cast and quantized in ModelRunner.__init__."""
+  if options.inference_dtype:
+    params.inference_dtype = options.inference_dtype
+    params.dtype = options.inference_dtype
+  if options.quantize_matmuls and options.quantize_matmuls != 'none':
+    params.quantize_matmuls = options.quantize_matmuls
+
+
 class ModelRunner:
   """The model stage: (formatted window rows) -> (base ids, qualities).
 
   device=None means the card and raises when none is present; tests
   pass device='cpu'. plain=True runs the fused route through the
   kernels' plain versions on the same device (the reference run that
-  the kernels are held against on the card).
+  the kernels are held against on the card). The inference levers in
+  params (params.inference_dtype, params.quantize_matmuls) are applied
+  to state_dict here, before the weights go to the device.
   """
 
   def __init__(self, params, state_dict: Dict[str, torch.Tensor],
@@ -159,9 +187,10 @@ class ModelRunner:
     self.params = params
     self.device = resolve_device(device)
     self.plain = plain
-    self.model = model_lib.DeepConsensusModel(params, device=self.device)
-    self.model.load_state_dict(state_dict)
-    self.model.eval()
+    state_dict, self.n_quantized_matmuls = (
+        quantize_lib.prepare_inference_variables(state_dict, params))
+    self.inference_dtype = str(params.get('inference_dtype') or 'float32')
+    self.model = model_lib.inference_model(params, state_dict, self.device)
     self._bq_row = _bq_row_index(params)
     self._configure_epilogue()
     self.n_packs = 0
@@ -496,6 +525,8 @@ def run_inference(
       d2h_bytes_per_pack=runner.d2h_bytes_per_pack,
       device=str(runner.device),
       dtype=str(runner.model.compute_dtype).replace('torch.', ''),
+      inference_dtype=runner.inference_dtype,
+      n_quantized_matmuls=runner.n_quantized_matmuls,
   )
   with open(output + '.inference.json', 'w') as f:
     json.dump(counters, f, indent=2, sort_keys=True)

@@ -37,8 +37,11 @@ DEFAULT_WINDOW_BUCKETS = (100, 200)
 # (Reference: deepconsensus_tpu/models/config.py.)
 RING_ATTENTION_MIN_LEN = 256
 LONG_INSERT_WINDOW_LEN = 500
-# bf16 acceptance gate: per-base Phred QVs within this many units of
-# f32 on argmax-agreeing positions (same value as the reference).
+# Quantization acceptance gates (the reference's values): int8 —
+# held-out alignment identity within this delta of the f32 baseline
+# (models/evaluate.py); bf16 — per-base Phred QVs within this many units
+# of f32 on argmax-agreeing positions.
+INT8_IDENTITY_GATE = 0.002
 BF16_QV_GATE = 3
 
 
@@ -196,6 +199,11 @@ def get_config(config_name: Optional[str] = None) -> Params:
   # Attention through the banded-attention kernels K5-K7 (training
   # forward and backward, and the module route's forward).
   params.use_pallas_attention = False
+  # Inference levers (models/quantize.py), applied once at load:
+  # inference_dtype 'bfloat16' casts the float weights (and sets the
+  # compute dtype); quantize_matmuls 'int8' quantizes the encoder's six
+  # matmuls per layer, per output channel.
+  params.inference_dtype = None
   params.quantize_matmuls = None
   # Training (reference: model_configs.py:320-323 for the loss).
   params.seed = 1

@@ -123,7 +123,8 @@ class DatasetIterator:
   last partial batch of an epoch dropped, as in the reference. The
   shuffle is the reference's np.random.default_rng(seed) permutation
   per epoch. Several window buckets (bucketed training) are not ported
-  (ROADMAP: training features).
+  (ROADMAP: training features). limit >= 0 reads at most that many
+  examples (-1: all), as the reference's.
   """
 
   patterns: Union[str, Sequence[str]]
@@ -131,6 +132,7 @@ class DatasetIterator:
   batch_size: int
   seed: int = 1
   shuffle: bool = True
+  limit: int = -1
 
   def __post_init__(self):
     buckets = config.resolve_window_buckets(self.params)
@@ -140,7 +142,9 @@ class DatasetIterator:
           '(ROADMAP: training features)')
     width = buckets[0]
     parsed = []
-    for raw in read_tfrecords(self.patterns):
+    for i, raw in enumerate(read_tfrecords(self.patterns)):
+      if 0 <= self.limit <= i:
+        break
       example = parse_example_minimal(raw)
       if _window_width(example) > width:
         raise WindowBucketError(

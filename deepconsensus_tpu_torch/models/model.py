@@ -39,6 +39,13 @@ BandedSelfAttention routes as the reference's does, in this order:
   is wanted, differentiated through K9 and K10;
 * otherwise the module route's einsums over [B, N, L, L] logits.
 
+int8 matmuls (params.quantize_matmuls = 'int8', models/quantize.py):
+each encoder layer's six matmul modules hold the dequantized kernel as
+their parameter and the int8 values and scales as buffers. K2 reads the
+int8 buffers (`kernel_blocks`); K1, K4 and the module route read the
+dequantized parameters, as the reference's do. `inference_model` loads
+a prepared state dict with its dtypes kept.
+
 Ragged slots (`window_lengths`, inference with --use_ragged_kernel):
 rows [B, R, S] hold windows of bucket widths packed back to back per
 slot and window_lengths [B, wps] their widths. The fused route runs K4
@@ -131,19 +138,35 @@ class Dropout:
 
 class Dense(nn.Module):
   """Flax Dense/DenseGeneral: `kernel` keeps the Flax layout; inputs
-  and kernel are cast to the compute dtype."""
+  and kernel are cast to the compute dtype. quantized (int8 matmuls):
+  the module also holds buffers `quant_values` (int8 [in, out]) and
+  `quant_scale` (float32 [out]) beside the dequantized kernel
+  (models/quantize.py); buffers follow .to(device) and stay int8."""
 
   def __init__(self, in_shape: Tuple[int, ...], out_shape: Tuple[int, ...],
-               use_bias: bool, device):
+               use_bias: bool, device, quantized: bool = False):
     super().__init__()
     self.kernel = _param(*in_shape, *out_shape, device=device)
     self.bias = _param(*out_shape, device=device) if use_bias else None
     self.n_in = math.prod(in_shape)
     self.out_shape = out_shape
+    n_out = math.prod(out_shape)
+    self.register_buffer('quant_values', torch.zeros(
+        (self.n_in, n_out), dtype=torch.int8, device=device)
+                         if quantized else None)
+    self.register_buffer('quant_scale', torch.zeros(
+        n_out, device=device) if quantized else None)
 
   def matrix(self) -> torch.Tensor:
     """The kernel as a 2-D [in, out] matrix."""
     return self.kernel.reshape(self.n_in, -1)
+
+  def kernel_operand(self):
+    """K2's operand: the int8 values with their scale when quantized
+    (a QuantizedWeight), else the float matrix."""
+    if self.quant_values is None:
+      return self.matrix()
+    return fwa.QuantizedWeight(self.quant_values, self.quant_scale)
 
   def forward(self, x: torch.Tensor, n_in_dims: int, dtype) -> torch.Tensor:
     lead = x.shape[:x.dim() - n_in_dims]
@@ -176,7 +199,7 @@ class BandedSelfAttention(nn.Module):
 
   def __init__(self, hidden_size: int, num_heads: int,
                attn_win_size: Optional[int], device,
-               use_kernels: bool = False):
+               use_kernels: bool = False, quantized: bool = False):
     super().__init__()
     if hidden_size % num_heads:
       raise ValueError('hidden_size must be divisible by num_heads')
@@ -185,10 +208,11 @@ class BandedSelfAttention(nn.Module):
     self.attn_win_size = attn_win_size
     self.use_kernels = use_kernels
     heads = (num_heads, self.head_dim)
-    self.query = Dense((hidden_size,), heads, False, device)
-    self.key = Dense((hidden_size,), heads, False, device)
-    self.value = Dense((hidden_size,), heads, False, device)
-    self.output_transform = Dense(heads, (hidden_size,), False, device)
+    self.query = Dense((hidden_size,), heads, False, device, quantized)
+    self.key = Dense((hidden_size,), heads, False, device, quantized)
+    self.value = Dense((hidden_size,), heads, False, device, quantized)
+    self.output_transform = Dense(heads, (hidden_size,), False, device,
+                                  quantized)
 
   def _attend(self, query, key, value, dtype,
               drop: Optional[Dropout] = None) -> torch.Tensor:
@@ -267,10 +291,13 @@ class BandedSelfAttention(nn.Module):
 class FeedForward(nn.Module):
   """filter_size ReLU -> hidden_size."""
 
-  def __init__(self, hidden_size: int, filter_size: int, device):
+  def __init__(self, hidden_size: int, filter_size: int, device,
+               quantized: bool = False):
     super().__init__()
-    self.filter_layer = Dense((hidden_size,), (filter_size,), True, device)
-    self.output_layer = Dense((filter_size,), (hidden_size,), True, device)
+    self.filter_layer = Dense((hidden_size,), (filter_size,), True, device,
+                              quantized)
+    self.output_layer = Dense((filter_size,), (hidden_size,), True, device,
+                              quantized)
 
   def forward(self, x: torch.Tensor, dtype,
               drop: Optional[Dropout] = None) -> torch.Tensor:
@@ -319,14 +346,15 @@ class EncoderStack(nn.Module):
   def __init__(self, params, device):
     super().__init__()
     self.num_layers = params.num_hidden_layers
+    quantized = params.get('quantize_matmuls') == 'int8'
     for n in range(self.num_layers):
       self.add_module(f'self_attention_{n}', BandedSelfAttention(
           params.hidden_size, params.num_heads,
           params.attn_win_size or None, device,
-          bool(params.get('use_pallas_attention', False))))
+          bool(params.get('use_pallas_attention', False)), quantized))
       self.add_module(f'attention_wrapper_{n}', ResidualWrapper(device))
       self.add_module(f'ffn_{n}', FeedForward(
-          params.hidden_size, params.filter_size, device))
+          params.hidden_size, params.filter_size, device, quantized))
       self.add_module(f'ffn_wrapper_{n}', ResidualWrapper(device))
     self.output_normalization = LayerNorm(params.hidden_size, device)
 
@@ -349,21 +377,23 @@ class EncoderStack(nn.Module):
 
   def kernel_blocks(self) -> Tuple[feb.EncoderBlockWeights, ...]:
     """K2's per-block weights: the layer-0 FFN-only remainder (K1 ran
-    attention 0), then one full block per further layer."""
+    attention 0), then one full block per further layer. Quantized
+    matmuls give their int8 values and scales, as the reference's
+    blocks_from_params picks them from the 'quant' collection."""
     blocks = []
     for n in range(self.num_layers):
       ffn = self.layer('ffn', n)
       attn = [None] * 5
       if n:
         a = self.layer('self_attention', n)
-        attn = [a.query.matrix(), a.key.matrix(), a.value.matrix(),
-                a.output_transform.matrix(),
+        attn = [a.query.kernel_operand(), a.key.kernel_operand(),
+                a.value.kernel_operand(), a.output_transform.kernel_operand(),
                 self.layer('attention_wrapper', n).alpha]
       blocks.append(feb.EncoderBlockWeights(
           *attn,
-          w_filter=ffn.filter_layer.matrix(),
+          w_filter=ffn.filter_layer.kernel_operand(),
           b_filter=ffn.filter_layer.bias,
-          w_output=ffn.output_layer.matrix(),
+          w_output=ffn.output_layer.kernel_operand(),
           b_output=ffn.output_layer.bias,
           ffn_alpha=self.layer('ffn_wrapper', n).alpha,
       ))
@@ -401,9 +431,10 @@ class DeepConsensusModel(nn.Module):
     # own (per-bucket dispatch); ragged slots check their divisibility
     # chain where they pack.
     config_lib.resolve_window_buckets(params)
-    if params.get('quantize_matmuls') not in (None, 'none'):
+    if params.get('quantize_matmuls') not in (None, 'none', 'int8'):
       raise NotImplementedError(
-          'int8 matmuls are not ported yet (ROADMAP: K2 int8 variant)')
+          f'quantize_matmuls {params.quantize_matmuls!r}: the port '
+          'quantizes to int8 only')
     fwa.check_softmax_dtype(params.get('attn_softmax_dtype'))
     device = resolve_device(device)
     self.params = params
@@ -584,3 +615,14 @@ class DeepConsensusModel(nn.Module):
     encoded = self.encode(rows, plain=plain, window_lengths=window_lengths)
     logits = self.logits(encoded, 1, torch.float32)
     return torch.softmax(logits, dim=-1)
+
+
+def inference_model(params, state, device=None) -> DeepConsensusModel:
+  """DeepConsensusModel(params) in eval mode holding `state` with its
+  dtypes as they are (bfloat16 parameters under inference_dtype, the
+  int8 values of quantized matmuls), moved to the device; the state
+  comes from models/quantize.prepare_inference_variables."""
+  model = DeepConsensusModel(params, device=device)
+  model.load_state_dict({k: v.to(model.device) for k, v in state.items()},
+                        assign=True)
+  return model.eval()

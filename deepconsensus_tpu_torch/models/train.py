@@ -38,6 +38,7 @@ from deepconsensus_tpu_torch.models import losses as losses_lib
 from deepconsensus_tpu_torch.models import metrics as metrics_lib
 from deepconsensus_tpu_torch.models import model as model_lib
 from deepconsensus_tpu_torch.models import weights as weights_lib
+from deepconsensus_tpu_torch.preprocess.pileup import row_indices
 
 
 def create_learning_rate_fn(params, decay_steps: int
@@ -134,6 +135,12 @@ def make_loss(params, plain: bool = False) -> losses_lib.AlignmentLoss:
   return losses_lib.AlignmentLoss(
       del_cost=params.del_cost, loss_reg=params.loss_reg,
       width=params.get('band_width'), plain=plain)
+
+
+def ccs_row_from_batch(rows: torch.Tensor, params) -> torch.Tensor:
+  """The CCS base row [B, L] of [B, R, L, 1] rows."""
+  ccs_row = row_indices(params.max_passes, params.use_ccs_bq)[4][0]
+  return rows[:, ccs_row, :, 0]
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device

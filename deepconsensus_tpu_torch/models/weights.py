@@ -56,7 +56,10 @@ def from_flax_params(tree: Mapping[str, Any], params) -> Dict[str, torch.Tensor]
   misshapen leaf."""
   from deepconsensus_tpu_torch.models import model as model_lib
 
-  expected = model_lib.DeepConsensusModel(params, device='meta').state_dict()
+  # Parameters only: the int8 buffers of quantized matmuls come from
+  # models/quantize.py, not from the tree.
+  expected = dict(model_lib.DeepConsensusModel(
+      params, device='meta').named_parameters())
   state = {}
   for path, value in flatten_tree(tree).items():
     name = path.replace('/', '.')

@@ -30,8 +30,8 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points (each returns its cudaError_t).
 SIGNATURES = {
-    'gemm': {'dc_gemm': (_P, _I, _P, _I, _I, _I, _I, _F, _I, _P, _I, _P, _I,
-                         _P, _P, _I, _P)},
+    'gemm': {'dc_gemm': (_P, _I, _P, _I, _I, _I, _I, _F, _I, _P, _P, _I, _P,
+                         _I, _P, _P, _I, _P)},
     'embed_condense': {'dc_embed_condense': (_P, _I, _I, _P, _P, _P, _P, _I,
                                              _I, _I, _I, _P, _P, _P, _I, _P)},
     'ragged_attention': {

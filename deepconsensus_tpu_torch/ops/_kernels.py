@@ -30,21 +30,31 @@ def _check(t: torch.Tensor, name: str, dtypes=_DTYPES) -> int:
 
 def gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *,
          scale: float = 1.0, scale_cols: int = 0,
+         col_scale: Optional[torch.Tensor] = None,
          bias: Optional[torch.Tensor] = None,
          relu: bool = False,
          res: Optional[torch.Tensor] = None,
          alpha: Optional[torch.Tensor] = None) -> None:
-  """out[M, N] = epilogue(a[M, K] @ b[K, N]) (csrc/gemm.cu): columns
-  below scale_cols times scale, + bias, ReLU, then res + alpha * y."""
+  """out[M, N] = epilogue(a[M, K] @ b[K, N]) (csrc/gemm.cu): times
+  col_scale[n] (int8 weights: the dequantization), columns below
+  scale_cols times scale, + bias, ReLU, then res + alpha * y. b is
+  float32, bfloat16 or int8; an int8 b needs its float32 col_scale."""
   m, k = a.shape
   k2, n = b.shape
   if k != k2 or tuple(out.shape) != (m, n):
     raise ValueError(f'gemm shapes {tuple(a.shape)} x {tuple(b.shape)} '
                      f'-> {tuple(out.shape)}')
   a_bf16 = _check(a, 'a')
-  b_bf16 = _check(b, 'b')
+  _check(b, 'b', _DTYPES + (torch.int8,))
+  b_type = _DTYPES.index(b.dtype) if b.dtype in _DTYPES else 2
+  if b_type == 2 and col_scale is None:
+    raise ValueError('an int8 b needs its per-output-channel col_scale')
   out_bf16 = _check(out, 'out')
   res_bf16 = 0
+  if col_scale is not None:
+    _check(col_scale, 'col_scale', (torch.float32,))
+    if col_scale.numel() != n:
+      raise ValueError(f'col_scale has {col_scale.numel()} values, want {n}')
   if bias is not None:
     _check(bias, 'bias', (torch.float32,))
     if bias.numel() != n:
@@ -58,8 +68,8 @@ def gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *,
     _check(alpha, 'alpha', (torch.float32,))
   lib = _build.load('gemm')
   _build.check(lib.dc_gemm(
-      _build.ptr(a), a_bf16, _build.ptr(b), b_bf16, m, n, k, float(scale),
-      int(scale_cols), _build.ptr(bias), int(relu),
+      _build.ptr(a), a_bf16, _build.ptr(b), b_type, m, n, k, float(scale),
+      int(scale_cols), _build.ptr(col_scale), _build.ptr(bias), int(relu),
       _build.ptr(res), res_bf16, _build.ptr(alpha), _build.ptr(out),
       out_bf16, _build.stream_ptr(a.device)), 'gemm')
 

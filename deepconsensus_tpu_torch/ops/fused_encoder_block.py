@@ -21,7 +21,15 @@ block with attention masks with the lengths-derived window (band AND
 same window AND valid); on the card the attention core reads the
 lengths row itself. The FFN half is position-wise and unchanged.
 
-Not ported yet (ROADMAP): the int8 weight variant.
+int8 weights (params.quantize_matmuls=int8, models/quantize.py): each
+of a block's six matmul weights may be a `QuantizedWeight`, int8 values
+[K, N] with a float32 per-output-channel scale [N], and each product is
+the reference's `_dequant_matmul`, (x @ values) * scale, in float32. On
+the card the GEMMs read the int8 values as int8 and apply the scale in
+their epilogue, before the q scale, bias, ReLU and residual; no
+dequantized weight is made. Such blocks count in `n_launches_int8`, the
+others in `n_launches`. An int8 weight on a CUDA tensor launches the
+int8 kernel or raises.
 """
 from __future__ import annotations
 
@@ -33,30 +41,54 @@ from deepconsensus_tpu_torch.ops import _kernels
 from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
 from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
 
-# Launches of the CUDA path (one per encoder block on CUDA tensors).
+# Launches of the CUDA path (one per encoder block on CUDA tensors):
+# blocks with float weights, and blocks with int8 weights.
 n_launches = 0
+n_launches_int8 = 0
+
+# Defined beside project_attend, which K1, K2 and K4 share.
+QuantizedWeight = fwa.QuantizedWeight
 
 
 class EncoderBlockWeights(NamedTuple):
   """Weights for one encoder block. The attention half (wq..wo,
   attn_alpha) is None for the layer-0 remainder block, whose attention
   K1 already ran. wq/wk/wv/wo are [H, H]; w_filter [H, F]; w_output
-  [F, H]; biases and alphas float32."""
+  [F, H], each a float tensor or a QuantizedWeight; biases and alphas
+  float32."""
 
-  wq: Optional[torch.Tensor]
-  wk: Optional[torch.Tensor]
-  wv: Optional[torch.Tensor]
-  wo: Optional[torch.Tensor]
+  wq: Optional[Any]
+  wk: Optional[Any]
+  wv: Optional[Any]
+  wo: Optional[Any]
   attn_alpha: Optional[torch.Tensor]
-  w_filter: torch.Tensor
+  w_filter: Any
   b_filter: torch.Tensor
-  w_output: torch.Tensor
+  w_output: Any
   b_output: torch.Tensor
   ffn_alpha: torch.Tensor
 
 
+def _weights(block: EncoderBlockWeights):
+  return [w for w in (block.wq, block.wk, block.wv, block.wo,
+                      block.w_filter, block.w_output) if w is not None]
+
+
+def is_int8(block: EncoderBlockWeights) -> bool:
+  """Whether any of the block's matmul weights is int8."""
+  return any(fwa.as_quantized(w).values.dtype == torch.int8
+             for w in _weights(block))
+
+
 def _alpha(a, device) -> torch.Tensor:
   return torch.as_tensor(a, dtype=torch.float32, device=device).reshape(1)
+
+
+def _plain_weight(w, dt: torch.dtype):
+  """A float weight in the compute dtype, or the QuantizedWeight whose
+  scale runs after the product (fwa.matmul_plain)."""
+  qw = fwa.as_quantized(w)
+  return qw.values.to(dt) if qw.scale is None else qw
 
 
 def encoder_block_plain(x: torch.Tensor, block: EncoderBlockWeights, *,
@@ -69,13 +101,15 @@ def encoder_block_plain(x: torch.Tensor, block: EncoderBlockWeights, *,
   x = x.to(dt).float()
   if block.wq is not None:
     y = fwa.attention_plain(
-        x, block.wq.to(dt), block.wk.to(dt), block.wv.to(dt),
-        block.wo.to(dt), num_heads=num_heads, attn_win_size=attn_win_size,
-        mask=mask)
+        x, *(_plain_weight(w, dt) for w in (block.wq, block.wk, block.wv,
+                                            block.wo)),
+        num_heads=num_heads, attn_win_size=attn_win_size, mask=mask)
     x = x + _alpha(block.attn_alpha, x.device) * y
-  h = x @ block.w_filter.to(dt).float() + block.b_filter.float()
+  h = (fwa.matmul_plain(x, _plain_weight(block.w_filter, dt))
+       + block.b_filter.float())
   h = torch.relu(h)
-  y = h @ block.w_output.to(dt).float() + block.b_output.float()
+  y = (fwa.matmul_plain(h, _plain_weight(block.w_output, dt))
+       + block.b_output.float())
   return (x + _alpha(block.ffn_alpha, x.device) * y).to(dt)
 
 
@@ -113,14 +147,14 @@ def _block_cuda(x: torch.Tensor, block: EncoderBlockWeights, *,
         length=length, num_heads=num_heads, attn_win_size=attn_win_size,
         compute_dtype=dt, res=x2, alpha=_alpha(block.attn_alpha, dev),
         lengths=lengths)
-  filt = block.w_filter.to(dt).contiguous()
+  filt, filt_scale = fwa.gemm_operand((block.w_filter,), dt)
   h = torch.empty((b * length, filt.shape[1]), dtype=torch.float32,
                   device=dev)
-  _kernels.gemm(ffn_in, filt, h, relu=True,
+  _kernels.gemm(ffn_in, filt, h, col_scale=filt_scale, relu=True,
                 bias=block.b_filter.to(torch.float32).contiguous())
+  w_out, out_scale = fwa.gemm_operand((block.w_output,), dt)
   out = torch.empty((b, length, hidden), dtype=dt, device=dev)
-  _kernels.gemm(h, block.w_output.to(dt).contiguous(),
-                out.view(b * length, hidden),
+  _kernels.gemm(h, w_out, out.view(b * length, hidden), col_scale=out_scale,
                 bias=block.b_output.to(torch.float32).contiguous(),
                 res=ffn_in, alpha=_alpha(block.ffn_alpha, dev))
   return out
@@ -139,8 +173,9 @@ def fused_encoder_stack(
   """Runs encoder blocks over a [B, L, H] batch; returns [B, L, H] in
   the compute dtype. lengths: [B, wps] window widths of ragged slots,
   or None. A CPU tensor runs the plain version; a CUDA tensor launches
-  the kernels, counting one launch per block."""
-  global n_launches
+  the kernels, counting one launch per block (in n_launches_int8 for a
+  block with int8 weights)."""
+  global n_launches, n_launches_int8
   fwa.check_softmax_dtype(softmax_dtype)
   dt = fwa.resolve_dtype(compute_dtype)
   hidden = x.shape[-1]
@@ -150,6 +185,9 @@ def fused_encoder_stack(
                               or lengths.shape[0] != x.shape[0]):
     raise ValueError(f'lengths shape {tuple(lengths.shape)}, want '
                      f'({x.shape[0]}, windows per slot)')
+  for block in blocks:  # before any launch
+    for w in _weights(block):
+      fwa.as_quantized(w)
   if x.device.type == 'cpu':
     return fused_encoder_stack_plain(
         x, blocks, num_heads=num_heads, attn_win_size=attn_win_size,
@@ -162,5 +200,8 @@ def fused_encoder_stack(
   for block in blocks:
     x = _block_cuda(x, block, num_heads=num_heads,
                     attn_win_size=attn_win_size, dt=dt, lengths=lengths)
-    n_launches += 1
+    if is_int8(block):
+      n_launches_int8 += 1
+    else:
+      n_launches += 1
   return x

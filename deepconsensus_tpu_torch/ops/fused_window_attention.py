@@ -147,19 +147,61 @@ def scaled_tables(tables: Dict[str, torch.Tensor],
   return out
 
 
+class QuantizedWeight(NamedTuple):
+  """One matmul weight, optionally int8-quantized (the reference's
+  ops/fused_encoder_block.py QuantizedWeight). values: [K, N], floats
+  when scale is None, int8 otherwise; scale: float32 [N], so that the
+  effective weight is values * scale[None, :]. K2 takes these;
+  project_attend, shared by K1, K2 and K4, reads them."""
+
+  values: torch.Tensor
+  scale: Optional[torch.Tensor] = None
+
+
+def as_quantized(w) -> QuantizedWeight:
+  """A QuantizedWeight (a plain tensor is wrapped with scale None),
+  checked: 2-D values, float without a scale or int8 with one, and the
+  scale one value per output column."""
+  qw = w if isinstance(w, QuantizedWeight) else QuantizedWeight(w, None)
+  values, scale = qw
+  if values.dim() != 2:
+    raise ValueError(f'weight must be 2-D, got {tuple(values.shape)}')
+  if values.dtype == torch.int8:
+    if scale is None:
+      raise ValueError('an int8 weight needs its per-output-channel scale')
+    if tuple(scale.shape) != (values.shape[1],):
+      raise ValueError(f'scale shape {tuple(scale.shape)}, want '
+                       f'({values.shape[1]},)')
+  elif not values.is_floating_point() or scale is not None:
+    raise ValueError(f'weight values must be float (no scale) or int8 '
+                     f'(with a scale), got {values.dtype}')
+  return qw
+
+
+def matmul_plain(x: torch.Tensor, w) -> torch.Tensor:
+  """x @ w in float32. An int8 QuantizedWeight is the reference's
+  _dequant_matmul, (x @ values) * scale: the scale after the product,
+  not folded into the weight."""
+  if isinstance(w, QuantizedWeight):
+    out = x @ w.values.float()
+    return out if w.scale is None else out * w.scale.float()
+  return x @ w.float()
+
+
 def attention_plain(x: torch.Tensor, wq, wk, wv, wo, *, num_heads: int,
                     attn_win_size: Optional[int],
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
   """Banded MHA on [B, L, H] float32 as the reference computes it: full
   [L, L] scores per head, out-of-band logits -1e9, float32 softmax.
   mask ([B, L, L] bool, ragged slots) replaces the static band. Weights
-  are upcast to float32. Shared by the K1, K2 and K4 plain paths."""
+  (tensors or QuantizedWeights, matmul_plain) are upcast to float32.
+  Shared by the K1, K2 and K4 plain paths."""
   b, length, hidden = x.shape
   head_dim = hidden // num_heads
   x2 = x.reshape(b * length, hidden)
 
   def proj(w):
-    return (x2 @ w.float()).reshape(b, length, num_heads, head_dim)
+    return matmul_plain(x2, w).reshape(b, length, num_heads, head_dim)
 
   q = proj(wq) * (head_dim ** -0.5)
   k = proj(wk)
@@ -174,7 +216,7 @@ def attention_plain(x: torch.Tensor, wq, wk, wv, wo, *, num_heads: int,
     s = torch.where(mask, s, torch.full((), _NEG, device=x.device))
   w = torch.softmax(s, dim=-1)
   o = torch.einsum('bnlm,bmnd->blnd', w, v).reshape(b * length, hidden)
-  return (o @ wo.float()).reshape(b, length, hidden)
+  return matmul_plain(o, wo).reshape(b, length, hidden)
 
 
 def embed_condense_plain(rows, tables, w_cond, *, specs, table_keys,
@@ -312,6 +354,22 @@ def embed_condense_attend(
   return x_base, attn_out
 
 
+def gemm_operand(weights: Sequence[Any], compute_dtype: torch.dtype
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+  """(values, col_scale) of one GEMM over weights joined along their
+  output columns: int8 values stay int8 (with their float32 scales
+  joined alike), float values go to the compute dtype (no scale).
+  int8 and float weights do not mix in one GEMM."""
+  qws = [as_quantized(w) for w in weights]
+  if len({qw.scale is None for qw in qws}) > 1:
+    raise ValueError('int8 and float weights in one fused GEMM')
+  if qws[0].scale is None:
+    values = [qw.values.to(compute_dtype) for qw in qws]
+    return torch.cat(values, dim=1).contiguous(), None
+  return (torch.cat([qw.values for qw in qws], dim=1).contiguous(),
+          torch.cat([qw.scale.float() for qw in qws]).contiguous())
+
+
 def project_attend(x2: torch.Tensor, wq, wk, wv, wo, out: torch.Tensor, *,
                    batch: int, length: int, num_heads: int,
                    attn_win_size: Optional[int], compute_dtype: torch.dtype,
@@ -323,17 +381,20 @@ def project_attend(x2: torch.Tensor, wq, wk, wv, wo, out: torch.Tensor, *,
   (csrc/ragged_attention.cu; with lengths, each query attends only
   inside its own ragged window), and the output GEMM, whose epilogue
   optionally adds the ReZero residual res + alpha * y. Shared by K1, K2
-  and K4."""
+  and K4. Weights are tensors or QuantizedWeights: int8 q/k/v join into
+  one [H, 3H] int8 operand with a [3H] scale, dequantized in the GEMM's
+  epilogue before the q scale, and wo keeps its own scale."""
   hidden = x2.shape[1]
   head_dim = hidden // num_heads
-  wqkv = torch.cat([wq, wk, wv], dim=1).to(compute_dtype).contiguous()
+  wqkv, qkv_scale = gemm_operand((wq, wk, wv), compute_dtype)
   qkv = torch.empty((x2.shape[0], 3 * hidden), dtype=torch.float32,
                     device=x2.device)
-  _kernels.gemm(x2, wqkv, qkv, scale=head_dim ** -0.5, scale_cols=hidden)
+  _kernels.gemm(x2, wqkv, qkv, scale=head_dim ** -0.5, scale_cols=hidden,
+                col_scale=qkv_scale)
   o = torch.empty((x2.shape[0], hidden), dtype=torch.float32,
                   device=x2.device)
   win = length - 1 if attn_win_size is None else int(attn_win_size)
   _kernels.attention(qkv, o, batch=batch, length=length,
                      num_heads=num_heads, win=win, lengths=lengths)
-  _kernels.gemm(o, wo.to(compute_dtype).contiguous(), out, res=res,
-                alpha=alpha)
+  wo_values, wo_scale = gemm_operand((wo,), compute_dtype)
+  _kernels.gemm(o, wo_values, out, col_scale=wo_scale, res=res, alpha=alpha)

@@ -4,7 +4,8 @@ Marked `gpu`: each test asks the `cuda` fixture for the card and skips
 without one (decided in the fixture, never at import time). This file
 imports only torch, numpy and the port, so it runs on a machine without
 JAX:  python -m pytest tests/test_torch_gpu.py -m gpu
-Tolerances: float32 rtol = atol = 1e-4, bfloat16 2e-2, K3 exact; the
+Tolerances: float32 rtol = atol = 1e-4, bfloat16 2e-2 (K2's int8
+variant too), K3 exact; the
 alignment DP (K11/K12) and the banded DP (K13/K14) scores rtol 1e-5
 (atol 1e-4), gradients rtol 1e-4, atol 1e-5; the banded-attention
 training kernels (K5-K7) and the block-banded flash kernels (K8-K10) as
@@ -326,6 +327,91 @@ def test_banded_training_step_on_the_card_matches_the_cpu(cuda):
             wavefront_cuda.n_bwd_launches) == (
                 counts[0] + (device != 'cpu'), counts[1])
   np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+
+
+def int8_model(params, device):
+  """seeded_model's weights loaded as `run --quantize_matmuls int8`
+  loads them (in bfloat16 also --inference_dtype bfloat16)."""
+  from deepconsensus_tpu_torch.models import quantize
+
+  qparams = config.Params(params, quantize_matmuls='int8')
+  if params.dtype == 'bfloat16':
+    qparams.inference_dtype = 'bfloat16'
+  state, n = quantize.prepare_inference_variables(
+      seeded_model(params, 'cpu').state_dict(), qparams)
+  assert n == 6 * params.num_hidden_layers
+  return model_lib.inference_model(qparams, state, device)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b', [1, 1024])
+@pytest.mark.parametrize('with_lengths', [False, True])
+def test_k2_int8_kernel_matches_plain(cuda, dtype, b, with_lengths):
+  """K2's int8 variant (a full block, then the FFN-only block) against
+  its plain version, one int8 launch per block and none of the float
+  K2; with lengths at 200-position slots, on valid positions."""
+  name = str(dtype).replace('torch.', '')
+  length = 200 if with_lengths else 100
+  params = small_params(name)
+  blocks = int8_model(params, cuda).encoder.kernel_blocks()
+  assert blocks[1].wq.values.dtype == torch.int8
+  gen = torch.Generator().manual_seed(b + length)
+  x = torch.randn((b, length, params.hidden_size), generator=gen).to(
+      device=cuda, dtype=dtype)
+  lengths = valid = None
+  if with_lengths:
+    widths = ([[100, 100], [200, 0], [100, 0], [0, 0]] * b)[:b]
+    lengths = torch.tensor(widths, dtype=torch.int32, device=cuda)
+    valid = rwa.slot_geometry(lengths, length)[3]
+  kw = dict(num_heads=params.num_heads, attn_win_size=params.attn_win_size,
+            compute_dtype=dtype, lengths=lengths)
+  before = (feb.n_launches, feb.n_launches_int8)
+  for block in (blocks[1], blocks[0]):
+    got = feb.fused_encoder_stack(x, [block], **kw)
+    want = feb.fused_encoder_stack_plain(x, [block], **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    if valid is not None:
+      got, want = got[valid], want[valid]
+    torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+  assert (feb.n_launches, feb.n_launches_int8) == (before[0], before[1] + 2)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_int8_model_kernels_match_plain(cuda, dtype):
+  """The int8 model's encode: K1 on the dequantized layer-0 weights,
+  K2 int8 per layer, against the plain versions."""
+  params = small_params(str(dtype).replace('torch.', ''))
+  model = int8_model(params, cuda)
+  rows = fake_rows(params, 37).to(cuda)
+  counts = (fwa.n_launches, feb.n_launches, feb.n_launches_int8)
+  kernel = model.encode(rows)
+  plain = model.encode(rows, plain=True)
+  assert (fwa.n_launches, feb.n_launches, feb.n_launches_int8) == (
+      counts[0] + 1, counts[1], counts[2] + params.num_hidden_layers)
+  torch.testing.assert_close(kernel, plain, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_k2_int8_wrappers_reject_bad_input(cuda):
+  from deepconsensus_tpu_torch.ops import _kernels
+
+  params = small_params()
+  block = int8_model(params, cuda).encoder.kernel_blocks()[1]
+  x = torch.zeros((2, 100, params.hidden_size), device=cuda)
+  kw = dict(num_heads=params.num_heads, attn_win_size=params.attn_win_size)
+  with pytest.raises(ValueError, match='scale'):
+    feb.fused_encoder_stack(
+        x, [block._replace(wk=feb.QuantizedWeight(block.wk.values))], **kw)
+  with pytest.raises(ValueError, match='scale shape'):
+    feb.fused_encoder_stack(x, [block._replace(w_output=feb.QuantizedWeight(
+        block.w_output.values, block.w_output.scale[:-1]))], **kw)
+  a = torch.zeros((4, 8), device=cuda)
+  b = torch.zeros((8, 3), dtype=torch.int8, device=cuda)
+  out = torch.empty((4, 3), device=cuda)
+  with pytest.raises(ValueError, match='col_scale'):
+    _kernels.gemm(a, b, out)
+  with pytest.raises(ValueError, match='col_scale has'):
+    _kernels.gemm(a, b, out, col_scale=torch.ones(2, device=cuda))
 
 
 def test_wrapper_rejects_bad_input(cuda):

@@ -153,13 +153,16 @@ def test_seeded_init_is_reproducible_with_nonzero_alphas():
 
 
 def test_unported_configs_raise():
-  """int8 and a non-float32 softmax stay unported. Several buckets
-  without ragged slots are served per bucket: the runner and the model
-  take any set normalize_window_buckets accepts (no divisibility chain
-  needed), and only an invalid set raises."""
-  with pytest.raises(NotImplementedError, match='int8'):
+  """A quantization other than int8 and a non-float32 softmax stay
+  unported (int8 is ported: tests/test_torch_quantize.py). Several
+  buckets without ragged slots are served per bucket: the runner and the
+  model take any set normalize_window_buckets accepts (no divisibility
+  chain needed), and only an invalid set raises."""
+  with pytest.raises(NotImplementedError, match='int4'):
     torch_model.DeepConsensusModel(
-        torch_params(20, quantize_matmuls='int8'), device='cpu')
+        torch_params(20, quantize_matmuls='int4'), device='cpu')
+  torch_model.DeepConsensusModel(torch_params(20, quantize_matmuls='int8'),
+                                 device='cpu')
   params = torch_params(20, window_buckets='20,40')
   state = torch_model.DeepConsensusModel(params, device='cpu').state_dict()
   runner = runner_lib.ModelRunner(params, state,
