@@ -21,9 +21,9 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    as `run --quantize_matmuls int8` loads them, in bfloat16 also cast as
    --inference_dtype bfloat16 casts them) on the same inputs: a full
    block and the FFN-only layer-0 block at 1024 x 100, and a full block
-   with lengths at 512 x 200, bounded by the float32 peak in either type
-   (its products run in float32), its library yardstick K2's PyTorch
-   calls on the dequantized weights; K11 (the alignment DP's forward, with and
+   with lengths at 512 x 200, bounded at the peak of the activations'
+   type (every int8 value is exact in bfloat16), its library yardstick
+   K2's PyTorch calls on the dequantized weights; K11 (the alignment DP's forward, with and
    without its rows) and K12 (its backward) at 256 x 100 x 100 float32
    costs, loss_reg 0.1, mixed lengths: scores rtol 1e-5 (atol 1e-4),
    gradients rtol 1e-4, atol 1e-5, plus each kernel's time at one batch
@@ -82,7 +82,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
       through the plain versions;
    j. `evaluate`: `cli evaluate` on c's float32 checkpoint over c's 256
       eval examples, float32 and with --quantize_matmuls int8; and the
-      same on a's seeded weights (--weights/--params), printed only.
+      same on a's seeded weights (--weights/--params).
    Gates: each path's kernels launched (a: K1-K3, b: K4, K2, K3, c: K11
    once per step and eval batch, K12 once per step, no K5-K7; d: K7 and
    K6 once per layer and step, K5 once per layer and eval batch, K11
@@ -128,9 +128,10 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    float32), the float32 int8 ids agreeing with a's float32 run on >=
    95% of positions (the reference's bar), n_quantized_matmuls 36 and
    the inference_dtype labels in the sidecar; windows/s and peak memory
-   printed beside a's. j: |int8 - float32| alignment_identity within
-   INT8_IDENTITY_GATE, every metric finite, K1, K2 int8 and K11 on the
-   int8 run (the float K2 on the float32 run); both CSV rows printed.
+   printed beside a's. j: on the checkpoint and on the seeded weights,
+   |int8 - float32| alignment_identity within INT8_IDENTITY_GATE and
+   every metric finite; K1, K2 int8 and K11 on the checkpoint's int8
+   run (the float K2 on its float32 run); the CSV rows printed.
 4. Where a full-width train step's time goes, in bfloat16 and float32,
    and in bfloat16 with attention through K5-K7, with band_width 12 and
    with attention through K8-K10 at L = 200:
@@ -425,8 +426,9 @@ def check_kernels(dtype: str, device: str = 'cuda') -> dict:
       flops=flops, bytes=nbytes)
 
   # K2 int8: the same activations, the same weights quantized as `run
-  # --quantize_matmuls int8` loads them; float32 math, so the float32
-  # peak bounds it in either type.
+  # --quantize_matmuls int8` loads them. The peak is the activations'
+  # type's: every int8 value is exact in bfloat16, so a bfloat16 MMA
+  # with float32 accumulation forms the same products.
   qblocks = int8_blocks(model, dtype)
   errs = []
   for block in (qblocks[1], qblocks[0]):
@@ -437,7 +439,7 @@ def check_kernels(dtype: str, device: str = 'cuda') -> dict:
   q1 = qblocks[1]
   qws = block_matrices(q1, dt)
   nbytes = int8_k2_bytes(m, h, f, isz)
-  t_bound, by = bound(flops, nbytes, 'float32')
+  t_bound, by = bound(flops, nbytes, dtype)
   out['K2_int8'] = dict(
       max_abs_err=max(errs), ms=cuda_ms(
           lambda: feb.fused_encoder_stack(x, [q1], **k2_kw)),
@@ -594,7 +596,7 @@ def check_ragged_kernels(dtype: str, device: str = 'cuda') -> dict:
   err = max_err(got[valid], want2[valid], TOL[dtype])
   qws = block_matrices(q1, dt)
   nbytes = int8_k2_bytes(m, h, f, isz, lengths.numel() * 4)
-  t_bound, by = bound(flops, nbytes, 'float32')
+  t_bound, by = bound(flops, nbytes, dtype)
   out['K2_int8_lengths'] = dict(
       max_abs_err=err, ms=cuda_ms(
           lambda: feb.fused_encoder_stack(x, [q1], **k2_kw)),
@@ -1117,7 +1119,6 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
           quantize_matmuls='int8' if levers else None,
           inference_dtype='bfloat16' if '--inference_dtype' in levers
           else None)
-      runner_lib._apply_quant_levers(params, options)
       runner = runner_lib.ModelRunner(
           params, weights_lib.from_flax_params(
               weights_lib.load_npz(weights), params),
@@ -1293,25 +1294,34 @@ def run_evaluate_path(source, eval_shards: str, quantize: bool,
           torch.cuda.max_memory_allocated())
 
 
-def evaluate_gates(runs) -> dict:
-  """The evaluate path's gates: |int8 - float32| alignment identity
-  within INT8_IDENTITY_GATE, every metric finite, and the int8 run
-  through K1, K2 int8 and K11 (the float32 run through the float K2).
+def evaluate_gates(runs, seeded) -> dict:
+  """The evaluate path's gates: on the checkpoint (runs) and on the
+  seeded weights (seeded), |int8 - float32| alignment identity within
+  INT8_IDENTITY_GATE and every metric finite; the checkpoint's int8 run
+  through K1, K2 int8 and K11 (its float32 run through the float K2).
   Raises on a failed gate."""
   from deepconsensus_tpu_torch.models import config as config_lib
 
-  f32, q = runs['float32'][0], runs['int8'][0]
+  def delta(pair):
+    return abs(pair['int8'][0]['alignment_identity']
+               - pair['float32'][0]['alignment_identity'])
+
   gates = {
-      'alignment_identity_delta': abs(q['alignment_identity']
-                                      - f32['alignment_identity']),
+      'alignment_identity_delta': delta(runs),
+      'seeded_alignment_identity_delta': delta(seeded),
       'launches': {k: {n: r[1][n] for n in ('K1', 'K2', 'K2_int8', 'K11')}
                    for k, r in runs.items()},
   }
   checks = [
       (gates['alignment_identity_delta'] <= config_lib.INT8_IDENTITY_GATE,
-       'int8 alignment identity differs from float32 by more than '
-       'INT8_IDENTITY_GATE'),
-      (all(math.isfinite(v) for r in runs.values() for v in r[0].values()),
+       'checkpoint: int8 alignment identity differs from float32 by more '
+       'than INT8_IDENTITY_GATE'),
+      (gates['seeded_alignment_identity_delta']
+       <= config_lib.INT8_IDENTITY_GATE,
+       'seeded weights: int8 alignment identity differs from float32 by '
+       'more than INT8_IDENTITY_GATE'),
+      (all(math.isfinite(v) for pair in (runs, seeded)
+           for r in pair.values() for v in r[0].values()),
        'a metric is not finite'),
       (all(runs['int8'][1][k] for k in PATH_KERNELS['evaluate'])
        and runs['int8'][1]['K2'] == 0,
@@ -2079,24 +2089,23 @@ def main(argv) -> int:
         'checkpoint': os.path.relpath(checkpoint, REPO), 'csv': r[0],
         'launches': r[1], 'seconds': r[2], 'peak_bytes': r[3]}),
           flush=True)
-  evaluate_gates(eval_runs)
-  launches_by_path['evaluate'] = eval_runs['int8'][1]
-  # Printed, not gated: the checkpoint's ReZero alphas are still near
-  # Flax's zeros after 4 steps, so int8 barely reaches its predictions;
-  # the seeded `run` weights (alphas U(0.1, 0.3)) show the lever's
-  # effect on a model whose residual branches count.
+  # The checkpoint's ReZero alphas are still near Flax's zeros after 4
+  # steps, so int8 barely reaches its predictions; the seeded `run`
+  # weights (alphas U(0.1, 0.3)) hold the lever to the gate on a model
+  # whose residual branches count.
   seeded = {}
   for quantize in (False, True):
-    seeded[quantize] = run_evaluate_path(
+    label = 'int8' if quantize else 'float32'
+    seeded[label] = r = run_evaluate_path(
         ['--weights', weights, '--params',
          os.path.join(WORK, 'params_float32.json')], shards[1], quantize,
-        tag='_seeded')[0]
-  print(json.dumps({
-      'phase': 'main_path', 'path': 'evaluate', 'run': 'seeded_weights',
-      'csv_float32': seeded[False], 'csv_int8': seeded[True],
-      'alignment_identity_delta': abs(
-          seeded[True]['alignment_identity']
-          - seeded[False]['alignment_identity'])}), flush=True)
+        tag='_seeded')
+    print(json.dumps({
+        'phase': 'main_path', 'path': 'evaluate',
+        'run': f'seeded_weights_{label}', 'csv': r[0], 'seconds': r[2],
+        'peak_bytes': r[3]}), flush=True)
+  evaluate_gates(eval_runs, seeded)
+  launches_by_path['evaluate'] = eval_runs['int8'][1]
   attn_runs = {}
   for dtype in ('bfloat16', 'float32'):
     attn_runs[dtype] = r = run_train_path(shards, dtype, attn=True)

@@ -166,7 +166,6 @@ def _add_evaluate(sub) -> None:
 
 def _evaluate(args) -> int:
   from deepconsensus_tpu_torch.devices import resolve_device
-  from deepconsensus_tpu_torch.inference import runner as runner_lib
   from deepconsensus_tpu_torch.models import config as config_lib
   from deepconsensus_tpu_torch.models import evaluate as evaluate_lib
   from deepconsensus_tpu_torch.models import quantize as quantize_lib
@@ -178,9 +177,10 @@ def _evaluate(args) -> int:
   params = config_lib.read_params_from_json(args.params or args.checkpoint)
   if args.batch_size:
     params.batch_size = args.batch_size
-  runner_lib._apply_quant_levers(params, runner_lib.InferenceOptions(
-      inference_dtype=args.inference_dtype,
-      quantize_matmuls=args.quantize_matmuls))
+  if args.inference_dtype:
+    params.inference_dtype = params.dtype = args.inference_dtype
+  if args.quantize_matmuls and args.quantize_matmuls != 'none':
+    params.quantize_matmuls = args.quantize_matmuls
   if args.checkpoint:
     state = evaluate_lib.load_checkpoint_state(args.checkpoint)
   else:
@@ -276,7 +276,6 @@ def main(argv: Optional[List[str]] = None) -> int:
       ccs_calibration_values=calibration_lib.parse_calibration_string(
           args.ccs_calibration),
   )
-  runner_lib._apply_quant_levers(params, options)
   state = weights_lib.from_flax_params(
       weights_lib.load_npz(args.weights), params)
   runner = runner_lib.ModelRunner(params, state, options, device=device)

@@ -84,7 +84,7 @@ class InferenceOptions:
   use_ragged_kernel: bool = False
   skip_windows_above: int = 45
   # Inference levers (models/quantize.py), folded into params by
-  # _apply_quant_levers and applied once at load. inference_dtype: None
+  # ModelRunner (_apply_quant_levers) and applied once at load. inference_dtype: None
   # keeps the checkpoint's float32 weights and params.dtype; 'bfloat16'
   # casts the weights and runs the model in bfloat16. quantize_matmuls:
   # None or 'none' off; 'int8' quantizes the encoder matmuls.
@@ -154,7 +154,7 @@ def _apply_quant_levers(params, options: InferenceOptions) -> None:
   """Folds the quantization levers of options into params (the
   reference's runner._apply_quant_levers): inference_dtype also sets
   the compute dtype, so activations run in it end to end. The weights
-  are cast and quantized in ModelRunner.__init__."""
+  are cast and quantized in ModelRunner.__init__, which calls this."""
   if options.inference_dtype:
     params.inference_dtype = options.inference_dtype
     params.dtype = options.inference_dtype
@@ -168,7 +168,8 @@ class ModelRunner:
   device=None means the card and raises when none is present; tests
   pass device='cpu'. plain=True runs the fused route through the
   kernels' plain versions on the same device (the reference run that
-  the kernels are held against on the card). The inference levers in
+  the kernels are held against on the card). The inference levers of
+  options are folded into params (_apply_quant_levers), and those in
   params (params.inference_dtype, params.quantize_matmuls) are applied
   to state_dict here, before the weights go to the device.
   """
@@ -177,6 +178,7 @@ class ModelRunner:
                options: Optional[InferenceOptions] = None,
                device=None, plain: bool = False):
     self.options = options or InferenceOptions()
+    _apply_quant_levers(params, self.options)
     self.window_buckets = config_lib.normalize_window_buckets(
         self.options.window_buckets or params.get('window_buckets'),
         params.max_length)

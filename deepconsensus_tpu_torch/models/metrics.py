@@ -231,25 +231,6 @@ def per_class_accuracy_counts(
 
 
 @dataclasses.dataclass
-class Mean:
-  """Streaming mean accumulator (host side)."""
-
-  total: float = 0.0
-  count: float = 0.0
-
-  def update(self, value, weight=1.0):
-    self.total += float(value) * float(weight)
-    self.count += float(weight)
-
-  def result(self) -> float:
-    return self.total / self.count if self.count else 0.0
-
-  def reset(self):
-    self.total = 0.0
-    self.count = 0.0
-
-
-@dataclasses.dataclass
 class YieldOverCCS:
   """Batches where identity >= threshold, DC over CCS."""
 
@@ -263,7 +244,3 @@ class YieldOverCCS:
 
   def result(self) -> float:
     return self.yield_dc / self.yield_ccs if self.yield_ccs else 0.0
-
-  def reset(self):
-    self.yield_dc = 0.0
-    self.yield_ccs = 0.0
