@@ -23,7 +23,10 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    block and the FFN-only layer-0 block at 1024 x 100, and a full block
    with lengths at 512 x 200, bounded at the peak of the activations'
    type (every int8 value is exact in bfloat16), its library yardstick
-   K2's PyTorch calls on the dequantized weights; K11 (the alignment DP's forward, with and
+   K2's PyTorch calls on the dequantized weights; for each full K2 and
+   K2 int8 block (with and without lengths) its launches timed one by
+   one (`stages`: q/k/v GEMM, attention core, output GEMM, fused FFN,
+   and the per-call weight operands); K11 (the alignment DP's forward, with and
    without its rows) and K12 (its backward) at 256 x 100 x 100 float32
    costs, loss_reg 0.1, mixed lengths: scores rtol 1e-5 (atol 1e-4),
    gradients rtol 1e-4, atol 1e-5, plus each kernel's time at one batch
@@ -327,6 +330,59 @@ def int8_k2_bytes(m: int, h: int, f: int, isz: int, extra: int = 0) -> int:
           + (4 * h + f + h + f + h + 2) * 4 + extra)
 
 
+def k2_stages(x, block, dt, heads: int, win: int, lengths=None) -> dict:
+  """One K2 block's launches timed one by one with CUDA events (ms), on
+  the inputs the block hands each: the q/k/v GEMM, the attention core,
+  the output GEMM (with the attention residual), the fused FFN, and the
+  per-call weight operands (gemm_operand's casts and joins). Timing
+  launches: no launch counter moves."""
+  import torch
+
+  from deepconsensus_tpu_torch.ops import _kernels
+  from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
+
+  b, length, h = x.shape
+  m, dev = b * length, x.device
+  x2 = x.reshape(m, h)
+
+  def operands():
+    return (fwa.gemm_operand((block.wq, block.wk, block.wv), dt),
+            fwa.gemm_operand((block.wo,), dt),
+            fwa.gemm_operand((block.w_filter,), dt),
+            fwa.gemm_operand((block.w_output,), dt))
+
+  (wqkv, qkv_scale), (wo, wo_scale), (wf, f_scale), (wout, o_scale) = (
+      operands())
+  alpha_a, alpha_f = (torch.as_tensor(a, dtype=torch.float32,
+                                      device=dev).reshape(1)
+                      for a in (block.attn_alpha, block.ffn_alpha))
+  b_f = block.b_filter.float().contiguous()
+  b_o = block.b_output.float().contiguous()
+  qkv = torch.empty((m, 3 * h), dtype=torch.float32, device=dev)
+  o = torch.empty((m, h), dtype=torch.float32, device=dev)
+  ffn_in = torch.empty((m, h), dtype=torch.float32, device=dev)
+  out = torch.empty((m, h), dtype=dt, device=dev)
+  stages = {
+      'qkv_gemm_ms': lambda: _kernels.gemm(
+          x2, wqkv, qkv, compute_dtype=dt, scale=(h // heads) ** -0.5,
+          scale_cols=h, col_scale=qkv_scale),
+      'attention_ms': lambda: _kernels.attention(
+          qkv, o, batch=b, length=length, num_heads=heads, win=win,
+          lengths=lengths),
+      'o_gemm_ms': lambda: _kernels.gemm(
+          o, wo, ffn_in, compute_dtype=dt, col_scale=wo_scale, res=x2,
+          alpha=alpha_a),
+      'ffn_ms': lambda: _kernels.ffn(
+          ffn_in, wf, wout, out, b_filter=b_f, b_output=b_o, alpha=alpha_f,
+          compute_dtype=dt, filter_scale=f_scale, output_scale=o_scale),
+      'operands_ms': operands,
+  }
+  for fn in stages.values():  # in order: each stage's inputs exist
+    fn()
+  torch.cuda.synchronize()
+  return {name: cuda_ms(fn) for name, fn in stages.items()}
+
+
 def check_kernels(dtype: str, device: str = 'cuda') -> dict:
   """Phase 2 for one dtype: each kernel vs its plain version."""
   import numpy as np
@@ -423,7 +479,7 @@ def check_kernels(dtype: str, device: str = 'cuda') -> dict:
       bound_ms=t_bound, bound_by=by,
       ffn_only_ms=cuda_ms(
           lambda: feb.fused_encoder_stack(x, [blocks[0]], **k2_kw)),
-      flops=flops, bytes=nbytes)
+      stages=k2_stages(x, b1, dt, heads, win), flops=flops, bytes=nbytes)
 
   # K2 int8: the same activations, the same weights quantized as `run
   # --quantize_matmuls int8` loads them. The peak is the activations'
@@ -451,7 +507,7 @@ def check_kernels(dtype: str, device: str = 'cuda') -> dict:
           lambda: feb.fused_encoder_stack(x, [qblocks[0]], **k2_kw)),
       ffn_only_plain_ms=cuda_ms(
           lambda: feb.fused_encoder_stack_plain(x, [qblocks[0]], **k2_kw)),
-      flops=flops, bytes=nbytes)
+      stages=k2_stages(x, q1, dt, heads, win), flops=flops, bytes=nbytes)
 
   # K3 (float32 preds in both runs; exact), with tied maxima and
   # probabilities placed exactly on thresholds.
@@ -586,7 +642,9 @@ def check_ragged_kernels(dtype: str, device: str = 'cuda') -> dict:
       plain_ms=cuda_ms(lambda: feb.fused_encoder_stack_plain(
           x, [b1], **k2_kw)),
       library_ms=cuda_ms(lambda: k2_library(x, ws, b1, heads, sdpa_mask)),
-      bound_ms=t_bound, bound_by=by, flops=flops, bytes=nbytes)
+      bound_ms=t_bound, bound_by=by,
+      stages=k2_stages(x, b1, dt, heads, win, lengths), flops=flops,
+      bytes=nbytes)
 
   # K2 int8 with lengths: the same slots, the weights quantized.
   q1 = int8_blocks(model, dtype)[1]
@@ -603,7 +661,9 @@ def check_ragged_kernels(dtype: str, device: str = 'cuda') -> dict:
       plain_ms=cuda_ms(lambda: feb.fused_encoder_stack_plain(
           x, [q1], **k2_kw)),
       library_ms=cuda_ms(lambda: k2_library(x, qws, q1, heads, sdpa_mask)),
-      bound_ms=t_bound, bound_by=by, flops=flops, bytes=nbytes)
+      bound_ms=t_bound, bound_by=by,
+      stages=k2_stages(x, q1, dt, heads, win, lengths), flops=flops,
+      bytes=nbytes)
   return out
 
 
@@ -2187,9 +2247,9 @@ def main(argv) -> int:
   sources = {
       'K1': ('deepconsensus_tpu_torch/csrc/embed_condense.cu',
              'deepconsensus_tpu/ops/fused_window_attention.py:349', 'L100'),
-      'K2': ('deepconsensus_tpu_torch/csrc/gemm.cu',
+      'K2': ('deepconsensus_tpu_torch/csrc/mma_gemm.cuh',
              'deepconsensus_tpu/ops/fused_encoder_block.py:264', 'L100'),
-      'K2_int8': ('deepconsensus_tpu_torch/csrc/gemm.cu',
+      'K2_int8': ('deepconsensus_tpu_torch/csrc/mma_gemm.cuh',
                   'deepconsensus_tpu/ops/fused_encoder_block.py:264',
                   'int8'),
       'K3': ('deepconsensus_tpu_torch/csrc/phred_epilogue.cu',
@@ -2236,6 +2296,10 @@ def main(argv) -> int:
       entry.update({f'lengths_{k}': lv[k] for k in (
           'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'library_ms')})
       entry['lengths_float32_ms'] = kernels['float32'][lname]['ms']
+      entry.update(stages=r['stages'], lengths_stages=lv['stages'],
+                   float32_stages=kernels['float32'][name]['stages'],
+                   lengths_float32_stages=kernels['float32'][lname][
+                       'stages'])
     if name == 'K2_int8':
       entry.update(float32_bound_ms=kernels['float32'][name]['bound_ms'],
                    ffn_only_ms=r['ffn_only_ms'],

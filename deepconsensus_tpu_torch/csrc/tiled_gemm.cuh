@@ -1,110 +1,29 @@
-// Shared tiled GEMM for the port's Hopper kernels (K1 and K2).
+// The CUDA-core GEMM main loop of K1's and K4's embedding-gather
+// condenser (csrc/embed_condense.cu, which replaces the embed/condense
+// half of deepconsensus_tpu/ops/fused_window_attention.py::_kernel and
+// ragged_window_attention.py::_kernel).
 //
-// out[M, N] = epilogue(A[M, K] @ B[K, N]), float32 accumulation, with A
-// read as float32 or bfloat16 and B as float32, bfloat16 or int8. An
-// int8 B is K2's int8-weight variant: each value widens to float32 as
-// it is staged into shared memory (one byte per thread, neighbouring
-// threads on neighbouring columns), so the weight stays int8 in device
-// memory, the shared-memory tile is the same float tile as for the
-// other types (no int8 alignment to keep there), and the
-// per-output-channel scale runs in the epilogue. The A operand comes
-// through a loader functor, so the same main loop serves a dense
-// row-major matrix
-// (projections, FFN) and K1's embedding gather, whose "A" is the
-// 560-wide embedded pileup row built on the fly from the id planes and
-// the embedding tables, so it never exists in device memory.
+// out[M, N] = epilogue(A[M, K] @ B[K, N]), float32 accumulation, with
+// B read as float32 or bfloat16. A comes through a loader functor:
+// K1's embedding gather, whose "A" is the 560-wide embedded pileup row
+// built on the fly from the id planes and the embedding tables, so it
+// never exists in device memory. Every dense product (the projections
+// and K2's FFN) runs on the tensor cores in mma_gemm.cuh instead; this
+// loop stays for the gather because its A is one gathered element per
+// thread, which the tensor-core loop's 16-byte cp.async staging cannot
+// take. Moving the gather onto the tensor cores is K1's own redesign.
 //
-// Bound: at the main path's shapes (M = 1024 windows x 100 positions)
-// every product here has K >= 280 and is compute-bound: ~2.2 flop per
-// byte at K=280 in float32 would be memory-bound on a naive kernel, so
-// the design keeps a 128x128 output tile per block with an 8x8 register
-// micro-tile per thread (each A and B value read from shared memory
-// serves 8 FMAs) to lift arithmetic intensity above the card's
-// float32 ridge point. It runs on the CUDA cores in float32, not on the
-// tensor cores: float32 inputs must stay exact to 1e-4 of the float32
-// reference, which TF32 tensor-core math would not hold. wgmma/TMA
-// pipelining is later work (PERF.md).
+// Bound and design: at the main path's shapes (M = 1024 windows x 100
+// positions, K = 560, N = 280) the product is compute-bound; a 128x128
+// output tile per block with an 8x8 register micro-tile per thread (each
+// A and B value read from shared memory serves 8 FMAs) lifts arithmetic
+// intensity above the card's float32 ridge point. It runs in float32 on
+// the CUDA cores, 67 TFLOP/s at most.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gemm_epilogue.cuh"
 
 namespace dc {
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
-
-__device__ __forceinline__ float load_any(const void* p, int64_t i,
-                                          int is_bf16) {
-  return is_bf16 ? __bfloat162float(static_cast<const bf16*>(p)[i])
-                 : static_cast<const float*>(p)[i];
-}
-
-__device__ __forceinline__ void store_any(void* p, int64_t i, float v,
-                                          int is_bf16) {
-  if (is_bf16) {
-    static_cast<bf16*>(p)[i] = __float2bfloat16_rn(v);
-  } else {
-    static_cast<float*>(p)[i] = v;
-  }
-}
-
-// Applied per output element, in the reference's op order:
-//   y = acc; y *= col_scale[n] (int8 weights: the dequantization,
-//   (x @ q) * scale); y *= scale (columns < scale_cols); y += bias[n];
-//   y += pos[pos_row(m), n]; y = relu(y); y = res[m, n] + alpha * y
-// then y is stored to out (and, when out2 is set, a bfloat16 copy).
-// pos_row(m) is m % pos_period; with lengths (ragged slots of
-// pos_period positions, lengths [slots, wps] window widths) it is the
-// position's offset in its own window, and positions outside every
-// window get no pos.
-struct Epilogue {
-  float scale;
-  int scale_cols;
-  const float* bias;
-  const void* pos;
-  int pos_bf16;
-  int pos_period;
-  int relu;
-  const void* res;
-  int res_bf16;
-  const float* alpha;
-  void* out;
-  int out_bf16;
-  bf16* out2;
-  const int* lengths = nullptr;
-  int wps = 0;
-  const float* col_scale = nullptr;
-};
-
-// Row of the position table for token m, or -1 for none.
-__device__ __forceinline__ int pos_row(const Epilogue& ep, int m) {
-  const int slot = m / ep.pos_period;
-  const int p = m - slot * ep.pos_period;
-  if (!ep.lengths) return p;
-  const int* lens = ep.lengths + static_cast<int64_t>(slot) * ep.wps;
-  for (int j = 0, cur = 0; j < ep.wps; ++j) {
-    const int w = lens[j];
-    if (p < cur + w) return p - cur;
-    cur += w;
-  }
-  return -1;
-}
-
-// Dense row-major A[M, K]; neighbouring threads load neighbouring k.
-template <typename TA>
-struct DenseA {
-  static constexpr bool kMFast = false;
-  const TA* a;
-  int lda;
-  __device__ __forceinline__ float operator()(int m, int k) const {
-    return to_f32(a[static_cast<int64_t>(m) * lda + k]);
-  }
-};
 
 template <int BM, int BN, int BK, int TM, int TN, class ALoad, typename TB>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
@@ -181,22 +100,11 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + ty * TM + i;
     if (m >= M) continue;
-    const int64_t row = static_cast<int64_t>(m) * N;
     const int prow = ep.pos ? pos_row(ep, m) : -1;
-    const int64_t pos_off = static_cast<int64_t>(prow) * N;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx * TN + j;
-      if (n >= N) continue;
-      float y = acc[i][j];
-      if (ep.col_scale) y *= ep.col_scale[n];
-      if (n < ep.scale_cols) y *= ep.scale;
-      if (ep.bias) y += ep.bias[n];
-      if (prow >= 0) y += load_any(ep.pos, pos_off + n, ep.pos_bf16);
-      if (ep.relu) y = fmaxf(y, 0.f);
-      if (ep.res) y = load_any(ep.res, row + n, ep.res_bf16) + alpha * y;
-      store_any(ep.out, row + n, y, ep.out_bf16);
-      if (ep.out2) ep.out2[row + n] = __float2bfloat16_rn(y);
+      if (n < N) epilogue_store(ep, m, n, N, acc[i][j], alpha, prow);
     }
   }
 }

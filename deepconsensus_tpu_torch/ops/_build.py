@@ -20,8 +20,9 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
-SOURCES = ('gemm', 'embed_condense', 'ragged_attention', 'phred_epilogue',
-           'wavefront', 'banded_attention', 'flash_band_attention')
+SOURCES = ('gemm', 'ffn', 'embed_condense', 'ragged_attention',
+           'phred_epilogue', 'wavefront', 'banded_attention',
+           'flash_band_attention')
 NVCC_FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
@@ -30,8 +31,10 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points (each returns its cudaError_t).
 SIGNATURES = {
-    'gemm': {'dc_gemm': (_P, _I, _P, _I, _I, _I, _I, _F, _I, _P, _P, _I, _P,
-                         _I, _P, _P, _I, _P)},
+    'gemm': {'dc_gemm': (_P, _I, _I, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P,
+                         _I, _P, _I, _P, _P, _I, _P)},
+    'ffn': {'dc_ffn': (_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                       _P, _P, _P, _I, _P)},
     'embed_condense': {'dc_embed_condense': (_P, _I, _I, _P, _P, _P, _P, _I,
                                              _I, _I, _I, _P, _P, _P, _I, _P)},
     'ragged_attention': {

@@ -8,7 +8,7 @@ on the K1/K2/K3 wrappers, not here.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,7 +28,42 @@ def _check(t: torch.Tensor, name: str, dtypes=_DTYPES) -> int:
   return int(t.dtype == torch.bfloat16)
 
 
+def split_pieces(a_dtype: torch.dtype, b_dtype: torch.dtype,
+                 compute_dtype: torch.dtype) -> Tuple[int, int]:
+  """(A pieces, B pieces): how many bf16 pieces the tensor-core GEMMs
+  (csrc/mma_gemm.cuh) split each operand into, so that their bf16 MMAs
+  reproduce the reference's float32 product of the widened operands.
+  bf16 and int8 values are exact in one piece. A float32 A takes 2
+  pieces in a bfloat16 run (16 bits, far below the output's rounding)
+  and 3 in a float32 run (all 24 bits: exact). A float32 B takes 3
+  pieces, and so does A beside it: the float32 x float32 product keeps
+  the 6 of the 9 piece products above 2^-24."""
+  for dt, name in ((a_dtype, 'a'), (b_dtype, 'b')):
+    if dt not in _DTYPES + (torch.int8,) or (name == 'a' and dt == torch.int8):
+      raise ValueError(f'{name} dtype {dt} has no bf16 split')
+  b_pieces = 3 if b_dtype == torch.float32 else 1
+  if a_dtype == torch.bfloat16:
+    return 1, b_pieces
+  if compute_dtype == torch.bfloat16 and b_pieces == 1:
+    return 2, b_pieces
+  return 3, b_pieces
+
+
+def _b_type(b: torch.Tensor, name: str) -> int:
+  """Validates a weight operand: 0 float32, 1 bfloat16, 2 int8."""
+  _check(b, name, _DTYPES + (torch.int8,))
+  return _DTYPES.index(b.dtype) if b.dtype in _DTYPES else 2
+
+
+def _check_vector(v: Optional[torch.Tensor], name: str, n: int) -> None:
+  if v is not None:
+    _check(v, name, (torch.float32,))
+    if v.numel() != n:
+      raise ValueError(f'{name} has {v.numel()} values, want {n}')
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *,
+         compute_dtype: torch.dtype = torch.float32,
          scale: float = 1.0, scale_cols: int = 0,
          col_scale: Optional[torch.Tensor] = None,
          bias: Optional[torch.Tensor] = None,
@@ -38,27 +73,22 @@ def gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *,
   """out[M, N] = epilogue(a[M, K] @ b[K, N]) (csrc/gemm.cu): times
   col_scale[n] (int8 weights: the dequantization), columns below
   scale_cols times scale, + bias, ReLU, then res + alpha * y. b is
-  float32, bfloat16 or int8; an int8 b needs its float32 col_scale."""
+  float32, bfloat16 or int8; an int8 b needs its float32 col_scale.
+  The product runs on the tensor cores with the operands split as
+  split_pieces(a, b, compute_dtype) says; K and N are multiples of 8."""
   m, k = a.shape
   k2, n = b.shape
   if k != k2 or tuple(out.shape) != (m, n):
     raise ValueError(f'gemm shapes {tuple(a.shape)} x {tuple(b.shape)} '
                      f'-> {tuple(out.shape)}')
   a_bf16 = _check(a, 'a')
-  _check(b, 'b', _DTYPES + (torch.int8,))
-  b_type = _DTYPES.index(b.dtype) if b.dtype in _DTYPES else 2
+  b_type = _b_type(b, 'b')
   if b_type == 2 and col_scale is None:
     raise ValueError('an int8 b needs its per-output-channel col_scale')
   out_bf16 = _check(out, 'out')
   res_bf16 = 0
-  if col_scale is not None:
-    _check(col_scale, 'col_scale', (torch.float32,))
-    if col_scale.numel() != n:
-      raise ValueError(f'col_scale has {col_scale.numel()} values, want {n}')
-  if bias is not None:
-    _check(bias, 'bias', (torch.float32,))
-    if bias.numel() != n:
-      raise ValueError(f'bias has {bias.numel()} values, want {n}')
+  _check_vector(col_scale, 'col_scale', n)
+  _check_vector(bias, 'bias', n)
   if res is not None:
     res_bf16 = _check(res, 'res')
     if tuple(res.shape) != (m, n):
@@ -66,12 +96,69 @@ def gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *,
     if alpha is None or alpha.numel() != 1:
       raise ValueError('a residual needs a one-element alpha tensor')
     _check(alpha, 'alpha', (torch.float32,))
+  if k % 8 or n % 8:
+    raise ValueError(f'gemm K = {k} and N = {n} must be multiples of 8')
+  a_pieces, b_pieces = split_pieces(a.dtype, b.dtype, compute_dtype)
   lib = _build.load('gemm')
   _build.check(lib.dc_gemm(
-      _build.ptr(a), a_bf16, _build.ptr(b), b_type, m, n, k, float(scale),
-      int(scale_cols), _build.ptr(col_scale), _build.ptr(bias), int(relu),
-      _build.ptr(res), res_bf16, _build.ptr(alpha), _build.ptr(out),
-      out_bf16, _build.stream_ptr(a.device)), 'gemm')
+      _build.ptr(a), a_bf16, a_pieces, _build.ptr(b), b_type, b_pieces, m,
+      n, k, float(scale), int(scale_cols), _build.ptr(col_scale),
+      _build.ptr(bias), int(relu), _build.ptr(res), res_bf16,
+      _build.ptr(alpha), _build.ptr(out), out_bf16,
+      _build.stream_ptr(a.device)), 'gemm')
+
+
+# The fused FFN's limits (csrc/mma_gemm.cuh::FfnTile): the [64, H]
+# output accumulator of a block stays in registers.
+FFN_MAX_HIDDEN = 288
+
+
+def ffn(x: torch.Tensor, w_filter: torch.Tensor, w_output: torch.Tensor,
+        out: torch.Tensor, *, b_filter: torch.Tensor, b_output: torch.Tensor,
+        alpha: torch.Tensor, compute_dtype: torch.dtype,
+        filter_scale: Optional[torch.Tensor] = None,
+        output_scale: Optional[torch.Tensor] = None) -> None:
+  """out = x + alpha * ((relu((x @ w_filter) * filter_scale + b_filter)
+  @ w_output) * output_scale + b_output) in one launch (csrc/ffn.cu),
+  with the [M, F] intermediate kept on chip. x [M, H] float32 or
+  bfloat16 (also the residual); weights float32, bfloat16 or int8 (int8
+  with their float32 scales); H <= FFN_MAX_HIDDEN and a multiple of 8,
+  F a multiple of 32. Operands split as split_pieces says; the
+  intermediate as a float32 A of the compute dtype."""
+  m, hidden = x.shape
+  hidden2, filt = w_filter.shape
+  if (hidden2 != hidden or tuple(w_output.shape) != (filt, hidden)
+      or tuple(out.shape) != (m, hidden)):
+    raise ValueError(f'ffn shapes x {tuple(x.shape)}, w_filter '
+                     f'{tuple(w_filter.shape)}, w_output '
+                     f'{tuple(w_output.shape)} -> {tuple(out.shape)}')
+  x_bf16 = _check(x, 'x')
+  b_type = _b_type(w_filter, 'w_filter')
+  if _b_type(w_output, 'w_output') != b_type:
+    raise ValueError('w_filter and w_output must share their dtype')
+  if (b_type == 2) != (filter_scale is not None) or (
+      (b_type == 2) != (output_scale is not None)):
+    raise ValueError('int8 weights need their scales, float ones none')
+  _check_vector(filter_scale, 'filter_scale', filt)
+  _check_vector(output_scale, 'output_scale', hidden)
+  _check_vector(b_filter, 'b_filter', filt)
+  _check_vector(b_output, 'b_output', hidden)
+  _check(alpha, 'alpha', (torch.float32,))
+  if alpha.numel() != 1:
+    raise ValueError('alpha must hold one value')
+  out_bf16 = _check(out, 'out')
+  if hidden > FFN_MAX_HIDDEN or hidden % 8 or filt % 32:
+    raise ValueError(f'ffn takes H <= {FFN_MAX_HIDDEN}, a multiple of 8, '
+                     f'and F a multiple of 32; got H = {hidden}, F = {filt}')
+  a_pieces, b_pieces = split_pieces(x.dtype, w_filter.dtype, compute_dtype)
+  h_pieces = split_pieces(torch.float32, w_filter.dtype, compute_dtype)[0]
+  lib = _build.load('ffn')
+  _build.check(lib.dc_ffn(
+      _build.ptr(x), x_bf16, a_pieces, _build.ptr(w_filter),
+      _build.ptr(w_output), b_type, b_pieces, h_pieces, m, hidden, filt,
+      _build.ptr(filter_scale), _build.ptr(b_filter),
+      _build.ptr(output_scale), _build.ptr(b_output), _build.ptr(alpha),
+      _build.ptr(out), out_bf16, _build.stream_ptr(x.device)), 'ffn')
 
 
 def _check_lengths(lengths: Optional[torch.Tensor], batch: int) -> int:

@@ -10,11 +10,14 @@ the weights).
 On a CUDA tensor a block is a fixed sequence of the repository's
 kernels: the fused q/k/v GEMM, the banded attention core, the output
 GEMM with the attention residual in its epilogue (K1's
-`project_attend`), then the filter GEMM with bias and ReLU and the
-output GEMM with bias and the FFN residual (csrc/gemm.cu). On the TPU
-the [tokens, filter] ReLU intermediate never leaves VMEM; here it makes
-one round trip through device memory (PERF.md). On a CPU tensor the
-wrapper runs `fused_encoder_stack_plain`, the reference's arithmetic.
+`project_attend`; csrc/gemm.cu), then the whole FFN in one launch
+(csrc/ffn.cu): filter product, bias, ReLU, output product, bias and the
+FFN residual, with the [tokens, filter] ReLU intermediate kept in
+shared memory a chunk at a time, as the TPU kernel keeps it in VMEM.
+Every product runs on the tensor cores with its operands split exactly
+into bf16 pieces (csrc/mma_gemm.cuh), so it is the reference's float32
+product up to the order of the sums. On a CPU tensor the wrapper runs
+`fused_encoder_stack_plain`, the reference's arithmetic.
 
 Ragged slots (`lengths` [B, wps], ops/ragged_window_attention.py): every
 block with attention masks with the lengths-derived window (band AND
@@ -25,10 +28,10 @@ int8 weights (params.quantize_matmuls=int8, models/quantize.py): each
 of a block's six matmul weights may be a `QuantizedWeight`, int8 values
 [K, N] with a float32 per-output-channel scale [N], and each product is
 the reference's `_dequant_matmul`, (x @ values) * scale, in float32. On
-the card the GEMMs read the int8 values as int8 and apply the scale in
-their epilogue, before the q scale, bias, ReLU and residual; no
-dequantized weight is made. Such blocks count in `n_launches_int8`, the
-others in `n_launches`. An int8 weight on a CUDA tensor launches the
+the card the kernels read the int8 values as int8, widen them to bf16
+(exact), and apply the scale in their epilogues, before the q scale,
+bias, ReLU and residual; no dequantized weight is made. Such blocks
+count in `n_launches_int8`, the others in `n_launches`. An int8 weight on a CUDA tensor launches the
 int8 kernel or raises.
 """
 from __future__ import annotations
@@ -147,16 +150,14 @@ def _block_cuda(x: torch.Tensor, block: EncoderBlockWeights, *,
         length=length, num_heads=num_heads, attn_win_size=attn_win_size,
         compute_dtype=dt, res=x2, alpha=_alpha(block.attn_alpha, dev),
         lengths=lengths)
-  filt, filt_scale = fwa.gemm_operand((block.w_filter,), dt)
-  h = torch.empty((b * length, filt.shape[1]), dtype=torch.float32,
-                  device=dev)
-  _kernels.gemm(ffn_in, filt, h, col_scale=filt_scale, relu=True,
-                bias=block.b_filter.to(torch.float32).contiguous())
-  w_out, out_scale = fwa.gemm_operand((block.w_output,), dt)
+  w_filter, filter_scale = fwa.gemm_operand((block.w_filter,), dt)
+  w_output, output_scale = fwa.gemm_operand((block.w_output,), dt)
   out = torch.empty((b, length, hidden), dtype=dt, device=dev)
-  _kernels.gemm(h, w_out, out.view(b * length, hidden), col_scale=out_scale,
-                bias=block.b_output.to(torch.float32).contiguous(),
-                res=ffn_in, alpha=_alpha(block.ffn_alpha, dev))
+  _kernels.ffn(ffn_in, w_filter, w_output, out.view(b * length, hidden),
+               b_filter=block.b_filter.to(torch.float32).contiguous(),
+               b_output=block.b_output.to(torch.float32).contiguous(),
+               alpha=_alpha(block.ffn_alpha, dev), compute_dtype=dt,
+               filter_scale=filter_scale, output_scale=output_scale)
   return out
 
 

@@ -389,12 +389,13 @@ def project_attend(x2: torch.Tensor, wq, wk, wv, wo, out: torch.Tensor, *,
   wqkv, qkv_scale = gemm_operand((wq, wk, wv), compute_dtype)
   qkv = torch.empty((x2.shape[0], 3 * hidden), dtype=torch.float32,
                     device=x2.device)
-  _kernels.gemm(x2, wqkv, qkv, scale=head_dim ** -0.5, scale_cols=hidden,
-                col_scale=qkv_scale)
+  _kernels.gemm(x2, wqkv, qkv, compute_dtype=compute_dtype,
+                scale=head_dim ** -0.5, scale_cols=hidden, col_scale=qkv_scale)
   o = torch.empty((x2.shape[0], hidden), dtype=torch.float32,
                   device=x2.device)
   win = length - 1 if attn_win_size is None else int(attn_win_size)
   _kernels.attention(qkv, o, batch=batch, length=length,
                      num_heads=num_heads, win=win, lengths=lengths)
   wo_values, wo_scale = gemm_operand((wo,), compute_dtype)
-  _kernels.gemm(o, wo_values, out, col_scale=wo_scale, res=res, alpha=alpha)
+  _kernels.gemm(o, wo_values, out, compute_dtype=compute_dtype,
+                col_scale=wo_scale, res=res, alpha=alpha)

@@ -414,6 +414,152 @@ def test_k2_int8_wrappers_reject_bad_input(cuda):
     _kernels.gemm(a, b, out, col_scale=torch.ones(2, device=cuda))
 
 
+def _gemm_operands(m, n, k, a_dt, b_dt, gen):
+  """Seeded A [m, k] and B [k, n] in the given types, scaled so that the
+  product is O(1); an int8 B comes with its float32 column scale."""
+  a = torch.randn((m, k), generator=gen).to(a_dt)
+  if b_dt == torch.int8:
+    b = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    scale = torch.rand((n,), generator=gen) / (127 * k ** 0.5)
+    return a, b, scale
+  return a, (torch.randn((k, n), generator=gen) / k ** 0.5).to(b_dt), None
+
+
+@pytest.mark.parametrize('m', [1, 127, 4097])
+@pytest.mark.parametrize('n', [280, 840, 2048])
+@pytest.mark.parametrize('k', [280, 2048])
+def test_gemm_sweep_matches_plain(cuda, m, n, k):
+  """The tensor-core GEMM (_kernels.gemm) against fwa.matmul_plain and
+  the epilogue in torch, for A float32 / bfloat16 x B float32 /
+  bfloat16 / int8 (with its col_scale), both compute dtypes, with no
+  epilogue and with all of it (q scale on the first third, bias, ReLU,
+  residual; out and res then in the compute dtype). Tolerance: TOL of
+  the output's type (the kernel's pieces reproduce the float32 product
+  up to the order of its sums, 2-piece A to 2^-17 of |A| @ |B|)."""
+  from deepconsensus_tpu_torch.ops import _kernels
+
+  gen = torch.Generator().manual_seed(m * 7 + n * 3 + k)
+  for a_dt in (torch.float32, torch.bfloat16):
+    for b_dt in (torch.float32, torch.bfloat16, torch.int8):
+      a, b, col_scale = (t if t is None else t.to(cuda)
+                         for t in _gemm_operands(m, n, k, a_dt, b_dt, gen))
+      w = b if col_scale is None else fwa.QuantizedWeight(b, col_scale)
+      y = fwa.matmul_plain(a.float(), w)
+      bias = torch.randn((n,), generator=gen).to(cuda)
+      alpha = torch.rand((1,), generator=gen).to(cuda)
+      for compute in (torch.float32, torch.bfloat16):
+        res = torch.randn((m, n), generator=gen).to(device=cuda,
+                                                    dtype=compute)
+        for full in (False, True):
+          out_dt = compute if full else torch.float32
+          out = torch.empty((m, n), dtype=out_dt, device=cuda)
+          want = y.clone()
+          kw = dict(compute_dtype=compute, col_scale=col_scale)
+          if full:
+            kw.update(scale=0.125, scale_cols=n // 3, bias=bias, relu=True,
+                      res=res, alpha=alpha)
+            want[:, :n // 3] *= 0.125
+            want = res.float() + alpha * torch.relu(want + bias)
+          _kernels.gemm(a, b, out, **kw)
+          torch.cuda.synchronize()
+          torch.testing.assert_close(
+              out.float(), want.to(out_dt).float(), rtol=TOL[out_dt],
+              atol=TOL[out_dt],
+              msg=lambda e: f'{a_dt} x {b_dt}, {compute}, full={full}: {e}')
+
+
+@pytest.mark.parametrize('m', [1, 127, 4097])
+@pytest.mark.parametrize('hidden,filt', [(280, 2048), (280, 64), (136, 96)])
+def test_fused_ffn_matches_plain(cuda, m, hidden, filt):
+  """The fused FFN (_kernels.ffn) against the two products, bias, ReLU
+  and residual in torch, for float32 / bfloat16 weights in their own
+  compute dtype and int8 weights in both, with x in float32 and (a
+  bfloat16 run's FFN-only block) in bfloat16; H below the kernel's 288
+  and M off every tile."""
+  from deepconsensus_tpu_torch.ops import _kernels
+
+  gen = torch.Generator().manual_seed(m + hidden + filt)
+  cases = [(torch.float32, torch.float32, torch.float32),
+           (torch.float32, torch.bfloat16, torch.bfloat16),
+           (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+           (torch.float32, torch.int8, torch.float32),
+           (torch.float32, torch.int8, torch.bfloat16),
+           (torch.bfloat16, torch.int8, torch.bfloat16)]
+  for x_dt, w_dt, compute in cases:
+    x = torch.randn((m, hidden), generator=gen).to(device=cuda, dtype=x_dt)
+    wf, fs = (t if t is None else t.to(cuda) for t in _gemm_operands(
+        1, filt, hidden, x_dt, w_dt, gen)[1:])
+    wo, os_ = (t if t is None else t.to(cuda) for t in _gemm_operands(
+        1, hidden, filt, x_dt, w_dt, gen)[1:])
+    b_f = torch.randn((filt,), generator=gen).to(cuda)
+    b_o = torch.randn((hidden,), generator=gen).to(cuda)
+    alpha = torch.rand((1,), generator=gen).to(cuda)
+    qf = wf if fs is None else fwa.QuantizedWeight(wf, fs)
+    qo = wo if os_ is None else fwa.QuantizedWeight(wo, os_)
+    h = torch.relu(fwa.matmul_plain(x.float(), qf) + b_f)
+    want = (x.float() + alpha * (fwa.matmul_plain(h, qo) + b_o)).to(compute)
+    out = torch.empty((m, hidden), dtype=compute, device=cuda)
+    _kernels.ffn(x, wf, wo, out, b_filter=b_f, b_output=b_o, alpha=alpha,
+                 compute_dtype=compute, filter_scale=fs, output_scale=os_)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out.float(), want.float(), rtol=TOL[compute], atol=TOL[compute],
+        msg=lambda e: f'{x_dt} x {w_dt}, {compute}: {e}')
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('int8', [False, True])
+@pytest.mark.parametrize('with_lengths', [False, True])
+def test_k2_ffn_block_matches_plain(cuda, dtype, int8, with_lengths):
+  """K2's FFN-only (layer-0 remainder) block, now one fused launch,
+  against encoder_block_plain's FFN half, float and int8 weights, with
+  and without ragged lengths (position-wise: the same arithmetic)."""
+  name = str(dtype).replace('torch.', '')
+  params = small_params(name)
+  params.filter_size = 2048
+  model = int8_model(params, cuda) if int8 else seeded_model(params, cuda)
+  block = model.encoder.kernel_blocks()[0]
+  assert block.wq is None
+  length = 200 if with_lengths else 100
+  b = 37
+  gen = torch.Generator().manual_seed(length + int8)
+  x = torch.randn((b, length, params.hidden_size), generator=gen).to(
+      device=cuda, dtype=dtype)
+  lengths = None
+  if with_lengths:
+    widths = ([[100, 100], [200, 0], [100, 0], [0, 0]] * b)[:b]
+    lengths = torch.tensor(widths, dtype=torch.int32, device=cuda)
+  kw = dict(num_heads=params.num_heads, attn_win_size=params.attn_win_size,
+            compute_dtype=dtype, lengths=lengths)
+  got = feb.fused_encoder_stack(x, [block], **kw)
+  want = feb.fused_encoder_stack_plain(x, [block], **kw)
+  torch.cuda.synchronize()
+  torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_gemm_and_ffn_reject_bad_shapes(cuda):
+  from deepconsensus_tpu_torch.ops import _kernels
+
+  a = torch.zeros((4, 12), device=cuda)
+  with pytest.raises(ValueError, match='multiples of 8'):
+    _kernels.gemm(a, torch.zeros((12, 8), device=cuda),
+                  torch.empty((4, 8), device=cuda))
+  x = torch.zeros((4, 296), device=cuda)
+  kw = dict(b_filter=torch.zeros(64, device=cuda),
+            b_output=torch.zeros(296, device=cuda),
+            alpha=torch.zeros(1, device=cuda), compute_dtype=torch.float32)
+  with pytest.raises(ValueError, match='H <= 288'):
+    _kernels.ffn(x, torch.zeros((296, 64), device=cuda),
+                 torch.zeros((64, 296), device=cuda), torch.empty_like(x),
+                 **kw)
+  x = torch.zeros((4, 280), device=cuda)
+  with pytest.raises(ValueError, match='scales'):
+    _kernels.ffn(x, torch.zeros((280, 64), dtype=torch.int8, device=cuda),
+                 torch.zeros((64, 280), dtype=torch.int8, device=cuda),
+                 torch.empty_like(x),
+                 **{**kw, 'b_output': torch.zeros(280, device=cuda)})
+
+
 def test_wrapper_rejects_bad_input(cuda):
   with pytest.raises(ValueError, match='float32'):
     output_plane.phred_epilogue(torch.zeros(2, 3, 5, device=cuda,
