@@ -339,7 +339,7 @@ struct GemmTile {
 template <typename TA, int AP, typename TB, int BP>
 __global__ void __launch_bounds__(256, sizeof(TB) == 4 || AP == 3 ? 1 : 2)
     mma_gemm_kernel(const TA* __restrict__ a, const TB* __restrict__ b, int M,
-                    int N, int K, Epilogue ep) {
+                    int N, int K, int m_begin, Epilogue ep) {
   using T = GemmTile<TA, TB>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
@@ -348,7 +348,7 @@ __global__ void __launch_bounds__(256, sizeof(TB) == 4 || AP == 3 ? 1 : 2)
   const int wm = warp >> 1;
   const int wn = warp & 1;
   const int n0 = blockIdx.x * T::kBN;
-  const int m0 = blockIdx.y * T::kBM;
+  const int m0 = m_begin + blockIdx.y * T::kBM;
   const int k_tiles = (K + T::kBK - 1) / T::kBK;
 
   auto stage_a = [&](int s) {
@@ -428,9 +428,21 @@ inline cudaError_t launch_mma_gemm(const TA* a, const TB* b, int M, int N,
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + T::kBN - 1) / T::kBN, (M + T::kBM - 1) / T::kBM);
-  kernel<<<grid, T::kThreads, T::kSmem, stream>>>(a, b, M, N, K, ep);
-  return cudaGetLastError();
+  // The column tiles of a row tile are neighbours in the grid (x), so
+  // they run together and A comes from device memory about once; y holds
+  // at most 65,535 row tiles, so a longer A takes several launches.
+  constexpr int kMaxRowTiles = 65535;
+  const int row_tiles = (M + T::kBM - 1) / T::kBM;
+  for (int t0 = 0; t0 < row_tiles; t0 += kMaxRowTiles) {
+    const dim3 grid((N + T::kBN - 1) / T::kBN,
+                    row_tiles - t0 < kMaxRowTiles ? row_tiles - t0
+                                                  : kMaxRowTiles);
+    kernel<<<grid, T::kThreads, T::kSmem, stream>>>(a, b, M, N, K,
+                                                    t0 * T::kBM, ep);
+    const cudaError_t launched = cudaGetLastError();
+    if (launched != cudaSuccess) return launched;
+  }
+  return cudaSuccess;
 }
 
 // ------------------------------------------------------------------------
