@@ -537,6 +537,27 @@ def test_k2_ffn_block_matches_plain(cuda, dtype, int8, with_lengths):
   torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
 
 
+def test_gemm_past_65535_row_tiles(cuda):
+  """An A longer than gridDim.y's 65,535 tiles of 128 rows goes through
+  the GEMM in row slices; every row, in each slice and across the cut,
+  matches the plain product and its residual epilogue."""
+  from deepconsensus_tpu_torch.ops import _kernels
+
+  m = 65535 * 128 + 300
+  gen = torch.Generator(device=cuda).manual_seed(5)
+  a = torch.randn((m, 8), device=cuda, generator=gen).to(torch.bfloat16)
+  b = torch.randn((8, 8), device=cuda, generator=gen).to(torch.bfloat16)
+  res = torch.randn((m, 8), device=cuda, generator=gen)
+  alpha = torch.full((1,), 0.5, device=cuda)
+  out = torch.empty((m, 8), device=cuda)
+  _kernels.gemm(a, b, out, compute_dtype=torch.bfloat16, res=res,
+                alpha=alpha)
+  torch.cuda.synchronize()
+  want = res + alpha * fwa.matmul_plain(a.float(), b)
+  torch.testing.assert_close(out, want, rtol=TOL[torch.float32],
+                             atol=TOL[torch.float32])
+
+
 def test_gemm_and_ffn_reject_bad_shapes(cuda):
   from deepconsensus_tpu_torch.ops import _kernels
 
