@@ -383,6 +383,56 @@ def k2_stages(x, block, dt, heads: int, win: int, lengths=None) -> dict:
   return {name: cuda_ms(fn) for name, fn in stages.items()}
 
 
+def k1_stages(rows, tables, w_cond, wq, wk, wv, wo, pos, *, specs,
+              table_keys, num_heads, attn_win_size, compute_dtype,
+              lengths=None) -> dict:
+  """K1's (K4's, with lengths) launches timed one by one with CUDA
+  events (ms), on the inputs each gets in the wrapper: the per-call
+  preparation (the condenser's operands and the two GEMMs' weight
+  operands), the embedding-gather condenser, the q/k/v GEMM, the
+  attention core and the output GEMM. Timing launches: no launch
+  counter moves."""
+  import torch
+
+  from deepconsensus_tpu_torch.ops import _kernels
+  from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
+
+  dt = compute_dtype
+  b, _, length = rows.shape
+  h = w_cond.shape[1]
+  m, dev = b * length, rows.device
+
+  def prepare():
+    return (fwa.condense_operands(tables, w_cond, pos, specs=specs,
+                                  table_keys=table_keys, compute_dtype=dt),
+            fwa.gemm_operand((wq, wk, wv), dt), fwa.gemm_operand((wo,), dt))
+
+  ops, (wqkv, qkv_scale), (wo_v, wo_scale) = prepare()
+  x = torch.empty((b, length, h), dtype=torch.float32, device=dev)
+  x_base = None if dt == torch.float32 else torch.empty_like(x, dtype=dt)
+  x2 = x.view(m, h)
+  qkv = torch.empty((m, 3 * h), dtype=torch.float32, device=dev)
+  o = torch.empty((m, h), dtype=torch.float32, device=dev)
+  out = torch.empty((m, h), dtype=dt, device=dev)
+  win = length - 1 if attn_win_size is None else int(attn_win_size)
+  stages = {
+      'condense_ms': lambda: fwa.condense(rows, ops, x, x_base, lengths),
+      'qkv_gemm_ms': lambda: _kernels.gemm(
+          x2, wqkv, qkv, compute_dtype=dt, scale=(h // num_heads) ** -0.5,
+          scale_cols=h, col_scale=qkv_scale),
+      'attention_ms': lambda: _kernels.attention(
+          qkv, o, batch=b, length=length, num_heads=num_heads, win=win,
+          lengths=lengths),
+      'o_gemm_ms': lambda: _kernels.gemm(o, wo_v, out, compute_dtype=dt,
+                                         col_scale=wo_scale),
+      'prepare_ms': prepare,
+  }
+  for fn in stages.values():  # in order: each stage's inputs exist
+    fn()
+  torch.cuda.synchronize()
+  return {name: cuda_ms(fn) for name, fn in stages.items()}
+
+
 def check_kernels(dtype: str, device: str = 'cuda') -> dict:
   """Phase 2 for one dtype: each kernel vs its plain version."""
   import numpy as np
@@ -450,7 +500,7 @@ def check_kernels(dtype: str, device: str = 'cuda') -> dict:
       plain_ms=cuda_ms(lambda: fwa.fused_embed_condense_attention_plain(
           *k1_args, **k1_kw)),
       library_ms=cuda_ms(k1_library), bound_ms=t_bound, bound_by=by,
-      flops=flops, bytes=nbytes)
+      stages=k1_stages(*k1_args, **k1_kw), flops=flops, bytes=nbytes)
 
   # K2: a full block (attention + FFN) on realistic activations, and the
   # layer-0 FFN-only block.
@@ -616,6 +666,7 @@ def check_ragged_kernels(dtype: str, device: str = 'cuda') -> dict:
       plain_ms=cuda_ms(lambda: rwa.ragged_embed_condense_attention_plain(
           *k4_args, **k4_kw)),
       library_ms=cuda_ms(k4_library), bound_ms=t_bound, bound_by=by,
+      stages=k1_stages(rows, *k4_args[2:], **k4_kw, lengths=lengths),
       flops=flops, bytes=nbytes, pairs=pairs,
       valid_positions=int(valid.sum()))
 
@@ -2300,6 +2351,9 @@ def main(argv) -> int:
                    float32_stages=kernels['float32'][name]['stages'],
                    lengths_float32_stages=kernels['float32'][lname][
                        'stages'])
+    if name in ('K1', 'K4'):
+      entry.update(stages=r['stages'],
+                   float32_stages=kernels['float32'][name]['stages'])
     if name == 'K2_int8':
       entry.update(float32_bound_ms=kernels['float32'][name]['bound_ms'],
                    ffn_only_ms=r['ffn_only_ms'],

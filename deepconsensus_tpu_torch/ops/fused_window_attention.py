@@ -324,6 +324,38 @@ def fused_embed_condense_attention(
   return out
 
 
+class CondenseOperands(NamedTuple):
+  """What the condenser launch reads besides the rows, prepared per
+  call from the weights as they are then (no cache keyed on weights:
+  training and evaluate update them in place)."""
+
+  meta: torch.Tensor
+  tables: torch.Tensor
+  w_cond: torch.Tensor
+  pos: Optional[torch.Tensor]
+
+
+def condense_operands(tables, w_cond, pos, *, specs, table_keys,
+                      compute_dtype: torch.dtype) -> CondenseOperands:
+  """The per-call preparation of the condenser's operands."""
+  dt = compute_dtype
+  tabs = scaled_tables(tables, specs, table_keys, dt)
+  meta = _column_meta(specs, tuple(int(t.numel()) for t in tabs),
+                      w_cond.device)
+  flat_tables = torch.cat([t.reshape(-1) for t in tabs]).contiguous()
+  return CondenseOperands(meta, flat_tables, w_cond.to(dt).contiguous(),
+                          None if pos is None else pos.to(dt).contiguous())
+
+
+def condense(rows: torch.Tensor, ops: CondenseOperands, x: torch.Tensor,
+             x_base: Optional[torch.Tensor],
+             lengths: Optional[torch.Tensor] = None) -> None:
+  """The condenser launch: x [B, L, H] float32 (and x_base, bfloat16
+  runs) = embed(rows) @ w_cond + pos."""
+  _kernels.embed_condense(rows, ops.meta, ops.tables, ops.w_cond, ops.pos,
+                          x, x_base, lengths=lengths)
+
+
 def embed_condense_attend(
     rows, tables, w_cond, wq, wk, wv, wo, pos, *, specs, table_keys,
     num_heads, attn_win_size, compute_dtype: torch.dtype,
@@ -336,16 +368,12 @@ def embed_condense_attend(
   hidden = w_cond.shape[1]
   dt = compute_dtype
   dev = rows.device
-  tabs = scaled_tables(tables, specs, table_keys, dt)
-  meta = _column_meta(specs, tuple(int(t.numel()) for t in tabs), dev)
-  flat_tables = torch.cat([t.reshape(-1) for t in tabs]).contiguous()
-  rows32 = rows.to(torch.float32).contiguous()
-  pos_t = None if pos is None else pos.to(dt).contiguous()
+  ops = condense_operands(tables, w_cond, pos, specs=specs,
+                          table_keys=table_keys, compute_dtype=dt)
   x = torch.empty((b, length, hidden), dtype=torch.float32, device=dev)
   x_base = x if dt == torch.float32 else torch.empty_like(x, dtype=dt)
-  _kernels.embed_condense(
-      rows32, meta, flat_tables, w_cond.to(dt).contiguous(), pos_t, x,
-      None if dt == torch.float32 else x_base, lengths=lengths)
+  condense(rows.to(torch.float32).contiguous(), ops, x,
+           None if dt == torch.float32 else x_base, lengths=lengths)
   attn_out = torch.empty((b, length, hidden), dtype=dt, device=dev)
   project_attend(x.view(b * length, hidden), wq, wk, wv, wo,
                  attn_out.view(b * length, hidden), batch=b, length=length,
