@@ -7,8 +7,8 @@ Phases, in order; any failure exits non-zero (nothing is caught):
 
 1. Print the card's name and power limit, then build every CUDA kernel
    from csrc/ (one nvcc per source, all at once) and print nvcc's
-   register/spill/shared-memory report and the attention core's dynamic
-   shared memory at the ragged slot length.
+   register/spill/shared-memory report, the attention core's dynamic
+   shared memory at the ragged slot length and the condenser's.
 2. Hold each kernel against its plain PyTorch version on the card at
    its path's shapes, full width, in float32 (rtol = atol = 1e-4) and
    bfloat16 (rtol = atol = 2e-2; K3 exact), and time kernel, plain
@@ -26,7 +26,11 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    K2's PyTorch calls on the dequantized weights; for each full K2 and
    K2 int8 block (with and without lengths) its launches timed one by
    one (`stages`: q/k/v GEMM, attention core, output GEMM, fused FFN,
-   and the per-call weight operands); K11 (the alignment DP's forward, with and
+   and the per-call weight operands); K1 and K4 likewise (`stages`: the
+   tensor-core condenser, q/k/v GEMM, attention core, output GEMM, and
+   the per-call preparation of their operands); K3 also on the device
+   alone (200 calls replayed from one CUDA graph), beside its plain
+   version and `max` + `searchsorted`; K11 (the alignment DP's forward, with and
    without its rows) and K12 (its backward) at 256 x 100 x 100 float32
    costs, loss_reg 0.1, mixed lengths: scores rtol 1e-5 (atol 1e-4),
    gradients rtol 1e-4, atol 1e-5, plus each kernel's time at one batch
@@ -210,6 +214,33 @@ def cuda_ms(fn, iters=10, warmup=2) -> float:
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=200) -> float:
+  """Device time of one call of fn: `iters` calls captured in one CUDA
+  graph and replayed, so no per-call host cost is in it."""
+  import torch
+
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    for _ in range(3):
+      fn()
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    for _ in range(iters):
+      fn()
+  graph.replay()
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(5):
+    graph.replay()
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end) / (5 * iters)
 
 
 def bound(flops: float, nbytes: float, dtype: str):
@@ -404,7 +435,8 @@ def k1_stages(rows, tables, w_cond, wq, wk, wv, wo, pos, *, specs,
 
   def prepare():
     return (fwa.condense_operands(tables, w_cond, pos, specs=specs,
-                                  table_keys=table_keys, compute_dtype=dt),
+                                  table_keys=table_keys, compute_dtype=dt,
+                                  n_rows=rows.shape[1]),
             fwa.gemm_operand((wq, wk, wv), dt), fwa.gemm_operand((wo,), dt))
 
   ops, (wqkv, qkv_scale), (wo_v, wo_scale) = prepare()
@@ -583,13 +615,22 @@ def check_kernels(dtype: str, device: str = 'cuda') -> dict:
     mx, ids = preds.max(-1)
     return ids, torch.searchsorted(thr_dev, mx, right=True)
 
+  # A launch of either takes a few microseconds: many calls in a row, so
+  # that the host's per-call cost, not the clock's noise, is what counts.
   t_bound, _ = bound(m * (5 + len(thr)), nbytes, 'float32')
+  many = dict(iters=200, warmup=20)
   out['K3'] = dict(
       max_abs_err=0.0,
-      ms=cuda_ms(lambda: output_plane.phred_epilogue(preds, thr_dev)),
+      ms=cuda_ms(lambda: output_plane.phred_epilogue(preds, thr_dev), **many),
       plain_ms=cuda_ms(
+          lambda: output_plane.phred_epilogue_plain(preds, thr_dev), **many),
+      library_ms=cuda_ms(k3_library, **many), bound_ms=t_bound,
+      bound_by='bytes',
+      # The same three on the device alone (host cost excluded).
+      device_ms=graph_ms(lambda: output_plane.phred_epilogue(preds, thr_dev)),
+      plain_device_ms=graph_ms(
           lambda: output_plane.phred_epilogue_plain(preds, thr_dev)),
-      library_ms=cuda_ms(k3_library), bound_ms=t_bound, bound_by='bytes',
+      library_device_ms=graph_ms(k3_library),
       flops=m * (5 + len(thr)), bytes=nbytes)
   return out
 
@@ -2014,6 +2055,7 @@ def main(argv) -> int:
   from deepconsensus_tpu_torch.models import weights as weights_lib
   from deepconsensus_tpu_torch.ops import _build
   from deepconsensus_tpu_torch.ops import _kernels
+  from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
   from deepconsensus_tpu_torch.testing import synthetic
 
   t0 = time.perf_counter()
@@ -2026,6 +2068,10 @@ def main(argv) -> int:
         if 'registers' in line or 'spill' in line or 'smem' in line:
           print(f'ptxas {name}: {line.strip()}')
   p = make_params('float32')
+  specs, keys, cond_in = fwa.build_family_specs(p)
+  layout = fwa.condense_layout(specs, tuple(
+      next(sp.vocab * sp.width for sp in specs if sp.table_idx == i)
+      for i in range(len(keys))), p.total_rows)
   print(json.dumps({
       'phase': 'attention_smem', 'block_limit_bytes': 232448,
       'dynamic_smem_bytes': {
@@ -2035,7 +2081,12 @@ def main(argv) -> int:
       # K8-K10's tiles: one size for every L and band.
       'flash_smem_bytes': _build.load(
           'flash_band_attention').dc_flash_band_smem_bytes(
-              p.hidden_size // p.num_heads)}), flush=True)
+              p.hidden_size // p.num_heads),
+      # K1/K4's condenser at the main path's tables, rows and K.
+      'condense_smem_bytes': {
+          dtype: _kernels.embed_condense_smem_bytes(
+              fwa.resolve_dtype(dtype), layout.entries, p.total_rows,
+              cond_in) for dtype in ('bfloat16', 'float32')}}), flush=True)
 
   kernels = {}
   for dtype in ('float32', 'bfloat16'):
@@ -2354,6 +2405,9 @@ def main(argv) -> int:
     if name in ('K1', 'K4'):
       entry.update(stages=r['stages'],
                    float32_stages=kernels['float32'][name]['stages'])
+    if name == 'K3':
+      entry.update({k: r[k] for k in ('device_ms', 'plain_device_ms',
+                                      'library_device_ms')})
     if name == 'K2_int8':
       entry.update(float32_bound_ms=kernels['float32'][name]['bound_ms'],
                    ffn_only_ms=r['ffn_only_ms'],

@@ -1,7 +1,7 @@
-// The fused GEMM epilogue shared by the port's two GEMM main loops:
-// tiled_gemm.cuh (K1's and K4's embedding-gather condenser) and
+// The fused GEMM epilogue shared by the port's tensor-core main loops:
 // mma_gemm.cuh (every dense product: K1's, K2's and K4's projections
-// and K2's FFN).
+// and K2's FFN) and embed_condense.cu (K1's and K4's embedding-gather
+// condenser).
 #pragma once
 
 #include <cuda_bf16.h>

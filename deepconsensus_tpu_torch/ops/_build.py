@@ -35,8 +35,13 @@ SIGNATURES = {
                          _I, _P, _I, _P, _P, _I, _P)},
     'ffn': {'dc_ffn': (_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                        _P, _P, _P, _I, _P)},
-    'embed_condense': {'dc_embed_condense': (_P, _I, _I, _P, _P, _P, _P, _I,
-                                             _I, _I, _I, _P, _P, _P, _I, _P)},
+    'embed_condense': {
+        'dc_embed_condense': (_P, _I, _I, _P, _I, ctypes.POINTER(_P),
+                              ctypes.POINTER(_I), ctypes.POINTER(_F),
+                              ctypes.POINTER(_I), ctypes.POINTER(_I), _I, _P,
+                              _I, _P, _I, _I, _I, _P, _P, _P, _I, _P),
+        'dc_embed_condense_smem_bytes': (_I, _I, _I, _I),
+    },
     'ragged_attention': {
         'dc_attention': (_P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
         'dc_attention_smem_bytes': (_I, _I, _I, _I),
@@ -150,6 +155,11 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 def stream_ptr(device) -> ctypes.c_void_p:
+  """The device's current CUDA stream, as the raw handle a launch takes
+  (torch.cuda.current_stream would build a Stream object around it on
+  every launch)."""
   import torch
 
-  return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+  index = device.index if device.index is not None else (
+      torch.cuda.current_device())
+  return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))

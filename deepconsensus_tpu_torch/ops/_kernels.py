@@ -8,7 +8,8 @@ on the K1/K2/K3 wrappers, not here.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -174,38 +175,88 @@ def _check_lengths(lengths: Optional[torch.Tensor], batch: int) -> int:
   return int(lengths.shape[1])
 
 
+# The condenser's limits (csrc/embed_condense.cu): one block owns all
+# N <= 288 columns; at most 8 tables, staged in shared memory; at most
+# 128 pileup rows (32 a thread).
+CONDENSE_MAX_HIDDEN = 288
+CONDENSE_MAX_TABLES = 8
+CONDENSE_MAX_ROWS = 128
+SMEM_LIMIT = 232448
+
+
+def embed_condense_smem_bytes(compute_dtype: torch.dtype, entries: int,
+                              n_rows: int, k: int) -> int:
+  """Dynamic shared memory one condenser block asks for."""
+  return int(_build.load('embed_condense').dc_embed_condense_smem_bytes(
+      int(compute_dtype == torch.bfloat16), entries, n_rows, k))
+
+
 def embed_condense(rows: torch.Tensor, meta: torch.Tensor,
-                   tables: torch.Tensor, w_cond: torch.Tensor,
-                   pos: Optional[torch.Tensor], x_f32: torch.Tensor,
-                   x_base_bf16: Optional[torch.Tensor],
+                   tables: Sequence[torch.Tensor],
+                   table_scales: Sequence[float],
+                   table_bases: Sequence[int], entries: int,
+                   w_cond: torch.Tensor, pos: Optional[torch.Tensor],
+                   x_f32: torch.Tensor, x_base_bf16: Optional[torch.Tensor],
                    lengths: Optional[torch.Tensor] = None) -> None:
-  """x[b, l] = embed(rows[b, :, l]) @ w_cond + pos[l]
-  (csrc/embed_condense.cu); rows [B, R, L] f32 raw pileup values, meta
-  [5, K] int32 column map, tables the flat scaled embedding tables.
-  With lengths (ragged slots) the position add is pos[l - start(l)] on
-  positions inside a window and nothing elsewhere."""
+  """x[b, l] = embed(rows[b, :, l]) @ w_cond + pos[l] on the tensor
+  cores (csrc/embed_condense.cu). rows [B, R, L] float32 raw pileup
+  values; meta the int32 row and column map
+  (fused_window_attention.condense_layout); tables float32 or bfloat16,
+  unscaled, staged at table_bases in planes of `entries` values and
+  scaled there by table_scales (sqrt(width) in the compute dtype);
+  w_cond [K, N] in the compute dtype, which also sets the pieces
+  (split_pieces); pos [L, N] in the compute dtype or None. With lengths
+  (ragged slots) the position add is pos[l - start(l)] on positions
+  inside a window and nothing elsewhere."""
   b, r, length = rows.shape
   wps = _check_lengths(lengths, b)
   k, n = w_cond.shape
   _check(rows, 'rows', (torch.float32,))
   _check(meta, 'meta', (torch.int32,))
   is_bf16 = _check(w_cond, 'w_cond')
-  if _check(tables, 'tables') != is_bf16:
-    raise ValueError('tables and w_cond must share the compute dtype')
+  dt = w_cond.dtype
   if pos is not None and (_check(pos, 'pos') != is_bf16
                           or tuple(pos.shape) != (length, n)):
     raise ValueError('pos must be [L, H] in the compute dtype')
-  if tuple(meta.shape) != (5, k):
-    raise ValueError(f'meta shape {tuple(meta.shape)}, want {(5, k)}')
+  if meta.numel() != 4 * r + k + k // 8:
+    raise ValueError(f'meta has {meta.numel()} values, want '
+                     f'{4 * r + k + k // 8} for R = {r}, K = {k}')
+  n_tables = len(tables)
+  if not 1 <= n_tables <= CONDENSE_MAX_TABLES or not (
+      len(table_scales) == len(table_bases) == n_tables):
+    raise ValueError(f'{n_tables} tables (at most {CONDENSE_MAX_TABLES}), '
+                     f'{len(table_scales)} scales, {len(table_bases)} bases')
+  flags = [_check(t, f'table {i}') for i, t in enumerate(tables)]
+  if r > CONDENSE_MAX_ROWS:
+    raise ValueError(f'the condenser takes at most {CONDENSE_MAX_ROWS} '
+                     f'pileup rows, got {r}')
+  if k % 8 or n % 8 or n > CONDENSE_MAX_HIDDEN:
+    raise ValueError(f'condenser K = {k} and N = {n} must be multiples of 8, '
+                     f'N <= {CONDENSE_MAX_HIDDEN}')
+  if entries % 8 or entries > 32768 or any(
+      base + t.numel() > entries for base, t in zip(table_bases, tables)):
+    raise ValueError(f'tables do not fit {entries} staged entries')
+  smem = embed_condense_smem_bytes(dt, entries, r, k)
+  if smem > SMEM_LIMIT:
+    raise ValueError(
+        f'the condenser needs {smem} bytes of shared memory for {entries} '
+        f'table entries, R = {r}, K = {k} in {dt}; a block has {SMEM_LIMIT}')
   _check(x_f32, 'x_f32', (torch.float32,))
   if tuple(x_f32.shape) != (b, length, n):
     raise ValueError(f'x shape {tuple(x_f32.shape)}, want {(b, length, n)}')
   if x_base_bf16 is not None:
     _check(x_base_bf16, 'x_base', (torch.bfloat16,))
+    if tuple(x_base_bf16.shape) != (b, length, n):
+      raise ValueError(f'x_base shape {tuple(x_base_bf16.shape)}')
+  ptrs = (ctypes.c_void_p * n_tables)(*[t.data_ptr() for t in tables])
   lib = _build.load('embed_condense')
   _build.check(lib.dc_embed_condense(
-      _build.ptr(rows), r, length, _build.ptr(meta), _build.ptr(tables),
-      _build.ptr(w_cond), _build.ptr(pos), is_bf16, b * length, n, k,
+      _build.ptr(rows), r, length, _build.ptr(meta), n_tables, ptrs,
+      (ctypes.c_int * n_tables)(*flags),
+      (ctypes.c_float * n_tables)(*table_scales),
+      (ctypes.c_int * n_tables)(*table_bases),
+      (ctypes.c_int * n_tables)(*[t.numel() for t in tables]), entries,
+      _build.ptr(w_cond), is_bf16, _build.ptr(pos), b * length, n, k,
       _build.ptr(x_f32), _build.ptr(x_base_bf16), _build.ptr(lengths), wps,
       _build.stream_ptr(rows.device)), 'embed_condense')
 

@@ -7,14 +7,15 @@ attn_out) [B, L, H] in the compute dtype out; the caller applies the
 ReZero residual x_base + alpha * attn_out.
 
 On a CUDA tensor the wrapper launches the repository's kernels, four
-in order: the embedding-gather condenser GEMM (csrc/embed_condense.cu,
-which also adds pos and writes x in float32 and the compute dtype), the
-fused q/k/v projection with the q scale in its epilogue (csrc/gemm.cu),
-the banded attention core (csrc/ragged_attention.cu) and the output
-projection (csrc/gemm.cu). K4 (ops/ragged_window_attention.py) runs the
-same four with a lengths vector (`embed_condense_attend`). Every
-intermediate is float32, as inside the TPU kernel; the tables'
-sqrt(width) scale is folded in at the compute dtype, as there. On a CPU
+in order: the embedding-gather condenser on the tensor cores
+(csrc/embed_condense.cu: it stages the tables, scaled by sqrt(width) at
+the compute dtype as the TPU kernel folds them, in shared memory, adds
+pos and writes x in float32 and the compute dtype), the fused q/k/v
+projection with the q scale in its epilogue (csrc/gemm.cu), the banded
+attention core (csrc/ragged_attention.cu) and the output projection
+(csrc/gemm.cu). K4 (ops/ragged_window_attention.py) runs the same four
+with a lengths vector (`embed_condense_attend`). Every intermediate is
+float32, as inside the TPU kernel. On a CPU
 tensor it runs `fused_embed_condense_attention_plain`, which mirrors
 the reference's arithmetic with a gather in place of the one-hot
 product (the same values).
@@ -254,20 +255,60 @@ def fused_embed_condense_attention_plain(
   return x.to(dt), out.to(dt)
 
 
-@functools.lru_cache(maxsize=8)
-def _column_meta(specs: Tuple[FamilySpec, ...], table_sizes: Tuple[int, ...],
-                 device: torch.device) -> torch.Tensor:
-  """[5, cond_in] int32 map from condenser input column to (pileup row,
-  flat table offset, largest id, id shift, width)."""
-  bases = np.concatenate([[0], np.cumsum(table_sizes)[:-1]]).astype(np.int64)
+class CondenseLayout(NamedTuple):
+  """Where the condenser kernel stages each table in shared memory and
+  how it maps pileup rows and condenser columns onto them
+  (csrc/embed_condense.cu). A function of the family specs and shapes
+  only, never of the weights' values."""
+
+  meta: np.ndarray  # int32 [4 R + K + K / 8]
+  bases: Tuple[int, ...]  # staged offset of each table's first entry
+  entries: int  # staged entries per plane, a multiple of 8
+
+
+def _round8(n: int) -> int:
+  return -(-n // 8) * 8
+
+
+@functools.lru_cache(maxsize=16)
+def condense_layout(specs: Tuple[FamilySpec, ...],
+                    table_sizes: Tuple[int, ...], n_rows: int
+                    ) -> CondenseLayout:
+  """The staged tables: a zero region (as wide as the widest family,
+  where id 0 points) and then each table (table_sizes[i] entries) at an
+  offset that is a multiple of 8. meta: per pileup row (shift, largest
+  id, table base, width; zeros for a row of no family), per condenser
+  column (row | element << 16), and per group of eight columns
+  (row | element0 << 16 | 1 << 31 when the eight are one row's elements
+  element0 .. element0 + 7 at a 16-byte aligned staged offset, else 0)."""
+  bases = []
+  end = _round8(max(s.width for s in specs))
+  for size in table_sizes:
+    bases.append(end)
+    end = _round8(end + size)
+  rows = np.zeros((n_rows, 4), np.int64)
   cols = []
   for spec in specs:
-    for r in range(spec.n_rows):
-      for e in range(spec.width):
-        cols.append((spec.row_start + r, bases[spec.table_idx] + e,
-                     spec.vocab - 1, spec.shift, spec.width))
-  meta = np.ascontiguousarray(np.asarray(cols, np.int32).T)
-  return torch.from_numpy(meta).to(device)
+    base = bases[spec.table_idx]
+    for r in range(spec.row_start, spec.row_start + spec.n_rows):
+      rows[r] = (spec.shift, spec.vocab - 1, base, spec.width)
+      cols.extend((r, e, spec.width % 8 == 0) for e in range(spec.width))
+  groups = []
+  for g in range(0, len(cols) - len(cols) % 8, 8):
+    r0, e0, aligned = cols[g]
+    whole = all(cols[g + j][:2] == (r0, e0 + j) for j in range(8))
+    groups.append(r0 | e0 << 16 | 1 << 31 if whole and aligned
+                  and e0 % 8 == 0 else 0)
+  meta = np.concatenate([
+      rows.reshape(-1), [r | e << 16 for r, e, _ in cols], groups])
+  return CondenseLayout(meta.astype(np.uint32).view(np.int32),
+                        tuple(bases), end)
+
+
+@functools.lru_cache(maxsize=16)
+def _table_scale(width: int, dtype: torch.dtype) -> float:
+  """sqrt(width) in the compute dtype, as scaled_tables multiplies."""
+  return float(torch.tensor(width ** 0.5, dtype=dtype))
 
 
 def fused_embed_condense_attention(
@@ -325,25 +366,48 @@ def fused_embed_condense_attention(
 
 
 class CondenseOperands(NamedTuple):
-  """What the condenser launch reads besides the rows, prepared per
-  call from the weights as they are then (no cache keyed on weights:
-  training and evaluate update them in place)."""
+  """What the condenser launch reads besides the rows, gathered per call
+  from the weights as they are then: the kernel scales the tables
+  itself, so nothing here copies them (and nothing caches them: training
+  and evaluate update them in place)."""
 
   meta: torch.Tensor
-  tables: torch.Tensor
+  tables: Tuple[torch.Tensor, ...]
+  scales: Tuple[float, ...]
+  bases: Tuple[int, ...]
+  entries: int
   w_cond: torch.Tensor
   pos: Optional[torch.Tensor]
 
 
+@functools.lru_cache(maxsize=16)
+def _device_meta(specs: Tuple[FamilySpec, ...], table_sizes: Tuple[int, ...],
+                 n_rows: int, device: torch.device) -> torch.Tensor:
+  return torch.from_numpy(
+      condense_layout(specs, table_sizes, n_rows).meta).to(device)
+
+
 def condense_operands(tables, w_cond, pos, *, specs, table_keys,
-                      compute_dtype: torch.dtype) -> CondenseOperands:
-  """The per-call preparation of the condenser's operands."""
+                      compute_dtype: torch.dtype, n_rows: int
+                      ) -> CondenseOperands:
+  """The per-call preparation of the condenser's operands: the tables
+  as they are (unscaled, their own dtype), their layout, w_cond and pos
+  in the compute dtype."""
   dt = compute_dtype
-  tabs = scaled_tables(tables, specs, table_keys, dt)
-  meta = _column_meta(specs, tuple(int(t.numel()) for t in tabs),
-                      w_cond.device)
-  flat_tables = torch.cat([t.reshape(-1) for t in tabs]).contiguous()
-  return CondenseOperands(meta, flat_tables, w_cond.to(dt).contiguous(),
+  tabs = tuple(tables[key].contiguous() for key in table_keys)
+  for i, t in enumerate(tabs):
+    width = next(s.width for s in specs if s.table_idx == i)
+    if t.dim() != 2 or t.shape[1] != width:
+      raise ValueError(f'table {table_keys[i]} shape {tuple(t.shape)}, '
+                       f'want [vocab, {width}]')
+  sizes = tuple(int(t.numel()) for t in tabs)
+  layout = condense_layout(specs, sizes, n_rows)
+  meta = _device_meta(specs, sizes, n_rows, w_cond.device)
+  scales = tuple(_table_scale(next(s.width for s in specs
+                                   if s.table_idx == i), dt)
+                 for i in range(len(tabs)))
+  return CondenseOperands(meta, tabs, scales, layout.bases, layout.entries,
+                          w_cond.to(dt).contiguous(),
                           None if pos is None else pos.to(dt).contiguous())
 
 
@@ -352,8 +416,9 @@ def condense(rows: torch.Tensor, ops: CondenseOperands, x: torch.Tensor,
              lengths: Optional[torch.Tensor] = None) -> None:
   """The condenser launch: x [B, L, H] float32 (and x_base, bfloat16
   runs) = embed(rows) @ w_cond + pos."""
-  _kernels.embed_condense(rows, ops.meta, ops.tables, ops.w_cond, ops.pos,
-                          x, x_base, lengths=lengths)
+  _kernels.embed_condense(rows, ops.meta, ops.tables, ops.scales, ops.bases,
+                          ops.entries, ops.w_cond, ops.pos, x, x_base,
+                          lengths=lengths)
 
 
 def embed_condense_attend(
@@ -369,7 +434,8 @@ def embed_condense_attend(
   dt = compute_dtype
   dev = rows.device
   ops = condense_operands(tables, w_cond, pos, specs=specs,
-                          table_keys=table_keys, compute_dtype=dt)
+                          table_keys=table_keys, compute_dtype=dt,
+                          n_rows=rows.shape[1])
   x = torch.empty((b, length, hidden), dtype=torch.float32, device=dev)
   x_base = x if dt == torch.float32 else torch.empty_like(x, dtype=dt)
   condense(rows.to(torch.float32).contiguous(), ops, x,

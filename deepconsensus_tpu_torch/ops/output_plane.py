@@ -168,31 +168,42 @@ def phred_epilogue(
     preds: torch.Tensor, thresholds
 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """K3. preds [B, L, V] float32 softmax output; thresholds from
-  quality_thresholds (numpy or tensor, at most 255 values). A CPU
+  quality_thresholds (numpy or tensor, at most 255 values), which must
+  be non-decreasing: the kernel counts them by binary search. A numpy
+  table that is not is refused; a tensor's order is the caller's
+  promise (checking it on the card would wait for the card). A CPU
   tensor runs the plain version; a CUDA tensor launches the kernel."""
   global n_launches
   if not isinstance(thresholds, torch.Tensor):
-    thresholds = torch.from_numpy(np.asarray(thresholds, np.float32))
-  thr = thresholds.to(device=preds.device, dtype=torch.float32)
+    thr_np = np.asarray(thresholds, np.float32)
+    if np.isnan(thr_np).any() or (np.diff(thr_np) < 0).any():
+      raise ValueError('thresholds must be non-decreasing (and not NaN)')
+    thresholds = torch.from_numpy(thr_np)
   if preds.dim() != 3 or preds.dtype != torch.float32:
     raise ValueError(
         f'preds must be [B, L, V] float32, got {tuple(preds.shape)} '
         f'{preds.dtype}')
-  if thr.numel() > MAX_DEVICE_QUALITY:
-    raise ValueError(f'{thr.numel()} thresholds exceed the uint8 plane')
-  if preds.device.type == 'cpu':
-    return phred_epilogue_plain(preds, thr)
-  if preds.device.type != 'cuda':
-    raise ValueError(f'unsupported device {preds.device}')
-  preds = preds.contiguous()
-  thr = thr.contiguous()
+  if thresholds.numel() > MAX_DEVICE_QUALITY:
+    raise ValueError(
+        f'{thresholds.numel()} thresholds exceed the uint8 plane')
+  dev = preds.device
+  if dev.type == 'cpu':
+    return phred_epilogue_plain(
+        preds, thresholds.to(device=dev, dtype=torch.float32))
+  if dev.type != 'cuda':
+    raise ValueError(f'unsupported device {dev}')
+  thr = thresholds
+  if (thr.device != dev or thr.dtype != torch.float32
+      or not thr.is_contiguous()):
+    thr = thr.to(device=dev, dtype=torch.float32).contiguous()
+  if not preds.is_contiguous():
+    preds = preds.contiguous()
   b, length, vocab = preds.shape
-  ids = torch.empty((b, length), dtype=torch.uint8, device=preds.device)
-  quals = torch.empty((b, length), dtype=torch.uint8, device=preds.device)
-  lib = _build.load('phred_epilogue')
-  _build.check(lib.dc_phred_epilogue(
-      _build.ptr(preds), b * length, vocab, _build.ptr(thr), thr.numel(),
-      _build.ptr(ids), _build.ptr(quals), _build.stream_ptr(preds.device)),
-      'phred_epilogue')
+  n = b * length
+  out = torch.empty((2, b, length), dtype=torch.uint8, device=dev)
+  planes = out.data_ptr()
+  _build.check(_build.load('phred_epilogue').dc_phred_epilogue(
+      preds.data_ptr(), n, vocab, thr.data_ptr(), thr.numel(), planes,
+      planes + n, _build.stream_ptr(dev)), 'phred_epilogue')
   n_launches += 1
-  return ids, quals
+  return out.unbind(0)

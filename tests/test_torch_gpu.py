@@ -159,6 +159,166 @@ def test_phred_epilogue_exact(cuda):
     assert torch.equal(g, w)
 
 
+def condenser_inputs(use_ccs_bq, dtype, batch, length, device, seed=0):
+  """K1's inputs at full condenser width (85 or 86 rows, 560 or 568 ->
+  280) from a seed: tables float32, or bfloat16 in bfloat16 runs with
+  ccs_bq (the kernel reads either and rounds to the compute dtype),
+  weights float32, pos in the compute dtype."""
+  params = config.get_config(
+      'transformer_learn_values+' + ('test_bq' if use_ccs_bq else 'test'))
+  config.finalize_params(params, max_length=max(length, 1))
+  specs, keys, cond_in = fwa.build_family_specs(params)
+  gen = torch.Generator().manual_seed(seed)
+  tab_dt = (torch.bfloat16 if use_ccs_bq and dtype == torch.bfloat16
+            else torch.float32)
+  tables = {k: (0.5 * torch.randn((
+      next(s.vocab for s in specs if s.table_idx == i),
+      next(s.width for s in specs if s.table_idx == i)), generator=gen))
+            .to(device=device, dtype=tab_dt) for i, k in enumerate(keys)}
+  h = params.hidden_size
+  w = [(0.05 * torch.randn(shape, generator=gen)).to(device)
+       for shape in [(cond_in, h)] + [(h, h)] * 4]
+  pos = torch.randn((length, h), generator=gen).to(device=device,
+                                                     dtype=dtype)
+  rows = fake_rows(params, batch, seed, length=length)
+  rows[:, :, ::7] = -1.5  # negative and fractional ids
+  rows[:, -1, 1::5] = 1e4  # past the vocabulary
+  kw = dict(specs=specs, table_keys=keys, num_heads=params.num_heads,
+            attn_win_size=params.attn_win_size, compute_dtype=dtype)
+  return params, rows.to(device), tables, w, pos, kw
+
+
+@pytest.mark.parametrize('use_ccs_bq', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('length', [1, 60, 100, 128])
+@pytest.mark.parametrize('batch', [1, 3, 37])
+def test_k1_condenser_matches_plain(cuda, batch, length, dtype, use_ccs_bq):
+  """K1 (its tensor-core condenser, then the projections and the
+  attention core) against its plain version: 64-token tiles that
+  straddle windows (L = 60, 100), a tile past the last token (B = 1),
+  K's masked tail (560 / 568 in chunks of 32), edge ids."""
+  _, rows, tables, w, pos, kw = condenser_inputs(use_ccs_bq, dtype, batch,
+                                                 length, cuda)
+  before = fwa.n_launches
+  got = fwa.fused_embed_condense_attention(rows, tables, *w, pos, **kw)
+  want = fwa.fused_embed_condense_attention_plain(rows, tables, *w, pos,
+                                                  **kw)
+  assert fwa.n_launches == before + 1
+  for g, p in zip(got, want):
+    assert g.dtype == dtype and torch.isfinite(g.float()).all()
+    torch.testing.assert_close(g.float(), p.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize('use_ccs_bq', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('slot', [60, 100, 128])
+@pytest.mark.parametrize('batch', [1, 3, 37])
+def test_k4_condenser_matches_plain(cuda, batch, slot, dtype, use_ccs_bq):
+  """K4 against its plain version on valid positions: slots holding one
+  window, two, a partial one or none, so ragged windows cross the
+  condenser's 64-token tiles at every offset."""
+  _, rows, tables, w, pos, kw = condenser_inputs(use_ccs_bq, dtype, batch,
+                                                 slot, cuda, seed=1)
+  shapes = [[slot, 0], [slot // 2, slot - slot // 2], [slot // 3, 0],
+            [0, 0], [slot // 4, slot // 2]]
+  lengths = torch.tensor([shapes[i % len(shapes)] for i in range(batch)],
+                         dtype=torch.int32, device=cuda)
+  valid = rwa.slot_geometry(lengths, slot)[3]
+  rows = rows * valid[:, None, :]
+  before = rwa.n_launches
+  got = rwa.ragged_embed_condense_attention(rows, lengths, tables, *w, pos,
+                                            **kw)
+  want = rwa.ragged_embed_condense_attention_plain(rows, lengths, tables,
+                                                   *w, pos, **kw)
+  assert rwa.n_launches == before + 1
+  for g, p in zip(got, want):
+    assert torch.isfinite(g.float()).all()
+    torch.testing.assert_close(g[valid].float(), p[valid].float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_condenser_rejects_what_it_cannot_stage(cuda):
+  """Tables past the int16 offsets / shared memory, and N past one
+  block's 288 columns, raise; nothing falls back."""
+  from deepconsensus_tpu_torch.ops import _kernels
+
+  _, rows, tables, w, pos, kw = condenser_inputs(False, torch.float32, 2,
+                                                 100, cuda)
+  big = dict(tables, sn=torch.zeros((5000, 8), device=cuda))
+  specs = tuple(s._replace(vocab=5000) if s.name == 'sn' else s
+                for s in kw['specs'])
+  with pytest.raises(ValueError, match='fit'):
+    fwa.fused_embed_condense_attention(rows, big, *w, pos,
+                                       **dict(kw, specs=specs))
+  x = torch.empty((2, 100, 296), device=cuda)
+  ops = fwa.condense_operands(tables, w[0], None, specs=kw['specs'],
+                              table_keys=kw['table_keys'],
+                              compute_dtype=torch.float32, n_rows=85)
+  with pytest.raises(ValueError, match='288'):
+    _kernels.embed_condense(rows, ops.meta, ops.tables, ops.scales,
+                            ops.bases, ops.entries,
+                            torch.zeros((560, 296), device=cuda), None, x,
+                            None)
+
+
+def k3_inputs(n_pos, vocab, n_thr, device, seed=0):
+  """[1, n_pos, vocab] softmax-like preds with five-way ties, pairs
+  tied at the max, NaN rows and probabilities on thresholds, and n_thr
+  non-decreasing thresholds (with repeats)."""
+  rng = np.random.default_rng(seed)
+  if n_thr == 93:
+    thr = output_plane.quality_thresholds(
+        calibration_lib.parse_calibration_string('skip'), 93)
+  else:
+    thr = np.sort(rng.uniform(0.1, 1.0, n_thr)).astype(np.float32)
+    if n_thr:
+      thr[n_thr // 2:n_thr // 2 + 3] = thr[n_thr // 2]
+  preds = rng.dirichlet(np.ones(vocab) * 0.3, (1, n_pos)).astype(np.float32)
+  preds[0, ::11] = 1.0 / vocab
+  if vocab > 2:
+    preds[0, 3::13, 1] = preds[0, 3::13, 2] = 0.45
+  preds[0, 5::17, vocab // 2] = np.nan
+  if n_thr:
+    on = preds[0, 7::19]
+    on[:, 0] = thr[rng.integers(0, n_thr, on.shape[0])]
+    preds[0, 7::19] = on
+  return (torch.from_numpy(preds).to(device), thr,
+          torch.from_numpy(thr).to(device))
+
+
+@pytest.mark.parametrize('n_thr', [0, 1, 93, 255])
+@pytest.mark.parametrize('n_pos', [1, 255, 257, 102403])
+def test_k3_binary_search_exact(cuda, n_pos, n_thr):
+  preds, thr_np, thr = k3_inputs(n_pos, 5, n_thr, cuda)
+  before = output_plane.n_launches
+  for table in (thr_np, thr):
+    got = output_plane.phred_epilogue(preds, table)
+    want = output_plane.phred_epilogue_plain(preds, thr)
+    for g, p in zip(got, want):
+      assert torch.equal(g, p)
+  assert output_plane.n_launches == before + 2
+
+
+@pytest.mark.parametrize('vocab', [1, 7, 50])
+def test_k3_any_vocab(cuda, vocab):
+  """Rows of any width stage through shared memory (50: one position a
+  thread and 51 KB of dynamic shared memory)."""
+  preds, _, thr = k3_inputs(3001, vocab, 93, cuda, seed=vocab)
+  got = output_plane.phred_epilogue(preds, thr)
+  want = output_plane.phred_epilogue_plain(preds, thr)
+  for g, p in zip(got, want):
+    assert torch.equal(g, p)
+
+
+def test_k3_refuses_unsorted_numpy_thresholds(cuda):
+  preds = torch.full((1, 4, 5), 0.2, device=cuda)
+  before = output_plane.n_launches
+  with pytest.raises(ValueError, match='non-decreasing'):
+    output_plane.phred_epilogue(preds, np.float32([0.3, 0.2]))
+  assert output_plane.n_launches == before
+
+
 def wavefront_costs(device, batch, m, n, seed):
   rng = np.random.default_rng(seed)
   lens = rng.integers(0, m + 1, batch).astype(np.int32)
