@@ -48,7 +48,19 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    yardsticks: scaled_dot_product_attention with the band as its mask
    (K5, K8) and its autograd backward (K6; K9 and K10 together), timed
    only; and K11/K12 once more at m = n = 200 (train_flash's DP),
-   untimed.
+   untimed. The attention core alone (csrc/ragged_attention.cu, which
+   K1, K2 and K4 launch) on a K2 block's q/k/v at 1,024 x 100 and at
+   512 x 200 with lengths, in both softmax dtypes, against its plain
+   version (float32 softmax 1e-4, bfloat16 2e-2), beside SDPA with the
+   band (and window) mask on the same q/k/v. The attn_softmax_dtype=
+   bfloat16 variant of K1, K2 (float and int8, with and without
+   lengths) and K4 on the same inputs, each against its plain version
+   at the bfloat16 tolerance in either compute dtype, with its `stages`:
+   the bf16 softmax rounds each logit, so where the two versions' float32
+   logits may round to neighbouring bf16 values and that step could move
+   the output by 1e-2 or more (bf16_flips), the position is set apart
+   (finite only); the max error everywhere, the share of elements beyond
+   1e-4 and the share set apart are printed.
 3. The paths, each with every kernel's launch count reset just before
    its run and read just after, in bfloat16 and float32, then float32
    again through the plain versions on the card; full-width seeded
@@ -89,7 +101,11 @@ Phases, in order; any failure exits non-zero (nothing is caught):
       through the plain versions;
    j. `evaluate`: `cli evaluate` on c's float32 checkpoint over c's 256
       eval examples, float32 and with --quantize_matmuls int8; and the
-      same on a's seeded weights (--weights/--params).
+      same on a's seeded weights (--weights/--params);
+   k. `softmax_bf16`: a's and b's `cli run` over params with
+      attn_softmax_dtype=bfloat16 (bfloat16, float32, float32 plain),
+      a's int8 run in float32 with it, and c's `cli train --set
+      attn_softmax_dtype=bfloat16` in float32 (the module route).
    Gates: each path's kernels launched (a: K1-K3, b: K4, K2, K3, c: K11
    once per step and eval batch, K12 once per step, no K5-K7; d: K7 and
    K6 once per layer and step, K5 once per layer and eval batch, K11
@@ -138,7 +154,16 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    printed beside a's. j: on the checkpoint and on the seeded weights,
    |int8 - float32| alignment_identity within INT8_IDENTITY_GATE and
    every metric finite; K1, K2 int8 and K11 on the checkpoint's int8
-   run (the float K2 on its float32 run); the CSV rows printed.
+   run (the float K2 on its float32 run); the CSV rows printed. k: one
+   read per ZMW; the variant's K1 or K4 once per pack, K2 once per
+   layer and pack, the core's variant once per K1/K4 and full K2 block,
+   K3 once per pack, the float32 softmax's never (the plain run: none);
+   float32 kernels vs plain with a's id and quality gates; ids agreeing
+   with the float32-softmax run of the same compute dtype on >= 98% of
+   delivered positions (the reference's bar for the lever); on the int8
+   run K2 int8's variant once per layer and pack, ids as that bar
+   against i's float32 run; on the train run every loss and gradient
+   norm finite and the first loss within 2% of c's float32 run's.
 4. Where a full-width train step's time goes, in bfloat16 and float32,
    and in bfloat16 with attention through K5-K7, with band_width 12 and
    with attention through K8-K10 at L = 200:
@@ -147,8 +172,9 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    under torch.profiler: the device's busy time (its kernels' time
    summed), the idle share of the unprofiled step, and the kernels that
    take most of it.
-5. A `{"kernels": [...]}` line (K1-K14 and K2_int8), the card line
-   again, and the last line `{"ok": true, "device": {...}}`.
+5. A `{"kernels": [...]}` line (K1-K14, K2_int8, the attention core and
+   the bf16-softmax variant of K1, K2, K2 int8, K4 and the core), the
+   card line again, and the last line `{"ok": true, "device": {...}}`.
 
 `--kernels-only` stops after phase 2 and prints no result (a first
 check of newly written kernels). Without a CUDA device, or away from the repository, it exits 2 and
@@ -361,7 +387,8 @@ def int8_k2_bytes(m: int, h: int, f: int, isz: int, extra: int = 0) -> int:
           + (4 * h + f + h + f + h + 2) * 4 + extra)
 
 
-def k2_stages(x, block, dt, heads: int, win: int, lengths=None) -> dict:
+def k2_stages(x, block, dt, heads: int, win: int, lengths=None,
+              softmax_dtype='float32') -> dict:
   """One K2 block's launches timed one by one with CUDA events (ms), on
   the inputs the block hands each: the q/k/v GEMM, the attention core,
   the output GEMM (with the attention residual), the fused FFN, and the
@@ -399,7 +426,8 @@ def k2_stages(x, block, dt, heads: int, win: int, lengths=None) -> dict:
           scale_cols=h, col_scale=qkv_scale),
       'attention_ms': lambda: _kernels.attention(
           qkv, o, batch=b, length=length, num_heads=heads, win=win,
-          lengths=lengths),
+          lengths=lengths,
+          softmax_dtype=fwa.resolve_softmax_dtype(softmax_dtype)),
       'o_gemm_ms': lambda: _kernels.gemm(
           o, wo, ffn_in, compute_dtype=dt, col_scale=wo_scale, res=x2,
           alpha=alpha_a),
@@ -416,7 +444,7 @@ def k2_stages(x, block, dt, heads: int, win: int, lengths=None) -> dict:
 
 def k1_stages(rows, tables, w_cond, wq, wk, wv, wo, pos, *, specs,
               table_keys, num_heads, attn_win_size, compute_dtype,
-              lengths=None) -> dict:
+              lengths=None, softmax_dtype='float32') -> dict:
   """K1's (K4's, with lengths) launches timed one by one with CUDA
   events (ms), on the inputs each gets in the wrapper: the per-call
   preparation (the condenser's operands and the two GEMMs' weight
@@ -454,7 +482,8 @@ def k1_stages(rows, tables, w_cond, wq, wk, wv, wo, pos, *, specs,
           scale_cols=h, col_scale=qkv_scale),
       'attention_ms': lambda: _kernels.attention(
           qkv, o, batch=b, length=length, num_heads=num_heads, win=win,
-          lengths=lengths),
+          lengths=lengths,
+          softmax_dtype=fwa.resolve_softmax_dtype(softmax_dtype)),
       'o_gemm_ms': lambda: _kernels.gemm(o, wo_v, out, compute_dtype=dt,
                                          col_scale=wo_scale),
       'prepare_ms': prepare,
@@ -463,6 +492,213 @@ def k1_stages(rows, tables, w_cond, wq, wk, wv, wo, pos, *, specs,
     fn()
   torch.cuda.synchronize()
   return {name: cuda_ms(fn) for name, fn in stages.items()}
+
+
+def _logits(qkv, batch: int, length: int, heads: int):
+  """(q k^T, |q| |k|^T) in float64, [B, heads, L, L], of a qkv [B*L, 3H]."""
+  import torch
+
+  hidden = qkv.shape[1] // 3
+  q, k = (t.double().reshape(batch, length, heads, hidden // heads)
+          for t in (qkv[:, :hidden], qkv[:, hidden:2 * hidden]))
+  return (torch.einsum('blnd,bmnd->bnlm', q, k),
+          torch.einsum('blnd,bmnd->bnlm', q.abs(), k.abs()))
+
+
+def bf16_flips(qkv_kernel, qkv_plain, *, batch: int, length: int,
+               heads: int, mask, threshold: float = TOL['bfloat16'] / 2):
+  """[B, L] bool: the positions whose output the bfloat16 softmax's own
+  discontinuity may move by `threshold` or more between two correct
+  versions. A logit is ambiguous when, computed exactly from each
+  version's own q and k (upstream float32 rounding differs: K1/K4's
+  condenser, the projections), the two round to different bf16 values,
+  or either lies within 2^-18 of sum_d |q_d k_d| of a bf16 rounding edge
+  (the float32 sums of one logit by the tensor cores and by a matmul
+  differ by up to ~2^-20 of that on the card). One bf16 step of a logit
+  moves its row's output by at most weight x (e^step - 1) x 2 max|v|; a
+  position is set apart when an ambiguous logit of its row, in any head,
+  may move it that far, or is the row's maximum (whose step shifts every
+  other logit's bf16(s - m)). mask: [B, L, L] or [L, L] bool, or None."""
+  import torch
+
+  bf = torch.bfloat16
+  hidden = qkv_plain.shape[1] // 3
+  sk, mk = _logits(qkv_kernel, batch, length, heads)
+  sp, mp = _logits(qkv_plain, batch, length, heads)
+  amb = sk.float().to(bf) != sp.float().to(bf)
+  for s, m in ((sk, mk), (sp, mp)):
+    d = m * 2.0 ** -18
+    amb |= (s - d).float().to(bf) != (s + d).float().to(bf)
+  full = torch.ones_like(amb) if mask is None else (
+      mask[:, None] if mask.dim() == 3 else mask).expand_as(amb)
+  sd = sp.float().to(bf).double().masked_fill(~full, -float('inf'))
+  step = torch.exp2(torch.floor(torch.log2(
+      sd.abs().clamp_min(2.0 ** -126))) - 7)
+  weight = torch.softmax(sd, dim=-1)
+  vmax = qkv_plain[:, 2 * hidden:].abs().reshape(
+      batch, length, heads, -1).amax(dim=(1, 3)).double()
+  effect = weight * torch.expm1(step) * 2 * vmax[:, :, None, None]
+  is_max = sd == sd.amax(dim=-1, keepdim=True)
+  flag = amb & full & ((effect >= threshold) | is_max)
+  return flag.any(-1).any(1)
+
+
+def variant_check(kernel, plain, keep=None) -> dict:
+  """The attn_softmax_dtype=bfloat16 variant, kernel() against its plain
+  version plain(): within the bfloat16 tolerance (in either compute
+  dtype) on every position a window holds (keep, [B, L] bool) whose
+  attention rows the two versions take through the same bf16 logits
+  (bf16_flips, from the q/k/v each version's attention core was handed,
+  recorded); the others must be finite. Returns the max error there and
+  everywhere, the share of elements beyond 1e-4 and the share of
+  positions set apart."""
+  import torch
+
+  from deepconsensus_tpu_torch.ops import _kernels
+  from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
+
+  kcalls, pcalls = [], []
+  attention, core = _kernels.attention, fwa.attention_core_plain
+
+  def rec_kernel(qkv, out, **kw):
+    kcalls.append(qkv.clone())
+    return attention(qkv, out, **kw)
+
+  def rec_plain(qkv, **kw):
+    pcalls.append((qkv, kw))
+    return core(qkv, **kw)
+
+  _kernels.attention, fwa.attention_core_plain = rec_kernel, rec_plain
+  try:
+    got, want = kernel(), plain()
+  finally:
+    _kernels.attention, fwa.attention_core_plain = attention, core
+  torch.cuda.synchronize()
+  got = got if isinstance(got, tuple) else (got,)
+  want = want if isinstance(want, tuple) else (want,)
+  if keep is None:
+    keep = torch.ones(got[0].shape[:2], dtype=torch.bool,
+                      device=got[0].device)
+  apart = torch.zeros_like(keep)
+  if len(kcalls) != len(pcalls):
+    raise AssertionError(f'{len(kcalls)} kernel attention calls, '
+                         f'{len(pcalls)} plain')
+  for qkv_k, (qkv_p, kw) in zip(kcalls, pcalls):
+    mask = kw.get('mask')
+    if mask is None:
+      mask = _band(kw['length'], kw['attn_win_size'], qkv_p.device)
+    apart |= bf16_flips(qkv_k, qkv_p, batch=kw['batch'],
+                        length=kw['length'], heads=kw['num_heads'],
+                        mask=mask)
+  inner = keep & ~apart
+  if not all(torch.isfinite(g[keep].float()).all() for g in got):
+    raise AssertionError('the bf16-softmax kernel wrote non-finite values')
+  err = max(max_err(g[inner], w[inner], TOL['bfloat16'])
+            for g, w in zip(got, want))
+  diffs = [(g[keep].float() - w[keep].float()).abs() for g, w in zip(got, want)]
+  return {'max_abs_err': err,
+          'max_abs_err_all': max(float(d.max()) for d in diffs),
+          'share_beyond_1e-4': sum(int((d > 1e-4).sum()) for d in diffs)
+          / sum(d.numel() for d in diffs),
+          'share_set_apart': float(apart[keep].float().mean())}
+
+
+def _band(length: int, win, device):
+  import torch
+
+  if win is None:
+    return None
+  i = torch.arange(length, device=device)
+  return (i[:, None] - i[None, :]).abs() <= win
+
+
+def core_entry(qkv, *, batch: int, length: int, heads: int, win: int,
+               softmax_dtype: str, lengths=None) -> dict:
+  """The attention core alone (csrc/ragged_attention.cu) on the q/k/v a
+  block's projection gives, against attention_core_plain on the
+  positions a window holds (float32 softmax 1e-4, bfloat16 2e-2, the
+  share beyond 1e-4 printed), timed beside SDPA with the band (and the
+  slots' window) mask on the same q/k/v. Bound: qkv read and o written
+  once, against the band's products at the float32 peak."""
+  import torch
+  import torch.nn.functional as F
+
+  from deepconsensus_tpu_torch.ops import _kernels
+  from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
+  from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
+
+  dev = qkv.device
+  hidden = qkv.shape[1] // 3
+  sdt = fwa.resolve_softmax_dtype(softmax_dtype)
+  out = torch.empty((batch * length, hidden), dtype=torch.float32,
+                    device=dev)
+
+  def kernel():
+    _kernels.attention(qkv, out, batch=batch, length=length,
+                       num_heads=heads, win=win, lengths=lengths,
+                       softmax_dtype=sdt)
+
+  if lengths is None:
+    i = torch.arange(length, device=dev)
+    mask = ((i[:, None] - i[None, :]).abs() <= win)[None].expand(
+        batch, length, length)
+    keep = torch.ones(batch * length, dtype=torch.bool, device=dev)
+  else:
+    mask = rwa.ragged_attention_mask(lengths, length, win)
+    keep = rwa.slot_geometry(lengths, length)[3].reshape(-1)
+
+  def plain():
+    return fwa.attention_core_plain(
+        qkv, batch=batch, length=length, num_heads=heads, attn_win_size=win,
+        mask=mask, softmax_dtype=sdt)
+
+  kernel()
+  want = plain()
+  torch.cuda.synchronize()
+  if sdt == torch.float32:
+    errs = {'max_abs_err': max_err(out[keep], want[keep], TOL['float32']),
+            'share_beyond_1e-4': float(
+                ((out[keep] - want[keep]).abs() > 1e-4).float().mean())}
+  else:
+    apart = bf16_flips(qkv, qkv, batch=batch, length=length, heads=heads,
+                       mask=mask).reshape(-1)
+    inner = keep & ~apart
+    diff = (out[keep] - want[keep]).abs()
+    errs = {'max_abs_err': max_err(out[inner], want[inner],
+                                   TOL['bfloat16']),
+            'max_abs_err_all': float(diff.max()),
+            'share_beyond_1e-4': float((diff > 1e-4).float().mean()),
+            'share_set_apart': float(apart[keep].float().mean())}
+  q, k, v = (t.reshape(batch, length, heads, hidden // heads).transpose(1, 2)
+             for t in qkv.split(hidden, dim=1))
+  sdpa_mask = mask[:, None]
+  pairs = int(mask.sum())
+  nbytes = qkv.numel() * 4 + out.numel() * 4 + (
+      0 if lengths is None else lengths.numel() * 4)
+  flops = 4 * pairs * hidden
+  t_bound, by = bound(flops, nbytes, 'float32')
+  return dict(
+      **errs, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+      library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+          q, k, v, attn_mask=sdpa_mask, scale=1.0)),
+      bound_ms=t_bound, bound_by=by, flops=flops, bytes=nbytes, pairs=pairs)
+
+
+def block_qkv(x, block, dt, heads: int):
+  """A K2 block's q/k/v projection of x [B, L, H] as the kernel path
+  makes it (fused GEMM, q scaled): [B*L, 3H] float32."""
+  import torch
+
+  from deepconsensus_tpu_torch.ops import _kernels
+  from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
+
+  b, length, h = x.shape
+  wqkv, qkv_scale = fwa.gemm_operand((block.wq, block.wk, block.wv), dt)
+  qkv = torch.empty((b * length, 3 * h), dtype=torch.float32,
+                    device=x.device)
+  _kernels.gemm(x.reshape(b * length, h), wqkv, qkv, compute_dtype=dt,
+                scale=(h // heads) ** -0.5, scale_cols=h, col_scale=qkv_scale)
+  return qkv
 
 
 def check_kernels(dtype: str, device: str = 'cuda') -> dict:
@@ -533,6 +769,21 @@ def check_kernels(dtype: str, device: str = 'cuda') -> dict:
           *k1_args, **k1_kw)),
       library_ms=cuda_ms(k1_library), bound_ms=t_bound, bound_by=by,
       stages=k1_stages(*k1_args, **k1_kw), flops=flops, bytes=nbytes)
+  # K1 with attn_softmax_dtype=bfloat16: the same inputs, work and
+  # yardstick (SDPA's softmax is float32's).
+  sm = dict(softmax_dtype='bfloat16')
+  checked = variant_check(
+      lambda: fwa.fused_embed_condense_attention(*k1_args, **k1_kw, **sm),
+      lambda: fwa.fused_embed_condense_attention_plain(*k1_args, **k1_kw,
+                                                       **sm))
+  out['K1_bf16_softmax'] = dict(
+      **checked, ms=cuda_ms(
+          lambda: fwa.fused_embed_condense_attention(*k1_args, **k1_kw,
+                                                     **sm)),
+      plain_ms=cuda_ms(lambda: fwa.fused_embed_condense_attention_plain(
+          *k1_args, **k1_kw, **sm)),
+      library_ms=cuda_ms(k1_library), bound_ms=t_bound, bound_by=by,
+      stages=k1_stages(*k1_args, **k1_kw, **sm), flops=flops, bytes=nbytes)
 
   # K2: a full block (attention + FFN) on realistic activations, and the
   # layer-0 FFN-only block.
@@ -562,6 +813,29 @@ def check_kernels(dtype: str, device: str = 'cuda') -> dict:
       ffn_only_ms=cuda_ms(
           lambda: feb.fused_encoder_stack(x, [blocks[0]], **k2_kw)),
       stages=k2_stages(x, b1, dt, heads, win), flops=flops, bytes=nbytes)
+  # The attention core alone, on block 1's q/k/v of these activations,
+  # in both softmax dtypes.
+  qkv = block_qkv(x, b1, dt, heads)
+  for sdt in ('float32', 'bfloat16'):
+    out['attention_core' + ('' if sdt == 'float32' else '_bf16_softmax')] = (
+        core_entry(qkv, batch=BATCH, length=LENGTH, heads=heads, win=win,
+                   softmax_dtype=sdt))
+  errs = []
+  for block in (blocks[1], blocks[0]):
+    errs.append(variant_check(
+        lambda: feb.fused_encoder_stack(x, [block], **k2_kw, **sm),
+        lambda: feb.fused_encoder_stack_plain(x, [block], **k2_kw, **sm)))
+  out['K2_bf16_softmax'] = dict(
+      **{k: max(e[k] for e in errs) for k in errs[0]}, ms=cuda_ms(
+          lambda: feb.fused_encoder_stack(x, [b1], **k2_kw, **sm)),
+      plain_ms=cuda_ms(lambda: feb.fused_encoder_stack_plain(
+          x, [b1], **k2_kw, **sm)),
+      library_ms=cuda_ms(lambda: k2_library(x, ws, b1, heads, band)),
+      bound_ms=t_bound, bound_by=by,
+      ffn_only_ms=cuda_ms(
+          lambda: feb.fused_encoder_stack(x, [blocks[0]], **k2_kw, **sm)),
+      stages=k2_stages(x, b1, dt, heads, win, softmax_dtype='bfloat16'),
+      flops=flops, bytes=nbytes)
 
   # K2 int8: the same activations, the same weights quantized as `run
   # --quantize_matmuls int8` loads them. The peak is the activations'
@@ -590,6 +864,22 @@ def check_kernels(dtype: str, device: str = 'cuda') -> dict:
       ffn_only_plain_ms=cuda_ms(
           lambda: feb.fused_encoder_stack_plain(x, [qblocks[0]], **k2_kw)),
       stages=k2_stages(x, q1, dt, heads, win), flops=flops, bytes=nbytes)
+  errs = []
+  for block in (qblocks[1], qblocks[0]):
+    errs.append(variant_check(
+        lambda: feb.fused_encoder_stack(x, [block], **k2_kw, **sm),
+        lambda: feb.fused_encoder_stack_plain(x, [block], **k2_kw, **sm)))
+  out['K2_int8_bf16_softmax'] = dict(
+      **{k: max(e[k] for e in errs) for k in errs[0]}, ms=cuda_ms(
+          lambda: feb.fused_encoder_stack(x, [q1], **k2_kw, **sm)),
+      plain_ms=cuda_ms(lambda: feb.fused_encoder_stack_plain(
+          x, [q1], **k2_kw, **sm)),
+      library_ms=cuda_ms(lambda: k2_library(x, qws, q1, heads, band)),
+      bound_ms=t_bound, bound_by=by,
+      ffn_only_ms=cuda_ms(
+          lambda: feb.fused_encoder_stack(x, [qblocks[0]], **k2_kw, **sm)),
+      stages=k2_stages(x, q1, dt, heads, win, softmax_dtype='bfloat16'),
+      flops=flops, bytes=nbytes)
 
   # K3 (float32 preds in both runs; exact), with tied maxima and
   # probabilities placed exactly on thresholds.
@@ -710,6 +1000,20 @@ def check_ragged_kernels(dtype: str, device: str = 'cuda') -> dict:
       stages=k1_stages(rows, *k4_args[2:], **k4_kw, lengths=lengths),
       flops=flops, bytes=nbytes, pairs=pairs,
       valid_positions=int(valid.sum()))
+  sm = dict(softmax_dtype='bfloat16')
+  checked = variant_check(
+      lambda: rwa.ragged_embed_condense_attention(*k4_args, **k4_kw, **sm),
+      lambda: rwa.ragged_embed_condense_attention_plain(*k4_args, **k4_kw,
+                                                        **sm), valid)
+  out['K4_bf16_softmax'] = dict(
+      **checked, ms=cuda_ms(
+          lambda: rwa.ragged_embed_condense_attention(*k4_args, **k4_kw,
+                                                      **sm)),
+      plain_ms=cuda_ms(lambda: rwa.ragged_embed_condense_attention_plain(
+          *k4_args, **k4_kw, **sm)),
+      library_ms=cuda_ms(k4_library), bound_ms=t_bound, bound_by=by,
+      stages=k1_stages(rows, *k4_args[2:], **k4_kw, lengths=lengths, **sm),
+      flops=flops, bytes=nbytes)
 
   # One full K2 block with lengths, on the residual K4's plain version
   # gives.
@@ -737,6 +1041,24 @@ def check_ragged_kernels(dtype: str, device: str = 'cuda') -> dict:
       bound_ms=t_bound, bound_by=by,
       stages=k2_stages(x, b1, dt, heads, win, lengths), flops=flops,
       bytes=nbytes)
+  qkv = block_qkv(x, b1, dt, heads)
+  for sdt in ('float32', 'bfloat16'):
+    out['attention_core_lengths'
+        + ('' if sdt == 'float32' else '_bf16_softmax')] = core_entry(
+            qkv, batch=SLOTS, length=SLOT_LEN, heads=heads, win=win,
+            softmax_dtype=sdt, lengths=lengths)
+  checked = variant_check(
+      lambda: feb.fused_encoder_stack(x, [b1], **k2_kw, **sm),
+      lambda: feb.fused_encoder_stack_plain(x, [b1], **k2_kw, **sm), valid)
+  out['K2_lengths_bf16_softmax'] = dict(
+      **checked, ms=cuda_ms(
+          lambda: feb.fused_encoder_stack(x, [b1], **k2_kw, **sm)),
+      plain_ms=cuda_ms(lambda: feb.fused_encoder_stack_plain(
+          x, [b1], **k2_kw, **sm)),
+      library_ms=cuda_ms(lambda: k2_library(x, ws, b1, heads, sdpa_mask)),
+      bound_ms=t_bound, bound_by=by,
+      stages=k2_stages(x, b1, dt, heads, win, lengths,
+                       softmax_dtype='bfloat16'), flops=flops, bytes=nbytes)
 
   # K2 int8 with lengths: the same slots, the weights quantized.
   q1 = int8_blocks(model, dtype)[1]
@@ -756,6 +1078,18 @@ def check_ragged_kernels(dtype: str, device: str = 'cuda') -> dict:
       bound_ms=t_bound, bound_by=by,
       stages=k2_stages(x, q1, dt, heads, win, lengths), flops=flops,
       bytes=nbytes)
+  checked = variant_check(
+      lambda: feb.fused_encoder_stack(x, [q1], **k2_kw, **sm),
+      lambda: feb.fused_encoder_stack_plain(x, [q1], **k2_kw, **sm), valid)
+  out['K2_int8_lengths_bf16_softmax'] = dict(
+      **checked, ms=cuda_ms(
+          lambda: feb.fused_encoder_stack(x, [q1], **k2_kw, **sm)),
+      plain_ms=cuda_ms(lambda: feb.fused_encoder_stack_plain(
+          x, [q1], **k2_kw, **sm)),
+      library_ms=cuda_ms(lambda: k2_library(x, qws, q1, heads, sdpa_mask)),
+      bound_ms=t_bound, bound_by=by,
+      stages=k2_stages(x, q1, dt, heads, win, lengths,
+                       softmax_dtype='bfloat16'), flops=flops, bytes=nbytes)
   return out
 
 
@@ -1153,7 +1487,9 @@ def check_flash_kernels(dtype: str, device: str = 'cuda') -> dict:
 
 def counted_modules():
   """Kernel name -> (module, launch counter attribute); K8_lse is K8
-  with its logsumexp."""
+  with its logsumexp; _bf16_softmax: the attn_softmax_dtype=bfloat16
+  variant; attention_core: the core K1, K2 and K4 launch."""
+  from deepconsensus_tpu_torch.ops import _kernels
   from deepconsensus_tpu_torch.ops import banded_attention as ba
   from deepconsensus_tpu_torch.ops import flash_band_attention as fba
   from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
@@ -1172,7 +1508,14 @@ def counted_modules():
           'K11': (wavefront_cuda, 'n_fwd_launches'),
           'K12': (wavefront_cuda, 'n_bwd_launches'),
           'K13': (wavefront_cuda, 'n_band_fwd_launches'),
-          'K14': (wavefront_cuda, 'n_band_bwd_launches')}
+          'K14': (wavefront_cuda, 'n_band_bwd_launches'),
+          'K1_bf16_softmax': (fwa, 'n_launches_bf16_softmax'),
+          'K2_bf16_softmax': (feb, 'n_launches_bf16_softmax'),
+          'K2_int8_bf16_softmax': (feb, 'n_launches_int8_bf16_softmax'),
+          'K4_bf16_softmax': (rwa, 'n_launches_bf16_softmax'),
+          'attention_core': (_kernels, 'n_attention_launches'),
+          'attention_core_bf16_softmax': (
+              _kernels, 'n_attention_bf16_softmax_launches')}
 
 
 def reset_launches() -> None:
@@ -1185,6 +1528,14 @@ def read_launches() -> dict:
           counted_modules().items()}
 
 
+CORE_SOURCE = 'deepconsensus_tpu_torch/csrc/ragged_attention.cu'
+# Rows of the kernels line and their phase-2 entries with lengths.
+LENGTHS_ROWS = {
+    'K2': 'K2_lengths', 'K2_int8': 'K2_int8_lengths',
+    'K2_bf16_softmax': 'K2_lengths_bf16_softmax',
+    'K2_int8_bf16_softmax': 'K2_int8_lengths_bf16_softmax',
+    'attention_core': 'attention_core_lengths',
+    'attention_core_bf16_softmax': 'attention_core_lengths_bf16_softmax'}
 # The kernels each path must launch.
 PATH_KERNELS = {'L100': ('K1', 'K2', 'K3'), 'ragged': ('K4', 'K2', 'K3'),
                 'train': ('K11', 'K12'),
@@ -1201,11 +1552,12 @@ RAGGED_FLAGS = BUCKET_FLAGS + ('--use_ragged_kernel',)
 
 
 def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
-                  attn: bool = False):
+                  attn: bool = False, softmax_bf16: bool = False):
   """One `run` over the synthetic BAMs on one path ('L100', 'ragged',
   'buckets' or 'int8'; attn: params with use_pallas_attention; 'int8':
   the L100 run with --quantize_matmuls int8, and in bfloat16
-  --inference_dtype bfloat16 over float32 params); returns (counters,
+  --inference_dtype bfloat16 over float32 params; softmax_bf16: params
+  with attn_softmax_dtype=bfloat16); returns (counters,
   launch counts, delivered-position ids and quals, per-pack lengths,
   seconds, peak bytes)."""
   import numpy as np
@@ -1221,12 +1573,14 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
     levers = ['--quantize_matmuls', 'int8']
     if dtype == 'bfloat16':
       levers += ['--inference_dtype', 'bfloat16']
-  flag = '_attn' if attn else ''
+  flag = ('_attn' if attn else '') + ('_bf16sm' if softmax_bf16 else '')
   params_path = os.path.join(WORK, f'params_{dtype}{flag}.json')
   params = make_params('float32' if levers else dtype)
   params.use_pallas_attention = attn
+  if softmax_bf16:
+    params.attn_softmax_dtype = 'bfloat16'
   if levers:
-    params_path = os.path.join(WORK, f'params_{path}_{dtype}.json')
+    params_path = os.path.join(WORK, f'params_{path}_{dtype}{flag}.json')
   with open(params_path, 'w') as f:
     json.dump(params.to_dict(), f)
   out = os.path.join(
@@ -1355,6 +1709,108 @@ def path_gates(path: str, runs) -> dict:
         (gates['last_pack_fill'] < 1, 'the last pack is not partial'),
     ]
   return enforce(path, gates, checks)
+
+
+def softmax_bf16_gates(path: str, runs, f32_softmax_runs) -> dict:
+  """The softmax_bf16 path's gates on one of a's and b's runs with
+  attn_softmax_dtype=bfloat16: each kernel run launched the variant (K1
+  or K4 once per pack, K2 once per layer and pack, the attention core
+  once per K1/K4 and full K2 block, K3 once per pack) and the float32
+  softmax's never, the plain run none; float32 kernels vs plain with a's
+  id and quality gates; and ids agreeing with the float32-softmax run of
+  the same compute dtype on >= 98% of delivered positions (the
+  reference's bar for the lever, tests/test_fused_hotpath.py). Raises on
+  a failed gate."""
+  import numpy as np
+
+  layers = make_params('float32').num_hidden_layers
+  first = 'K4' if path == 'ragged' else 'K1'
+  ids32, q32 = runs['float32'][2:4]
+  idsp, qp = runs['float32_plain'][2:4]
+  same = ids32 == idsp
+  gates = {
+      'f32_vs_plain_id_mismatch': float(1 - same.mean()),
+      'f32_vs_plain_max_qual_diff': int(np.abs(q32 - qp)[same].max()),
+      'bf16_vs_f32_id_agreement': float(
+          (runs['bfloat16'][2] == ids32).mean()),
+  }
+  checks = [
+      (gates['f32_vs_plain_id_mismatch'] <= 1e-4,
+       'f32 kernels vs plain: too many id mismatches'),
+      (gates['f32_vs_plain_max_qual_diff'] <= 1,
+       'f32 kernels vs plain: qualities differ by > 1'),
+  ]
+  gates['launches'] = {}
+  for label in ('bfloat16', 'float32', 'float32_plain'):
+    ids = runs[label][2]
+    ref = f32_softmax_runs[label][2]
+    key = f'{label}_vs_float32_softmax_id_agreement'
+    gates[key] = float((ids == ref).mean()) if len(ids) == len(ref) else 0.0
+    checks.append((gates[key] >= 0.98, f'{label}: ids agree with the '
+                   'float32-softmax run on < 98% of positions'))
+    counters, launches = runs[label][:2]
+    packs = counters['n_model_packs']
+    want = {f'{first}_bf16_softmax': packs, 'K2_bf16_softmax': layers * packs,
+            'attention_core_bf16_softmax': layers * packs, 'K3': packs,
+            first: 0, 'K2': 0, 'K2_int8': 0, 'attention_core': 0}
+    if label == 'float32_plain':
+      want = dict.fromkeys(want, 0)
+    gates['launches'][label] = {n: launches[n] for n in want}
+    checks.append((gates['launches'][label] == want,
+                   f'{label}: launches differ from {want}'))
+  return enforce(f'softmax_bf16_{path}', gates, checks)
+
+
+def softmax_bf16_int8_gates(run, int8_f32) -> dict:
+  """The softmax_bf16 path's int8 run (a's `cli run --quantize_matmuls
+  int8` in float32 over params with attn_softmax_dtype=bfloat16): K2
+  int8's variant once per layer and pack and no float32-softmax K2, one
+  read per ZMW, and ids agreeing with the int8 path's float32 run on >=
+  98% of delivered positions. Raises on a failed gate."""
+  layers = make_params('float32').num_hidden_layers
+  counters, launches, ids = run[:3]
+  packs = counters['n_model_packs']
+  gates = {
+      'launches': {n: launches[n] for n in (
+          'K1_bf16_softmax', 'K2_int8_bf16_softmax', 'K2_int8', 'K2',
+          'K2_bf16_softmax', 'K3')},
+      'vs_float32_softmax_id_agreement': float((ids == int8_f32).mean())
+      if len(ids) == len(int8_f32) else 0.0,
+  }
+  want = {'K1_bf16_softmax': packs, 'K2_int8_bf16_softmax': layers * packs,
+          'K2_int8': 0, 'K2': 0, 'K2_bf16_softmax': 0, 'K3': packs}
+  return enforce('softmax_bf16_int8', gates, [
+      (gates['launches'] == want, f'launches differ from {want}'),
+      (counters['success'] == N_ZMWS, 'not one read per ZMW'),
+      (gates['vs_float32_softmax_id_agreement'] >= 0.98,
+       'ids agree with the float32-softmax int8 run on < 98%'),
+  ])
+
+
+def softmax_bf16_train_gates(run, train_f32) -> dict:
+  """`cli train --set attn_softmax_dtype=bfloat16` in float32 on the
+  module route: every loss and gradient norm finite, the first loss
+  within 2% of the train path's float32 first loss, no attention kernel
+  launched. Raises on a failed gate."""
+  gates = {
+      'losses': run['losses'],
+      'first_loss_rel_diff_vs_float32_softmax': abs(
+          run['losses'][0] - train_f32['losses'][0])
+      / abs(train_f32['losses'][0]),
+      'attention_kernel_launches': [run['launches'][n] for n in (
+          'K5', 'K6', 'K7')],
+  }
+  finite = all(math.isfinite(x) for x in run['losses'] + run['grad_norms']
+               + [run['eval']['eval/loss']])
+  return enforce('softmax_bf16_train', gates, [
+      (len(run['losses']) == TRAIN_EXAMPLES // TRAIN_BATCH,
+       'the run did not take one epoch of steps'),
+      (finite, 'a loss, gradient norm or eval loss is not finite'),
+      (gates['first_loss_rel_diff_vs_float32_softmax'] <= 0.02,
+       'the first loss differs from the float32 softmax run\'s by > 2%'),
+      (gates['attention_kernel_launches'] == [0, 0, 0],
+       'the module route launched K5-K7'),
+  ])
 
 
 def int8_gates(runs, l100_f32) -> dict:
@@ -1487,19 +1943,21 @@ def evaluate_gates(runs, seeded) -> dict:
 
 def run_train_path(shards, dtype: str, plain: bool = False,
                    attn: bool = False, band: bool = False,
-                   flash: bool = False) -> dict:
+                   flash: bool = False, softmax_bf16: bool = False) -> dict:
   """One `cli train` epoch over the synthetic shards (plain: the same
   through run_training with the plain DP; attn: with
   --set use_pallas_attention=true; band: with --set band_width=12;
   flash: with --set max_length=200 --set attention_dropout=0, on shards
-  of that width); returns the run's launches, per-step losses and
+  of that width; softmax_bf16: with --set attn_softmax_dtype=bfloat16);
+  returns the run's launches, per-step losses and
   gradient norms, eval metrics and summary."""
   from deepconsensus_tpu_torch import cli
   from deepconsensus_tpu_torch.models import config as config_lib
   from deepconsensus_tpu_torch.models import train as train_lib
 
   route = ''.join(name for name, on in (('_flash', flash), ('_attn', attn),
-                                        ('_band', band)) if on)
+                                        ('_band', band),
+                                        ('_bf16sm', softmax_bf16)) if on)
   out = os.path.join(WORK, f'train{route}_{dtype}'
                      f'{"_plain" if plain else ""}')
   shutil.rmtree(out, ignore_errors=True)
@@ -1510,6 +1968,8 @@ def run_train_path(shards, dtype: str, plain: bool = False,
     overrides['use_pallas_attention'] = True
   if band:
     overrides['band_width'] = BAND_WIDTH
+  if softmax_bf16:
+    overrides['attn_softmax_dtype'] = 'bfloat16'
   reset_launches()
   t0 = time.perf_counter()
   if plain:
@@ -1756,7 +2216,9 @@ def buckets_gates(runs) -> dict:
     p100, p200 = packs.get(str(BUCKETS[0]), 0), packs.get(str(BUCKETS[1]), 0)
     want = dict.fromkeys(counted_modules(), 0)
     if label != 'float32_plain':
-      want.update(K1=p100, K2=layers * p100, K3=p100 + p200)
+      # The attention core: K1's and each full K2 block's.
+      want.update(K1=p100, K2=layers * p100, K3=p100 + p200,
+                  attention_core=layers * p100)
     if label in ('bfloat16', 'float32'):
       want['K8'] = layers * p200
     gates['launches'][label] = {n: run[1][n] for n in want if want[n]
@@ -2180,6 +2642,45 @@ def main(argv) -> int:
                            f'want {N_ZMWS}')
   int8_gates(int8_runs, main_runs['L100']['float32'][2])
   launches_by_path['int8'] = int8_runs['bfloat16'][1]
+  # softmax_bf16: a's and b's runs over params with
+  # attn_softmax_dtype=bfloat16, then a's int8 run in float32.
+  for path in RUN_PATHS:
+    runs = {}
+    for dtype, plain in (('bfloat16', False), ('float32', False),
+                         ('float32', True)):
+      label = dtype + ('_plain' if plain else '')
+      counters, launches, ids, quals, lengths, seconds, peak = run_main_path(
+          path, bams[path], weights, dtype, plain, softmax_bf16=True)
+      runs[label] = (counters, launches, ids, quals, lengths)
+      n_win = counters['n_windows_to_model']
+      ref = main_runs[path][label][0]
+      print(json.dumps({
+          'phase': 'main_path', 'path': 'softmax_bf16', 'run_path': path,
+          'run': label, 'launches': launches, 'reads': counters['success'],
+          'windows': n_win, 'packs': counters['n_model_packs'],
+          'seconds': seconds,
+          'windows_per_s': n_win / counters['total_seconds'],
+          'model_windows_per_s': n_win / counters['model_seconds'],
+          'model_seconds': counters['model_seconds'], 'peak_bytes': peak,
+          'float32_softmax_windows_per_s': ref['n_windows_to_model']
+          / ref['total_seconds'],
+          'float32_softmax_model_windows_per_s': ref['n_windows_to_model']
+          / ref['model_seconds']}), flush=True)
+      if counters['success'] != N_ZMWS:
+        raise AssertionError(f'softmax_bf16 {path} {label}: '
+                             f'{counters["success"]} reads, want {N_ZMWS}')
+    softmax_bf16_gates(path, runs, main_runs[path])
+    launches_by_path[f'softmax_bf16_{path}'] = runs['bfloat16'][1]
+  run = run_main_path('int8', bams['L100'], weights, 'float32',
+                      softmax_bf16=True)
+  print(json.dumps({
+      'phase': 'main_path', 'path': 'softmax_bf16', 'run_path': 'int8',
+      'run': 'float32', 'launches': run[1], 'reads': run[0]['success'],
+      'windows': run[0]['n_windows_to_model'], 'seconds': run[5],
+      'model_windows_per_s': run[0]['n_windows_to_model']
+      / run[0]['model_seconds']}), flush=True)
+  softmax_bf16_int8_gates(run, int8_runs['float32'][2])
+  launches_by_path['softmax_bf16_int8'] = run[1]
   runs = {}
   for dtype, plain, attn in (('bfloat16', False, True),
                              ('float32', False, True),
@@ -2237,6 +2738,15 @@ def main(argv) -> int:
         'eval_loss': r['eval']['eval/loss']}), flush=True)
   train_gates(runs)
   launches_by_path['train'] = runs['bfloat16']['launches']
+  r = run_train_path(shards, 'float32', softmax_bf16=True)
+  print(json.dumps({
+      'phase': 'main_path', 'path': 'softmax_bf16', 'run_path': 'train',
+      'run': 'float32', 'launches': r['launches'], 'seconds': r['seconds'],
+      'losses': r['losses'], 'grad_norms': r['grad_norms'],
+      'float32_softmax_losses': runs['float32']['losses'],
+      'step_p50_ms': 1e3 * r['summary']['train_step_p50_s'],
+      'eval_loss': r['eval']['eval/loss']}), flush=True)
+  softmax_bf16_train_gates(r, runs['float32'])
   from deepconsensus_tpu_torch.models import train as train_lib
 
   checkpoint = train_lib.latest_checkpoint(
@@ -2374,6 +2884,28 @@ def main(argv) -> int:
       'K10': ('deepconsensus_tpu_torch/csrc/flash_band_attention.cu',
               'deepconsensus_tpu/ops/flash_band_attention.py:417',
               'train_flash'),
+      # The attention core K1, K2 and K4 share (their `_attention`), and
+      # the attn_softmax_dtype=bfloat16 variant, whose softmax lives in
+      # it (static in each pallas_call).
+      'attention_core': (CORE_SOURCE,
+                         'deepconsensus_tpu/ops/fused_encoder_block.py:101',
+                         'L100'),
+      'attention_core_bf16_softmax': (
+          CORE_SOURCE, 'deepconsensus_tpu/ops/fused_encoder_block.py:134',
+          'softmax_bf16_L100'),
+      'K1_bf16_softmax': (
+          CORE_SOURCE, 'deepconsensus_tpu/ops/fused_window_attention.py:354',
+          'softmax_bf16_L100'),
+      'K2_bf16_softmax': (
+          CORE_SOURCE, 'deepconsensus_tpu/ops/fused_encoder_block.py:270',
+          'softmax_bf16_L100'),
+      'K2_int8_bf16_softmax': (
+          CORE_SOURCE, 'deepconsensus_tpu/ops/fused_encoder_block.py:270',
+          'softmax_bf16_int8'),
+      'K4_bf16_softmax': (
+          CORE_SOURCE,
+          'deepconsensus_tpu/ops/ragged_window_attention.py:325',
+          'softmax_bf16_ragged'),
   }
   # K8's launches count both its variants (without and with lse).
   launches_by_path = {k: {**v, 'K8': v['K8'] + v['K8_lse']}
@@ -2392,27 +2924,32 @@ def main(argv) -> int:
         'float32_ms': kernels['float32'][name]['ms'],
         'float32_max_abs_err': kernels['float32'][name]['max_abs_err'],
     }
-    if name in ('K2', 'K2_int8'):  # the lengths variant
-      lname = 'K2_lengths' if name == 'K2' else 'K2_int8_lengths'
+    if name in LENGTHS_ROWS:  # the lengths variant
+      lname = LENGTHS_ROWS[name]
       lv = kernels['bfloat16'][lname]
       entry.update({f'lengths_{k}': lv[k] for k in (
           'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'library_ms')})
       entry['lengths_float32_ms'] = kernels['float32'][lname]['ms']
-      entry.update(stages=r['stages'], lengths_stages=lv['stages'],
-                   float32_stages=kernels['float32'][name]['stages'],
-                   lengths_float32_stages=kernels['float32'][lname][
-                       'stages'])
-    if name in ('K1', 'K4'):
+      entry['lengths_float32_max_abs_err'] = kernels['float32'][lname][
+          'max_abs_err']
+      if 'stages' in r:
+        entry.update(stages=r['stages'], lengths_stages=lv['stages'],
+                     float32_stages=kernels['float32'][name]['stages'],
+                     lengths_float32_stages=kernels['float32'][lname][
+                         'stages'])
+    if name in ('K1', 'K4', 'K1_bf16_softmax', 'K4_bf16_softmax'):
       entry.update(stages=r['stages'],
                    float32_stages=kernels['float32'][name]['stages'])
+    if 'share_beyond_1e-4' in r:
+      entry['share_beyond_1e-4'] = r['share_beyond_1e-4']
+      entry['float32_share_beyond_1e-4'] = kernels['float32'][name][
+          'share_beyond_1e-4']
     if name == 'K3':
       entry.update({k: r[k] for k in ('device_ms', 'plain_device_ms',
                                       'library_device_ms')})
     if name == 'K2_int8':
       entry.update(float32_bound_ms=kernels['float32'][name]['bound_ms'],
-                   ffn_only_ms=r['ffn_only_ms'],
-                   lengths_float32_max_abs_err=kernels['float32'][
-                       'K2_int8_lengths']['max_abs_err'])
+                   ffn_only_ms=r['ffn_only_ms'])
     if name == 'K6':  # K5's backward: no mask
       entry['no_mask_ms'] = r['no_mask_ms']
       entry['no_mask_float32_ms'] = kernels['float32']['K6']['no_mask_ms']

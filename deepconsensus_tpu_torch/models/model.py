@@ -39,6 +39,13 @@ BandedSelfAttention routes as the reference's does, in this order:
   is wanted, differentiated through K9 and K10;
 * otherwise the module route's einsums over [B, N, L, L] logits.
 
+params.attn_softmax_dtype (None or 'float32', or 'bfloat16'; any other
+value raises) sets the attention softmax of the fused route's K1, K2
+and K4 and of the module route's einsums (ops/fused_window_attention.py
+`softmax_chain`), in training and inference. As in the reference, the
+K5-K10 and ring routes take no softmax dtype and ignore it, and
+inference_dtype leaves it alone.
+
 int8 matmuls (params.quantize_matmuls = 'int8', models/quantize.py):
 each encoder layer's six matmul modules hold the dequantized kernel as
 their parameter and the int8 values and scales as buffers. K2 reads the
@@ -199,11 +206,15 @@ class BandedSelfAttention(nn.Module):
 
   def __init__(self, hidden_size: int, num_heads: int,
                attn_win_size: Optional[int], device,
-               use_kernels: bool = False, quantized: bool = False):
+               use_kernels: bool = False, quantized: bool = False,
+               softmax_dtype: torch.dtype = torch.float32):
     super().__init__()
     if hidden_size % num_heads:
       raise ValueError('hidden_size must be divisible by num_heads')
     self.num_heads = num_heads
+    # attn_softmax_dtype: the softmax of `_attend` (the module route);
+    # the kernel and ring routes take none, as in the reference.
+    self.softmax_dtype = softmax_dtype
     self.head_dim = hidden_size // num_heads
     self.attn_win_size = attn_win_size
     self.use_kernels = use_kernels
@@ -216,7 +227,8 @@ class BandedSelfAttention(nn.Module):
 
   def _attend(self, query, key, value, dtype,
               drop: Optional[Dropout] = None) -> torch.Tensor:
-    """[b, L, N, D] q/k/v -> [b, L, N, D], band within each row."""
+    """[b, L, N, D] q/k/v -> [b, L, N, D], band within each row; the
+    softmax in self.softmax_dtype (fwa.softmax_chain)."""
     logits = torch.einsum('btnh,bfnh->bnft', key, query)
     length = query.shape[1]
     if self.attn_win_size:
@@ -225,7 +237,7 @@ class BandedSelfAttention(nn.Module):
       logits = torch.where(band, logits,
                            torch.full((), -1e9, dtype=logits.dtype,
                                       device=query.device))
-    weights = torch.softmax(logits.float(), dim=-1).to(dtype)
+    weights = fwa.softmax_chain(logits, self.softmax_dtype).to(dtype)
     if drop is not None:
       weights = drop(weights, 'attention')
     return torch.einsum('bnft,btnh->bfnh', weights, value)
@@ -347,11 +359,14 @@ class EncoderStack(nn.Module):
     super().__init__()
     self.num_layers = params.num_hidden_layers
     quantized = params.get('quantize_matmuls') == 'int8'
+    softmax_dtype = fwa.resolve_softmax_dtype(
+        params.get('attn_softmax_dtype'))
     for n in range(self.num_layers):
       self.add_module(f'self_attention_{n}', BandedSelfAttention(
           params.hidden_size, params.num_heads,
           params.attn_win_size or None, device,
-          bool(params.get('use_pallas_attention', False)), quantized))
+          bool(params.get('use_pallas_attention', False)), quantized,
+          softmax_dtype))
       self.add_module(f'attention_wrapper_{n}', ResidualWrapper(device))
       self.add_module(f'ffn_{n}', FeedForward(
           params.hidden_size, params.filter_size, device, quantized))
@@ -435,7 +450,8 @@ class DeepConsensusModel(nn.Module):
       raise NotImplementedError(
           f'quantize_matmuls {params.quantize_matmuls!r}: the port '
           'quantizes to int8 only')
-    fwa.check_softmax_dtype(params.get('attn_softmax_dtype'))
+    self.softmax_dtype = fwa.resolve_softmax_dtype(
+        params.get('attn_softmax_dtype'))
     device = resolve_device(device)
     self.params = params
     self.device = device
@@ -570,7 +586,8 @@ class DeepConsensusModel(nn.Module):
                attn0.key.matrix(), attn0.value.matrix(),
                attn0.output_transform.matrix(), pos)
     k1_kw = dict(specs=self.specs, table_keys=table_keys,
-                 num_heads=p.num_heads, attn_win_size=win, compute_dtype=dt)
+                 num_heads=p.num_heads, attn_win_size=win,
+                 softmax_dtype=self.softmax_dtype, compute_dtype=dt)
     if lengths is None:
       k1 = (fwa.fused_embed_condense_attention_plain if plain
             else fwa.fused_embed_condense_attention)
@@ -584,7 +601,8 @@ class DeepConsensusModel(nn.Module):
     k2 = (feb.fused_encoder_stack_plain if plain
           else feb.fused_encoder_stack)
     x = k2(x, self.encoder.kernel_blocks(), num_heads=p.num_heads,
-           attn_win_size=win, compute_dtype=dt, lengths=lengths)
+           attn_win_size=win, softmax_dtype=self.softmax_dtype,
+           compute_dtype=dt, lengths=lengths)
     return self.encoder.output_normalization(x)
 
   def forward_train(self, rows: torch.Tensor,

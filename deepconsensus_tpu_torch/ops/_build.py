@@ -43,7 +43,7 @@ SIGNATURES = {
         'dc_embed_condense_smem_bytes': (_I, _I, _I, _I),
     },
     'ragged_attention': {
-        'dc_attention': (_P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
+        'dc_attention': (_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P),
         'dc_attention_smem_bytes': (_I, _I, _I, _I),
     },
     'phred_epilogue': {'dc_phred_epilogue': (_P, ctypes.c_int64, _I, _P, _I,
@@ -148,6 +148,19 @@ def check(err: int, what: str) -> None:
   """Raises when a launch wrapper returned a non-zero cudaError_t."""
   if err:
     raise RuntimeError(f'{what}: CUDA launch failed with cudaError_t {err}')
+
+
+def launch(fn, what: str, device, *args) -> None:
+  """Calls the C entry point fn(*args, stream) with `device` (the
+  operands' card) current and its current stream as the last argument,
+  and raises if it returned a non-zero cudaError_t. The entry points set
+  function attributes, size persistent grids and launch on the current
+  device, so on a host with several cards an operand on cuda:1 must make
+  cuda:1 current first."""
+  import torch
+
+  with torch.cuda.device(device):
+    check(fn(*args, stream_ptr(device)), what)
 
 
 def ptr(t) -> ctypes.c_void_p:

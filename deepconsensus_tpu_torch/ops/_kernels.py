@@ -1,10 +1,12 @@
-"""Launch helpers for the CUDA kernels shared by K1 and K2.
+"""Launch helpers for the CUDA kernels shared by K1, K2 and K4.
 
 Thin ctypes calls: each checks its tensors, launches on the current
-stream, and raises if the launch returned a CUDA error. Outputs are
-allocated by the caller (the K1/K2 wrappers, with torch.empty). The
-launch counts that prove the main path went through the kernels live
-on the K1/K2/K3 wrappers, not here.
+stream of its tensors' card (made current around the launch,
+_build.launch), and raises if the launch returned a CUDA error. Outputs
+are allocated by the caller (the K1/K2/K4 wrappers, with torch.empty).
+The launch counts that prove the main path went through the kernels
+live on the K1-K4 wrappers; the attention core, which all three launch,
+also counts its own launches here.
 """
 from __future__ import annotations
 
@@ -100,13 +102,12 @@ def gemm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *,
   if k % 8 or n % 8:
     raise ValueError(f'gemm K = {k} and N = {n} must be multiples of 8')
   a_pieces, b_pieces = split_pieces(a.dtype, b.dtype, compute_dtype)
-  lib = _build.load('gemm')
-  _build.check(lib.dc_gemm(
-      _build.ptr(a), a_bf16, a_pieces, _build.ptr(b), b_type, b_pieces, m,
-      n, k, float(scale), int(scale_cols), _build.ptr(col_scale),
-      _build.ptr(bias), int(relu), _build.ptr(res), res_bf16,
-      _build.ptr(alpha), _build.ptr(out), out_bf16,
-      _build.stream_ptr(a.device)), 'gemm')
+  _build.launch(
+      _build.load('gemm').dc_gemm, 'gemm', a.device, _build.ptr(a), a_bf16,
+      a_pieces, _build.ptr(b), b_type, b_pieces, m, n, k, float(scale),
+      int(scale_cols), _build.ptr(col_scale), _build.ptr(bias), int(relu),
+      _build.ptr(res), res_bf16, _build.ptr(alpha), _build.ptr(out),
+      out_bf16)
 
 
 # The fused FFN's limits (csrc/mma_gemm.cuh::FfnTile): the [64, H]
@@ -153,13 +154,12 @@ def ffn(x: torch.Tensor, w_filter: torch.Tensor, w_output: torch.Tensor,
                      f'and F a multiple of 32; got H = {hidden}, F = {filt}')
   a_pieces, b_pieces = split_pieces(x.dtype, w_filter.dtype, compute_dtype)
   h_pieces = split_pieces(torch.float32, w_filter.dtype, compute_dtype)[0]
-  lib = _build.load('ffn')
-  _build.check(lib.dc_ffn(
-      _build.ptr(x), x_bf16, a_pieces, _build.ptr(w_filter),
-      _build.ptr(w_output), b_type, b_pieces, h_pieces, m, hidden, filt,
-      _build.ptr(filter_scale), _build.ptr(b_filter),
-      _build.ptr(output_scale), _build.ptr(b_output), _build.ptr(alpha),
-      _build.ptr(out), out_bf16, _build.stream_ptr(x.device)), 'ffn')
+  _build.launch(
+      _build.load('ffn').dc_ffn, 'ffn', x.device, _build.ptr(x), x_bf16,
+      a_pieces, _build.ptr(w_filter), _build.ptr(w_output), b_type, b_pieces,
+      h_pieces, m, hidden, filt, _build.ptr(filter_scale),
+      _build.ptr(b_filter), _build.ptr(output_scale), _build.ptr(b_output),
+      _build.ptr(alpha), _build.ptr(out), out_bf16)
 
 
 def _check_lengths(lengths: Optional[torch.Tensor], batch: int) -> int:
@@ -249,27 +249,43 @@ def embed_condense(rows: torch.Tensor, meta: torch.Tensor,
     if tuple(x_base_bf16.shape) != (b, length, n):
       raise ValueError(f'x_base shape {tuple(x_base_bf16.shape)}')
   ptrs = (ctypes.c_void_p * n_tables)(*[t.data_ptr() for t in tables])
-  lib = _build.load('embed_condense')
-  _build.check(lib.dc_embed_condense(
-      _build.ptr(rows), r, length, _build.ptr(meta), n_tables, ptrs,
+  _build.launch(
+      _build.load('embed_condense').dc_embed_condense, 'embed_condense',
+      rows.device, _build.ptr(rows), r, length, _build.ptr(meta), n_tables,
+      ptrs,
       (ctypes.c_int * n_tables)(*flags),
       (ctypes.c_float * n_tables)(*table_scales),
       (ctypes.c_int * n_tables)(*table_bases),
       (ctypes.c_int * n_tables)(*[t.numel() for t in tables]), entries,
       _build.ptr(w_cond), is_bf16, _build.ptr(pos), b * length, n, k,
-      _build.ptr(x_f32), _build.ptr(x_base_bf16), _build.ptr(lengths), wps,
-      _build.stream_ptr(rows.device)), 'embed_condense')
+      _build.ptr(x_f32), _build.ptr(x_base_bf16), _build.ptr(lengths), wps)
+
+
+# Launches of the attention core (csrc/ragged_attention.cu), which K1,
+# K2 and K4 run: with a float32 softmax and with the bfloat16 variant.
+n_attention_launches = 0
+n_attention_bf16_softmax_launches = 0
+
+# The attention core keeps a 16-query row of q in registers: head_dim
+# padded to 16 columns, at most this many.
+ATTENTION_MAX_HEAD_DIM = 144
 
 
 def attention(qkv: torch.Tensor, out: torch.Tensor, *, batch: int,
               length: int, num_heads: int, win: int,
-              lengths: Optional[torch.Tensor] = None) -> None:
+              lengths: Optional[torch.Tensor] = None,
+              softmax_dtype: torch.dtype = torch.float32) -> None:
   """o = banded softmax(q k^T) v per head (csrc/ragged_attention.cu);
-  qkv [B*L, 3H] f32 with q pre-scaled, out [B*L, H] f32. With lengths
-  [B, wps] int32 each query attends only inside its own window, and
-  positions past the slot's windows get o = 0."""
+  qkv [B*L, 3H] f32 with q pre-scaled, out [B*L, H] f32; the softmax in
+  softmax_dtype (float32, or bfloat16 as fwa.softmax_chain computes it).
+  With lengths [B, wps] int32 each query attends only inside its own
+  window, and positions past the slot's windows get o = 0."""
+  global n_attention_launches, n_attention_bf16_softmax_launches
   _check(qkv, 'qkv', (torch.float32,))
   _check(out, 'out', (torch.float32,))
+  if softmax_dtype not in _DTYPES:
+    raise ValueError(f'softmax_dtype must be one of {_DTYPES}, got '
+                     f'{softmax_dtype}')
   wps = _check_lengths(lengths, batch)
   m, h3 = qkv.shape
   hidden = h3 // 3
@@ -277,11 +293,22 @@ def attention(qkv: torch.Tensor, out: torch.Tensor, *, batch: int,
       or tuple(out.shape) != (m, hidden) or hidden % num_heads):
     raise ValueError(f'attention shapes qkv {tuple(qkv.shape)} out '
                      f'{tuple(out.shape)} for B={batch} L={length}')
-  lib = _build.load('ragged_attention')
-  _build.check(lib.dc_attention(
+  head_dim = hidden // num_heads
+  if head_dim > ATTENTION_MAX_HEAD_DIM:
+    raise ValueError(f'the attention core takes head_dim <= '
+                     f'{ATTENTION_MAX_HEAD_DIM}, got {head_dim}')
+  # 16-byte copies need every row and head to start 16-byte aligned.
+  vec = int(head_dim % 4 == 0 and qkv.data_ptr() % 16 == 0
+            and out.data_ptr() % 16 == 0)
+  bf16 = softmax_dtype == torch.bfloat16
+  _build.launch(
+      _build.load('ragged_attention').dc_attention, 'attention', qkv.device,
       _build.ptr(qkv), _build.ptr(lengths), wps, _build.ptr(out), batch,
-      length, hidden, num_heads, int(win), _build.stream_ptr(qkv.device)),
-      'attention')
+      length, hidden, num_heads, int(win), int(bf16), vec)
+  if bf16:
+    n_attention_bf16_softmax_launches += 1
+  else:
+    n_attention_launches += 1
 
 
 def attention_smem_bytes(length: int, hidden: int, num_heads: int,

@@ -173,16 +173,15 @@ def _launch_args(q: torch.Tensor, attn_win_size: Optional[int]):
     raise ValueError(
         f'banded attention at L={length}, D={d}, band +-{win} needs '
         f'{smem} B of shared memory per block, over {MAX_SMEM_BYTES}')
-  return lib, (int(q.dtype == torch.bfloat16), b, length, h, d, win,
-               _build.stream_ptr(q.device))
+  return lib, (int(q.dtype == torch.bfloat16), b, length, h, d, win)
 
 
 def _launch_fwd(q, k, v, mask, attn_win_size, keep_prob) -> torch.Tensor:
   lib, tail = _launch_args(q, attn_win_size)
   out = torch.empty_like(q)
-  _build.check(lib.dc_banded_attention_fwd(
-      _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask),
-      float(keep_prob), _build.ptr(out), *tail), 'banded_attention_fwd')
+  _build.launch(lib.dc_banded_attention_fwd, 'banded_attention_fwd',
+                q.device, _build.ptr(q), _build.ptr(k), _build.ptr(v),
+                _build.ptr(mask), float(keep_prob), _build.ptr(out), *tail)
   return out
 
 
@@ -235,10 +234,11 @@ def banded_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   # Per query row: the softmax's max and sum, and rowsum(dw * w).
   stats = torch.empty((b, h, length, 3), dtype=torch.float32,
                       device=q.device)
-  _build.check(lib.dc_banded_attention_bwd(
-      _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask),
-      _build.ptr(do), float(keep_prob), _build.ptr(dq), _build.ptr(dk),
-      _build.ptr(dv), _build.ptr(stats), *tail), 'banded_attention_bwd')
+  _build.launch(lib.dc_banded_attention_bwd, 'banded_attention_bwd',
+                q.device, _build.ptr(q), _build.ptr(k), _build.ptr(v),
+                _build.ptr(mask), _build.ptr(do), float(keep_prob),
+                _build.ptr(dq), _build.ptr(dk), _build.ptr(dv),
+                _build.ptr(stats), *tail)
   n_bwd_launches += 1
   return dq, dk, dv
 

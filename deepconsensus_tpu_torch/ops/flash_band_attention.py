@@ -148,7 +148,7 @@ def _launch_args(q: torch.Tensor, attn_win_size: Optional[int]):
                      'keep a row in 8 chunks of 32 lanes')
   return _build.load('flash_band_attention'), (
       int(q.dtype == torch.bfloat16), b, length, h, d,
-      ba.kernel_win(length, attn_win_size), _build.stream_ptr(q.device))
+      ba.kernel_win(length, attn_win_size))
 
 
 def flash_band_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -165,9 +165,9 @@ def flash_band_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   b, length, h, _ = q.shape
   lse = (torch.empty((b, h, length), dtype=torch.float32, device=q.device)
          if with_lse else None)
-  _build.check(lib.dc_flash_band_fwd(
-      _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
-      _build.ptr(lse), *tail), 'flash_band_fwd')
+  _build.launch(lib.dc_flash_band_fwd, 'flash_band_fwd', q.device,
+                _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
+                _build.ptr(lse), *tail)
   if with_lse:
     n_fwd_lse_launches += 1
     return o, lse
@@ -186,10 +186,9 @@ def flash_band_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_band_dq_plain(q, k, v, do, lse, delta, attn_win_size)
   lib, tail = _launch_args(q, attn_win_size)
   dq = torch.empty_like(q)
-  _build.check(lib.dc_flash_band_dq(
-      _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
-      _build.ptr(lse), _build.ptr(delta), _build.ptr(dq), *tail),
-      'flash_band_dq')
+  _build.launch(lib.dc_flash_band_dq, 'flash_band_dq', q.device,
+                _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
+                _build.ptr(lse), _build.ptr(delta), _build.ptr(dq), *tail)
   n_dq_launches += 1
   return dq
 
@@ -206,10 +205,10 @@ def flash_band_dkdv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_band_dkdv_plain(q, k, v, do, lse, delta, attn_win_size)
   lib, tail = _launch_args(q, attn_win_size)
   dk, dv = torch.empty_like(q), torch.empty_like(q)
-  _build.check(lib.dc_flash_band_dkdv(
-      _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
-      _build.ptr(lse), _build.ptr(delta), _build.ptr(dk), _build.ptr(dv),
-      *tail), 'flash_band_dkdv')
+  _build.launch(lib.dc_flash_band_dkdv, 'flash_band_dkdv', q.device,
+                _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
+                _build.ptr(lse), _build.ptr(delta), _build.ptr(dk),
+                _build.ptr(dv), *tail)
   n_dkdv_launches += 1
   return dk, dv
 

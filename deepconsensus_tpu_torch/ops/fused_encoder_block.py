@@ -33,6 +33,10 @@ the card the kernels read the int8 values as int8, widen them to bf16
 bias, ReLU and residual; no dequantized weight is made. Such blocks
 count in `n_launches_int8`, the others in `n_launches`. An int8 weight on a CUDA tensor launches the
 int8 kernel or raises.
+
+The attn_softmax_dtype lever (`softmax_dtype`, fwa.softmax_chain)
+reaches the attention core's softmax, float or int8 weights, with or
+without lengths; such blocks count in the `_bf16_softmax` counters.
 """
 from __future__ import annotations
 
@@ -45,9 +49,12 @@ from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
 from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
 
 # Launches of the CUDA path (one per encoder block on CUDA tensors):
-# blocks with float weights, and blocks with int8 weights.
+# blocks with float weights, and blocks with int8 weights, each with a
+# float32 softmax and with the attn_softmax_dtype=bfloat16 variant.
 n_launches = 0
 n_launches_int8 = 0
+n_launches_bf16_softmax = 0
+n_launches_int8_bf16_softmax = 0
 
 # Defined beside project_attend, which K1, K2 and K4 share.
 QuantizedWeight = fwa.QuantizedWeight
@@ -97,7 +104,9 @@ def _plain_weight(w, dt: torch.dtype):
 def encoder_block_plain(x: torch.Tensor, block: EncoderBlockWeights, *,
                         num_heads: int, attn_win_size: Optional[int],
                         compute_dtype: torch.dtype,
-                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        mask: Optional[torch.Tensor] = None,
+                        softmax_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
   """Plain PyTorch K2 block (any device); mask [B, L, L] (ragged slots)
   replaces the static band."""
   dt = compute_dtype
@@ -106,7 +115,8 @@ def encoder_block_plain(x: torch.Tensor, block: EncoderBlockWeights, *,
     y = fwa.attention_plain(
         x, *(_plain_weight(w, dt) for w in (block.wq, block.wk, block.wv,
                                             block.wo)),
-        num_heads=num_heads, attn_win_size=attn_win_size, mask=mask)
+        num_heads=num_heads, attn_win_size=attn_win_size, mask=mask,
+        softmax_dtype=softmax_dtype)
     x = x + _alpha(block.attn_alpha, x.device) * y
   h = (fwa.matmul_plain(x, _plain_weight(block.w_filter, dt))
        + block.b_filter.float())
@@ -121,7 +131,7 @@ def fused_encoder_stack_plain(x, blocks, *, num_heads, attn_win_size,
                               compute_dtype=torch.float32,
                               lengths=None) -> torch.Tensor:
   """Plain PyTorch K2 over a stack of blocks (any device)."""
-  fwa.check_softmax_dtype(softmax_dtype)
+  sdt = fwa.resolve_softmax_dtype(softmax_dtype)
   dt = fwa.resolve_dtype(compute_dtype)
   mask = None
   if lengths is not None:
@@ -130,13 +140,13 @@ def fused_encoder_stack_plain(x, blocks, *, num_heads, attn_win_size,
   for block in blocks:
     x = encoder_block_plain(x, block, num_heads=num_heads,
                             attn_win_size=attn_win_size, compute_dtype=dt,
-                            mask=mask)
+                            mask=mask, softmax_dtype=sdt)
   return x.to(dt)
 
 
 def _block_cuda(x: torch.Tensor, block: EncoderBlockWeights, *,
                 num_heads: int, attn_win_size: Optional[int],
-                dt: torch.dtype,
+                dt: torch.dtype, sdt: torch.dtype,
                 lengths: Optional[torch.Tensor]) -> torch.Tensor:
   b, length, hidden = x.shape
   dev = x.device
@@ -148,8 +158,8 @@ def _block_cuda(x: torch.Tensor, block: EncoderBlockWeights, *,
     fwa.project_attend(
         x2, block.wq, block.wk, block.wv, block.wo, ffn_in, batch=b,
         length=length, num_heads=num_heads, attn_win_size=attn_win_size,
-        compute_dtype=dt, res=x2, alpha=_alpha(block.attn_alpha, dev),
-        lengths=lengths)
+        compute_dtype=dt, softmax_dtype=sdt, res=x2,
+        alpha=_alpha(block.attn_alpha, dev), lengths=lengths)
   w_filter, filter_scale = fwa.gemm_operand((block.w_filter,), dt)
   w_output, output_scale = fwa.gemm_operand((block.w_output,), dt)
   out = torch.empty((b, length, hidden), dtype=dt, device=dev)
@@ -173,11 +183,14 @@ def fused_encoder_stack(
 ) -> torch.Tensor:
   """Runs encoder blocks over a [B, L, H] batch; returns [B, L, H] in
   the compute dtype. lengths: [B, wps] window widths of ragged slots,
-  or None. A CPU tensor runs the plain version; a CUDA tensor launches
-  the kernels, counting one launch per block (in n_launches_int8 for a
-  block with int8 weights)."""
+  or None. softmax_dtype: the attn_softmax_dtype lever (float32 or
+  bfloat16, fwa.softmax_chain). A CPU tensor runs the plain version; a
+  CUDA tensor launches the kernels, counting one launch per block (in
+  the int8 counters for a block with int8 weights, in the bf16_softmax
+  ones for the bfloat16 softmax)."""
   global n_launches, n_launches_int8
-  fwa.check_softmax_dtype(softmax_dtype)
+  global n_launches_bf16_softmax, n_launches_int8_bf16_softmax
+  sdt = fwa.resolve_softmax_dtype(softmax_dtype)
   dt = fwa.resolve_dtype(compute_dtype)
   hidden = x.shape[-1]
   if hidden % num_heads:
@@ -192,7 +205,7 @@ def fused_encoder_stack(
   if x.device.type == 'cpu':
     return fused_encoder_stack_plain(
         x, blocks, num_heads=num_heads, attn_win_size=attn_win_size,
-        compute_dtype=dt, lengths=lengths)
+        softmax_dtype=sdt, compute_dtype=dt, lengths=lengths)
   if x.device.type != 'cuda':
     raise ValueError(f'unsupported device {x.device}')
   x = x.to(dt).contiguous()
@@ -200,9 +213,14 @@ def fused_encoder_stack(
     lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
   for block in blocks:
     x = _block_cuda(x, block, num_heads=num_heads,
-                    attn_win_size=attn_win_size, dt=dt, lengths=lengths)
-    if is_int8(block):
+                    attn_win_size=attn_win_size, dt=dt, sdt=sdt,
+                    lengths=lengths)
+    if sdt == torch.float32 and is_int8(block):
       n_launches_int8 += 1
-    else:
+    elif sdt == torch.float32:
       n_launches += 1
+    elif is_int8(block):
+      n_launches_int8_bf16_softmax += 1
+    else:
+      n_launches_bf16_softmax += 1
   return x

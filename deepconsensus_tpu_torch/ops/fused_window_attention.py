@@ -15,7 +15,10 @@ projection with the q scale in its epilogue (csrc/gemm.cu), the banded
 attention core (csrc/ragged_attention.cu) and the output projection
 (csrc/gemm.cu). K4 (ops/ragged_window_attention.py) runs the same four
 with a lengths vector (`embed_condense_attend`). Every intermediate is
-float32, as inside the TPU kernel. On a CPU
+float32, as inside the TPU kernel. The attn_softmax_dtype lever
+(`softmax_dtype`: float32, or bfloat16 as `softmax_chain` computes it)
+reaches the core's softmax; such calls count in n_launches_bf16_softmax.
+On a CPU
 tensor it runs `fused_embed_condense_attention_plain`, which mirrors
 the reference's arithmetic with a gather in place of the one-hot
 product (the same values).
@@ -37,8 +40,10 @@ _NEG = -1e9
 
 MAX_WINDOW_LEN = config_lib.FUSED_MAX_WINDOW_LEN
 
-# Launches of the CUDA path (one per call on CUDA tensors).
+# Launches of the CUDA path (one per call on CUDA tensors), with a float32
+# softmax and with the attn_softmax_dtype=bfloat16 variant.
 n_launches = 0
+n_launches_bf16_softmax = 0
 
 
 class FamilySpec(NamedTuple):
@@ -117,11 +122,49 @@ def resolve_dtype(dtype: Any) -> torch.dtype:
   return resolved
 
 
-def check_softmax_dtype(softmax_dtype: Any) -> None:
-  if softmax_dtype not in (None, 'float32', torch.float32):
+def resolve_softmax_dtype(softmax_dtype: Any) -> torch.dtype:
+  """The attn_softmax_dtype lever: None, 'float32', 'bfloat16' or a
+  torch dtype -> torch.float32 or torch.bfloat16; anything else raises."""
+  if softmax_dtype is None:
+    return torch.float32
+  resolved = softmax_dtype if isinstance(softmax_dtype, torch.dtype) else {
+      'float32': torch.float32, 'bfloat16': torch.bfloat16}.get(
+          str(softmax_dtype))
+  if resolved not in (torch.float32, torch.bfloat16):
     raise NotImplementedError(
-        f'attn_softmax_dtype {softmax_dtype!r}: the port accumulates the '
-        'attention softmax in float32 only')
+        f'attn_softmax_dtype {softmax_dtype!r}: the port takes float32 or '
+        'bfloat16')
+  return resolved
+
+
+def softmax_chain(logits: torch.Tensor, softmax_dtype: Any) -> torch.Tensor:
+  """Softmax over the last axis of float32 logits in the
+  attn_softmax_dtype, rounded where the reference's compiled kernels
+  round; float32 weights out. float32 is torch.softmax. bfloat16 is the
+  chain XLA compiles `exp(sd - max) / sum` of bf16 logits sd into:
+    m = max(sd)               exact
+    d = bf16(sd - m)
+    e = exp(d)                float32, not rounded
+    z = bf16(sum(e))          a float32 sum of the unrounded e
+    w = bf16(e) / z           a true float32 division
+  The kernels (K1, K2, K4) cast w to float32 at once, so the quotient is
+  never rounded; jax.nn.softmax's bfloat16 output is bf16(w). e and w
+  below float32's smallest normal are 0, as XLA (and the TPU) flush
+  them. Masked logits (-1e9) stay finite in bfloat16 and get weight 0
+  beside any unmasked one."""
+  logits = logits.float()
+  if resolve_softmax_dtype(softmax_dtype) == torch.float32:
+    return torch.softmax(logits, dim=-1)
+  bf16 = torch.bfloat16
+  zero = torch.zeros((), device=logits.device)
+  tiny = torch.finfo(torch.float32).tiny
+  sd = logits.to(bf16)
+  m = sd.amax(dim=-1, keepdim=True)
+  e = torch.exp((sd.float() - m.float()).to(bf16).float())
+  e = torch.where(e < tiny, zero, e)
+  z = e.sum(dim=-1, keepdim=True).to(bf16).float()
+  w = e.to(bf16).float() / z
+  return torch.where(w < tiny, zero, w)
 
 
 def prepare_ids(rows: torch.Tensor, specs: Sequence[FamilySpec]
@@ -189,34 +232,49 @@ def matmul_plain(x: torch.Tensor, w) -> torch.Tensor:
   return x @ w.float()
 
 
-def attention_plain(x: torch.Tensor, wq, wk, wv, wo, *, num_heads: int,
-                    attn_win_size: Optional[int],
-                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-  """Banded MHA on [B, L, H] float32 as the reference computes it: full
-  [L, L] scores per head, out-of-band logits -1e9, float32 softmax.
-  mask ([B, L, L] bool, ragged slots) replaces the static band. Weights
-  (tensors or QuantizedWeights, matmul_plain) are upcast to float32.
-  Shared by the K1, K2 and K4 plain paths."""
-  b, length, hidden = x.shape
-  head_dim = hidden // num_heads
-  x2 = x.reshape(b * length, hidden)
-
-  def proj(w):
-    return matmul_plain(x2, w).reshape(b, length, num_heads, head_dim)
-
-  q = proj(wq) * (head_dim ** -0.5)
-  k = proj(wk)
-  v = proj(wv)
+def attention_core_plain(qkv: torch.Tensor, *, batch: int, length: int,
+                         num_heads: int, attn_win_size: Optional[int],
+                         mask: Optional[torch.Tensor] = None,
+                         softmax_dtype: Any = torch.float32) -> torch.Tensor:
+  """The attention core's plain version (_kernels.attention's kernel,
+  csrc/ragged_attention.cu), as the reference computes it: qkv
+  [B*L, 3H] float32 with q pre-scaled -> o [B*L, H] float32. Full
+  [L, L] scores per head, logits -1e9 outside the band (or outside mask,
+  [B, L, L] bool, ragged slots), softmax_chain in the softmax dtype,
+  weights times v in float32."""
+  hidden = qkv.shape[1] // 3
+  q, k, v = (t.reshape(batch, length, num_heads, hidden // num_heads)
+             for t in qkv.float().split(hidden, dim=1))
   s = torch.einsum('blnd,bmnd->bnlm', q, k)
   if mask is None and attn_win_size is not None:
-    i = torch.arange(length, device=x.device)
+    i = torch.arange(length, device=qkv.device)
     mask = (i[:, None] - i[None, :]).abs() <= attn_win_size
   if mask is not None:
     if mask.dim() == 3:
       mask = mask[:, None]
-    s = torch.where(mask, s, torch.full((), _NEG, device=x.device))
-  w = torch.softmax(s, dim=-1)
-  o = torch.einsum('bnlm,bmnd->blnd', w, v).reshape(b * length, hidden)
+    s = torch.where(mask, s, torch.full((), _NEG, device=qkv.device))
+  w = softmax_chain(s, softmax_dtype)
+  return torch.einsum('bnlm,bmnd->blnd', w, v).reshape(batch * length,
+                                                        hidden)
+
+
+def attention_plain(x: torch.Tensor, wq, wk, wv, wo, *, num_heads: int,
+                    attn_win_size: Optional[int],
+                    mask: Optional[torch.Tensor] = None,
+                    softmax_dtype: Any = torch.float32) -> torch.Tensor:
+  """Banded MHA on [B, L, H] float32 as the reference computes it: the
+  q/k/v projections (q scaled), attention_core_plain (mask, [B, L, L]
+  bool for ragged slots, replaces the static band), the output
+  projection. Weights (tensors or QuantizedWeights, matmul_plain) are
+  upcast to float32. Shared by the K1, K2 and K4 plain paths."""
+  b, length, hidden = x.shape
+  head_dim = hidden // num_heads
+  x2 = x.reshape(b * length, hidden)
+  qkv = torch.cat([matmul_plain(x2, wq) * (head_dim ** -0.5),
+                   matmul_plain(x2, wk), matmul_plain(x2, wv)], dim=1)
+  o = attention_core_plain(qkv, batch=b, length=length, num_heads=num_heads,
+                           attn_win_size=attn_win_size, mask=mask,
+                           softmax_dtype=softmax_dtype)
   return matmul_plain(o, wo).reshape(b, length, hidden)
 
 
@@ -243,7 +301,7 @@ def fused_embed_condense_attention_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Plain PyTorch K1 (any device): gather embedding, condenser, pos,
   layer-0 attention, all in float32 from compute-dtype inputs."""
-  check_softmax_dtype(softmax_dtype)
+  sdt = resolve_softmax_dtype(softmax_dtype)
   dt = resolve_dtype(compute_dtype)
   x = embed_condense_plain(rows, tables, w_cond, specs=specs,
                            table_keys=table_keys, compute_dtype=dt)
@@ -251,7 +309,7 @@ def fused_embed_condense_attention_plain(
     x = x + pos.to(dt).float()[None]
   out = attention_plain(
       x, wq.to(dt), wk.to(dt), wv.to(dt), wo.to(dt), num_heads=num_heads,
-      attn_win_size=attn_win_size)
+      attn_win_size=attn_win_size, softmax_dtype=sdt)
   return x.to(dt), out.to(dt)
 
 
@@ -332,10 +390,11 @@ def fused_embed_condense_attention(
   unscaled embedding tables keyed per build_family_specs; w_cond
   [cond_in, H]; wq/wk/wv/wo [H, H] (the attention kernels flattened);
   pos [L, H] or None. Returns (x_base, attn_out) [B, L, H] in the
-  compute dtype. A CPU tensor runs the plain version; a CUDA tensor
-  launches the kernels."""
-  global n_launches
-  check_softmax_dtype(softmax_dtype)
+  compute dtype. softmax_dtype: the attn_softmax_dtype lever (float32
+  or bfloat16, softmax_chain). A CPU tensor runs the plain version; a
+  CUDA tensor launches the kernels."""
+  global n_launches, n_launches_bf16_softmax
+  sdt = resolve_softmax_dtype(softmax_dtype)
   dt = resolve_dtype(compute_dtype)
   b, _, length = rows.shape
   cond_in, hidden = w_cond.shape
@@ -354,14 +413,17 @@ def fused_embed_condense_attention(
     return fused_embed_condense_attention_plain(
         rows, tables, w_cond, wq, wk, wv, wo, pos, specs=specs,
         table_keys=table_keys, num_heads=num_heads,
-        attn_win_size=attn_win_size, compute_dtype=dt)
+        attn_win_size=attn_win_size, softmax_dtype=sdt, compute_dtype=dt)
   if rows.device.type != 'cuda':
     raise ValueError(f'unsupported device {rows.device}')
   out = embed_condense_attend(
       rows, tables, w_cond, wq, wk, wv, wo, pos, specs=specs,
       table_keys=table_keys, num_heads=num_heads,
-      attn_win_size=attn_win_size, compute_dtype=dt)
-  n_launches += 1
+      attn_win_size=attn_win_size, compute_dtype=dt, softmax_dtype=sdt)
+  if sdt == torch.float32:
+    n_launches += 1
+  else:
+    n_launches_bf16_softmax += 1
   return out
 
 
@@ -424,7 +486,7 @@ def condense(rows: torch.Tensor, ops: CondenseOperands, x: torch.Tensor,
 def embed_condense_attend(
     rows, tables, w_cond, wq, wk, wv, wo, pos, *, specs, table_keys,
     num_heads, attn_win_size, compute_dtype: torch.dtype,
-    lengths: Optional[torch.Tensor] = None,
+    softmax_dtype: torch.dtype, lengths: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """The CUDA body of K1 (lengths None) and K4 (lengths [B, wps] int32
   on the card: ragged slots, from which the kernels derive each
@@ -444,7 +506,8 @@ def embed_condense_attend(
   project_attend(x.view(b * length, hidden), wq, wk, wv, wo,
                  attn_out.view(b * length, hidden), batch=b, length=length,
                  num_heads=num_heads, attn_win_size=attn_win_size,
-                 compute_dtype=dt, lengths=lengths)
+                 compute_dtype=dt, softmax_dtype=softmax_dtype,
+                 lengths=lengths)
   return x_base, attn_out
 
 
@@ -467,13 +530,15 @@ def gemm_operand(weights: Sequence[Any], compute_dtype: torch.dtype
 def project_attend(x2: torch.Tensor, wq, wk, wv, wo, out: torch.Tensor, *,
                    batch: int, length: int, num_heads: int,
                    attn_win_size: Optional[int], compute_dtype: torch.dtype,
+                   softmax_dtype: torch.dtype = torch.float32,
                    res: Optional[torch.Tensor] = None,
                    alpha: Optional[torch.Tensor] = None,
                    lengths: Optional[torch.Tensor] = None) -> None:
   """CUDA banded MHA on token rows x2 [B*L, H] into out [B*L, H]: the
   fused q/k/v GEMM (q scaled in its epilogue), the attention core
-  (csrc/ragged_attention.cu; with lengths, each query attends only
-  inside its own ragged window), and the output GEMM, whose epilogue
+  (csrc/ragged_attention.cu, its softmax in softmax_dtype; with
+  lengths, each query attends only inside its own ragged window), and
+  the output GEMM, whose epilogue
   optionally adds the ReZero residual res + alpha * y. Shared by K1, K2
   and K4. Weights are tensors or QuantizedWeights: int8 q/k/v join into
   one [H, 3H] int8 operand with a [3H] scale, dequantized in the GEMM's
@@ -489,7 +554,8 @@ def project_attend(x2: torch.Tensor, wq, wk, wv, wo, out: torch.Tensor, *,
                   device=x2.device)
   win = length - 1 if attn_win_size is None else int(attn_win_size)
   _kernels.attention(qkv, o, batch=batch, length=length,
-                     num_heads=num_heads, win=win, lengths=lengths)
+                     num_heads=num_heads, win=win, lengths=lengths,
+                     softmax_dtype=softmax_dtype)
   wo_values, wo_scale = gemm_operand((wo,), compute_dtype)
   _kernels.gemm(o, wo_values, out, compute_dtype=compute_dtype,
                 col_scale=wo_scale, res=res, alpha=alpha)

@@ -202,8 +202,8 @@ def phred_epilogue(
   n = b * length
   out = torch.empty((2, b, length), dtype=torch.uint8, device=dev)
   planes = out.data_ptr()
-  _build.check(_build.load('phred_epilogue').dc_phred_epilogue(
-      preds.data_ptr(), n, vocab, thr.data_ptr(), thr.numel(), planes,
-      planes + n, _build.stream_ptr(dev)), 'phred_epilogue')
+  _build.launch(_build.load('phred_epilogue').dc_phred_epilogue,
+                'phred_epilogue', dev, preds.data_ptr(), n, vocab,
+                thr.data_ptr(), thr.numel(), planes, planes + n)
   n_launches += 1
   return out.unbind(0)

@@ -17,9 +17,11 @@ mode (`fused_window_attention.embed_condense_attend` with lengths): the
 embedding-gather condenser GEMM whose epilogue derives each position's
 window from the lengths row (csrc/embed_condense.cu), the q/k/v GEMM,
 the attention core, which derives each query's window from the lengths
-row and stages only its query tile's K/V rows, so a 200- or 256-long
-slot fits in shared memory (csrc/ragged_attention.cu), and the output
-GEMM. A position past every window gets attention output 0 from the
+row and stages only the K/V rows its query tile reaches (in key blocks
+of 96 rows where a band reaches further), so any slot up to 256 fits in
+shared memory (csrc/ragged_attention.cu), and the output GEMM. The
+attn_softmax_dtype lever (softmax_dtype, fwa.softmax_chain) reaches the
+core's softmax; such calls count in n_launches_bf16_softmax. A position past every window gets attention output 0 from the
 kernel, where the reference's softmax is uniform; those positions are
 never delivered. On a CPU tensor it runs
 `ragged_embed_condense_attention_plain`, the reference's semantics at
@@ -36,8 +38,10 @@ from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
 # Longest slot the ragged path takes (reference RAGGED_MAX_SLOT_LEN).
 RAGGED_MAX_SLOT_LEN = 256
 
-# Launches of the CUDA path (one per call on CUDA tensors).
+# Launches of the CUDA path (one per call on CUDA tensors), with a float32
+# softmax and with the attn_softmax_dtype=bfloat16 variant.
 n_launches = 0
+n_launches_bf16_softmax = 0
 
 
 def validate_ragged_buckets(buckets: Sequence[int]) -> Tuple[int, ...]:
@@ -138,7 +142,7 @@ def ragged_embed_condense_attention_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Plain PyTorch K4 (any device), the reference's
   `reference_ragged_forward` from compute-dtype inputs in float32."""
-  fwa.check_softmax_dtype(softmax_dtype)
+  sdt = fwa.resolve_softmax_dtype(softmax_dtype)
   dt = fwa.resolve_dtype(compute_dtype)
   _check_args(rows, lengths, w_cond, specs, num_heads)
   slot_len = rows.shape[2]
@@ -151,7 +155,8 @@ def ragged_embed_condense_attention_plain(
   out = fwa.attention_plain(
       x, wq.to(dt), wk.to(dt), wv.to(dt), wo.to(dt), num_heads=num_heads,
       attn_win_size=attn_win_size,
-      mask=ragged_attention_mask(lengths, slot_len, attn_win_size))
+      mask=ragged_attention_mask(lengths, slot_len, attn_win_size),
+      softmax_dtype=sdt)
   return x.to(dt), out.to(dt)
 
 
@@ -179,21 +184,24 @@ def ragged_embed_condense_attention(
   None; the rest as fused_embed_condense_attention. Returns (x_base,
   attn_out) [B, S, H] in the compute dtype. A CPU tensor runs the plain
   version; a CUDA tensor launches the kernels."""
-  global n_launches
-  fwa.check_softmax_dtype(softmax_dtype)
+  global n_launches, n_launches_bf16_softmax
+  sdt = fwa.resolve_softmax_dtype(softmax_dtype)
   dt = fwa.resolve_dtype(compute_dtype)
   _check_args(rows, lengths, w_cond, specs, num_heads)
   if rows.device.type == 'cpu':
     return ragged_embed_condense_attention_plain(
         rows, lengths, tables, w_cond, wq, wk, wv, wo, pos, specs=specs,
         table_keys=table_keys, num_heads=num_heads,
-        attn_win_size=attn_win_size, compute_dtype=dt)
+        attn_win_size=attn_win_size, softmax_dtype=sdt, compute_dtype=dt)
   if rows.device.type != 'cuda':
     raise ValueError(f'unsupported device {rows.device}')
   out = fwa.embed_condense_attend(
       rows, tables, w_cond, wq, wk, wv, wo, pos, specs=specs,
       table_keys=table_keys, num_heads=num_heads,
-      attn_win_size=attn_win_size, compute_dtype=dt,
+      attn_win_size=attn_win_size, compute_dtype=dt, softmax_dtype=sdt,
       lengths=lengths.to(device=rows.device, dtype=torch.int32).contiguous())
-  n_launches += 1
+  if sdt == torch.float32:
+    n_launches += 1
+  else:
+    n_launches_bf16_softmax += 1
   return out

@@ -99,11 +99,11 @@ def _launch_fwd(subs, ins, lens, del_cost, loss_reg, inf, emit_rows):
   rows = (torch.empty((m + n + 1, batch, m + 1), dtype=torch.float32,
                       device=subs.device) if emit_rows else None)
   reg, soft = _soft(loss_reg)
-  lib = _build.load('wavefront')
-  _build.check(lib.dc_wavefront_fwd(
-      _build.ptr(subs), _build.ptr(ins), _build.ptr(lens), batch, m, n,
-      float(del_cost), reg, soft, float(inf), _build.ptr(scores),
-      _build.ptr(rows), _build.stream_ptr(subs.device)), 'wavefront_fwd')
+  _build.launch(
+      _build.load('wavefront').dc_wavefront_fwd, 'wavefront_fwd',
+      subs.device, _build.ptr(subs), _build.ptr(ins), _build.ptr(lens),
+      batch, m, n, float(del_cost), reg, soft, float(inf), _build.ptr(scores),
+      _build.ptr(rows))
   n_fwd_launches += 1
   return scores, rows
 
@@ -121,12 +121,11 @@ def launch_bwd(subs, ins, lens, rows, grad, del_cost, loss_reg):
   d_ins = torch.empty_like(ins)
   reg, soft = _soft(loss_reg)
   grad = grad.float().contiguous()
-  lib = _build.load('wavefront')
-  _build.check(lib.dc_wavefront_bwd(
-      _build.ptr(subs), _build.ptr(ins), _build.ptr(lens), _build.ptr(rows),
-      _build.ptr(grad), batch, m, n, float(del_cost), reg, soft,
-      _build.ptr(d_subs), _build.ptr(d_ins), _build.stream_ptr(subs.device)),
-      'wavefront_bwd')
+  _build.launch(
+      _build.load('wavefront').dc_wavefront_bwd, 'wavefront_bwd',
+      subs.device, _build.ptr(subs), _build.ptr(ins), _build.ptr(lens),
+      _build.ptr(rows), _build.ptr(grad), batch, m, n, float(del_cost), reg,
+      soft, _build.ptr(d_subs), _build.ptr(d_ins))
   n_bwd_launches += 1
   return d_subs, d_ins
 
@@ -211,11 +210,11 @@ def _launch_band_fwd(subs, ins, lens, width, del_cost, loss_reg, inf,
   rows = (torch.empty((2 * m - 1, batch, 2 * width + 1), dtype=torch.float32,
                       device=subs.device) if emit_rows else None)
   reg, soft = _soft(loss_reg)
-  lib = _build.load('wavefront')
-  _build.check(lib.dc_band_fwd(
+  _build.launch(
+      _build.load('wavefront').dc_band_fwd, 'band_fwd', subs.device,
       _build.ptr(subs), _build.ptr(ins), _build.ptr(lens), batch, m, width,
       float(del_cost), reg, soft, float(inf), _build.ptr(scores),
-      _build.ptr(rows), _build.stream_ptr(subs.device)), 'band_fwd')
+      _build.ptr(rows))
   n_band_fwd_launches += 1
   return scores, rows
 
@@ -234,12 +233,11 @@ def launch_band_bwd(subs, ins, lens, rows, grad, width, del_cost, loss_reg,
   d_ins = torch.empty_like(ins)
   reg, soft = _soft(loss_reg)
   grad = grad.float().contiguous()
-  lib = _build.load('wavefront')
-  _build.check(lib.dc_band_bwd(
+  _build.launch(
+      _build.load('wavefront').dc_band_bwd, 'band_bwd', subs.device,
       _build.ptr(subs), _build.ptr(ins), _build.ptr(lens), _build.ptr(rows),
       _build.ptr(grad), batch, m, width, float(del_cost), reg, soft,
-      float(inf), _build.ptr(d_subs), _build.ptr(d_ins),
-      _build.stream_ptr(subs.device)), 'band_bwd')
+      float(inf), _build.ptr(d_subs), _build.ptr(d_ins))
   n_band_bwd_launches += 1
   return d_subs, d_ins
 

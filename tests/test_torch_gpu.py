@@ -134,12 +134,14 @@ def test_ragged_cuda_run_matches_cpu_run(cuda, tmp_path):
 
 
 def test_attention_core_fits_slot_200(cuda):
-  """The tiled core's shared memory at S = 200 and S = 256 (band 12)
-  stays far under the 227 KB block limit."""
+  """The tiled core's shared memory at S = 100, 200 and 256, band 12 or
+  none, holds two blocks on an SM ((233,472 - 2 x 1,024) / 2 bytes): a
+  key block of at most 96 K/V rows."""
   from deepconsensus_tpu_torch.ops import _kernels
 
   for length in (100, 200, 256):
-    assert _kernels.attention_smem_bytes(length, 280, 2, 12) < 100_000
+    for win in (12, length - 1):
+      assert _kernels.attention_smem_bytes(length, 280, 2, win) <= 115_712
 
 
 def test_phred_epilogue_exact(cuda):
@@ -946,3 +948,131 @@ def test_training_step_with_flash_kernels_matches_the_cpu(cuda):
     assert flash_launches() == (before[0], before[1] + n, before[2] + n,
                                 before[3] + n)
   np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+
+
+def slot_lengths(length, n, device):
+  """[n, 2] int32 window widths cycling through one full window, two
+  halves, a lone half and an empty slot."""
+  half = length // 2
+  widths = [[length, 0], [half, length - half], [half, 0], [0, 0]]
+  return torch.tensor((widths * n)[:n], dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize('softmax_dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('length', [100, 128, 200])
+@pytest.mark.parametrize('win', ['12', 'L-1', 'none'])
+@pytest.mark.parametrize('ragged', [False, True])
+def test_attention_core_sweep(cuda, softmax_dtype, length, win, ragged):
+  """The tensor-core attention core against attention_core_plain on
+  valid positions, in both softmax dtypes: one key block (band 12) or
+  several in two passes (L - 1, and no band, whose wrapper passes a
+  band wider than the slot), with and without ragged slots; 37 rows,
+  one 64-query tile short at L = 100 and 200. Tolerance: 1e-4 for a
+  float32 softmax, 2e-2 for bfloat16."""
+  from deepconsensus_tpu_torch.ops import _kernels
+
+  batch, hidden, heads = 37, 280, 2
+  w = {'12': 12, 'L-1': length - 1, 'none': None}[win]
+  kernel_win = length - 1 if w is None else w
+  gen = torch.Generator().manual_seed(length)
+  qkv = torch.randn(batch * length, 3 * hidden, generator=gen).to(cuda)
+  qkv[:, :hidden] *= (hidden // heads) ** -0.5  # q pre-scaled, as K1/K2's
+  lengths = slot_lengths(length, batch, cuda) if ragged else None
+  mask = (rwa.ragged_attention_mask(lengths, length, w) if ragged
+          else None)
+  valid = (rwa.slot_geometry(lengths, length)[3].reshape(-1) if ragged
+           else torch.ones(batch * length, dtype=torch.bool, device=cuda))
+  out = torch.full((batch * length, hidden), float('nan'), device=cuda)
+  before = (_kernels.n_attention_launches,
+            _kernels.n_attention_bf16_softmax_launches)
+  _kernels.attention(qkv, out, batch=batch, length=length, num_heads=heads,
+                     win=kernel_win, lengths=lengths,
+                     softmax_dtype=softmax_dtype)
+  want = fwa.attention_core_plain(
+      qkv, batch=batch, length=length, num_heads=heads, attn_win_size=w,
+      mask=mask, softmax_dtype=softmax_dtype)
+  torch.cuda.synchronize()
+  bf = softmax_dtype == torch.bfloat16
+  assert (_kernels.n_attention_launches - before[0],
+          _kernels.n_attention_bf16_softmax_launches - before[1]) == (
+              (0, 1) if bf else (1, 0))
+  assert torch.isfinite(out).all()
+  assert (out[~valid] == 0).all()
+  tol = TOL[softmax_dtype]
+  torch.testing.assert_close(out[valid], want[valid], rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize('heads', [4, 8])
+@pytest.mark.parametrize('softmax_dtype', [torch.float32, torch.bfloat16])
+def test_attention_core_narrow_heads(cuda, heads, softmax_dtype):
+  """head_dim 70 and 35 (hidden 280): 4-byte copies and scalar q loads,
+  zero padding to 80 and 48 columns."""
+  from deepconsensus_tpu_torch.ops import _kernels
+
+  batch, length, hidden = 9, 100, 280
+  gen = torch.Generator().manual_seed(heads)
+  qkv = torch.randn(batch * length, 3 * hidden, generator=gen).to(cuda)
+  out = torch.empty((batch * length, hidden), device=cuda)
+  _kernels.attention(qkv, out, batch=batch, length=length, num_heads=heads,
+                     win=12, softmax_dtype=softmax_dtype)
+  want = fwa.attention_core_plain(
+      qkv, batch=batch, length=length, num_heads=heads, attn_win_size=12,
+      softmax_dtype=softmax_dtype)
+  tol = TOL[softmax_dtype]
+  torch.testing.assert_close(out, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('ragged', [False, True])
+def test_bf16_softmax_model_kernels_match_plain(cuda, dtype, ragged):
+  """attn_softmax_dtype=bfloat16 through K1 or K4 and K2 (one launch of
+  each per layer, counted apart from the float32 softmax's), against
+  the plain versions: the model's probabilities within 2e-2 and its
+  calls agreeing on > 99.9% of the positions in float32 (the
+  reference's bar for the lever, tests/test_model.py). A logit on a bf16 rounding edge
+  rounds either way in the two versions' float32 sums, so the encoder's
+  LayerNorm output is no place for an elementwise bound."""
+  params = small_params(str(dtype).replace('torch.', ''),
+                        window_buckets=[100, 200],
+                        attn_softmax_dtype='bfloat16')
+  model = seeded_model(params, cuda)
+  lengths = slot_lengths(200, 37, cuda) if ragged else None
+  rows = fake_rows(params, 37, length=200 if ragged else 100).to(cuda)
+  valid = torch.ones(rows.shape[0], rows.shape[2], dtype=torch.bool,
+                     device=cuda)
+  if ragged:
+    valid = rwa.slot_geometry(lengths, 200)[3]
+    rows = rows * valid[:, None, :]
+  first = rwa if ragged else fwa
+  counts = (first.n_launches, first.n_launches_bf16_softmax,
+            feb.n_launches, feb.n_launches_bf16_softmax)
+  kernel = model(rows, window_lengths=lengths)
+  plain = model(rows, plain=True, window_lengths=lengths)
+  layers = params.num_hidden_layers
+  assert (first.n_launches, first.n_launches_bf16_softmax, feb.n_launches,
+          feb.n_launches_bf16_softmax) == (
+              counts[0], counts[1] + 1, counts[2], counts[3] + layers)
+  torch.testing.assert_close(kernel[valid], plain[valid], rtol=0, atol=2e-2)
+  agree = (kernel[valid].argmax(-1) == plain[valid].argmax(-1)).float()
+  # bfloat16 activations take the port's bf16 bar (PERF.md): >= 99%.
+  assert agree.mean() > 0.999 if dtype == torch.float32 else (
+      agree.mean() >= 0.99)
+
+
+def test_k1_on_a_second_card_launches_there(cuda):
+  """The launch helper makes the operands' card current: one K1 launch
+  on cuda:1 gives the plain version's result on cuda:1 and cuda:0's
+  kernel result."""
+  if torch.cuda.device_count() < 2:
+    pytest.skip('needs a second CUDA device')
+  params = small_params()
+  results = []
+  for device in (torch.device('cuda:0'), torch.device('cuda:1')):
+    model = seeded_model(params, device)
+    rows = fake_rows(params, 5).to(device)
+    results.append(model.encode(rows))
+    torch.testing.assert_close(results[-1], model.encode(rows, plain=True),
+                               rtol=1e-4, atol=1e-4)
+  assert results[1].device == torch.device('cuda:1')
+  torch.testing.assert_close(results[1].cpu(), results[0].cpu(), rtol=0,
+                             atol=0)

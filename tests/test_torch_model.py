@@ -153,8 +153,10 @@ def test_seeded_init_is_reproducible_with_nonzero_alphas():
 
 
 def test_unported_configs_raise():
-  """A quantization other than int8 and a non-float32 softmax stay
-  unported (int8 is ported: tests/test_torch_quantize.py). Several
+  """A quantization other than int8 and a softmax dtype other than
+  float32 and bfloat16 stay unported (int8 is ported:
+  tests/test_torch_quantize.py; the bfloat16 softmax:
+  tests/test_torch_softmax_dtype.py). Several
   buckets without ragged slots are served per bucket: the runner and the
   model take any set normalize_window_buckets accepts (no divisibility
   chain needed), and only an invalid set raises."""
@@ -175,4 +177,6 @@ def test_unported_configs_raise():
         torch_params(20, window_buckets='20,30,25'), device='cpu')
   with pytest.raises(NotImplementedError, match='float32'):
     torch_model.DeepConsensusModel(
-        torch_params(20, attn_softmax_dtype='bfloat16'), device='cpu')
+        torch_params(20, attn_softmax_dtype='float16'), device='cpu')
+  torch_model.DeepConsensusModel(
+      torch_params(20, attn_softmax_dtype='bfloat16'), device='cpu')

@@ -178,9 +178,10 @@ def test_cpu_tensor_runs_plain_version_without_launch():
 
 
 def test_unported_variants_raise():
-  """A non-float32 softmax stays unported on every kernel, the ragged
-  K4 included; K2's lengths variant is ported and takes [B, wps]
-  lengths only."""
+  """A softmax dtype other than float32 and bfloat16 stays unported on
+  every kernel, the ragged K4 included (the bfloat16 softmax is ported:
+  tests/test_torch_softmax_dtype.py); K2's lengths variant is ported and
+  takes [B, wps] lengths only."""
   x = torch.zeros(1, 20, HIDDEN)
   block = feb.EncoderBlockWeights(*[
       None if a is None else torch.from_numpy(np.asarray(a))
@@ -190,7 +191,7 @@ def test_unported_variants_raise():
                             lengths=torch.ones(1))
   with pytest.raises(NotImplementedError, match='float32'):
     feb.fused_encoder_stack(x, [block], num_heads=HEADS, attn_win_size=BAND,
-                            softmax_dtype='bfloat16')
+                            softmax_dtype='float16')
   params = jax_params(False, 20)
   rows, tables, weights, pos, specs, keys = k1_inputs(
       params, np.random.default_rng(7), 1)
@@ -200,4 +201,4 @@ def test_unported_variants_raise():
         {k: torch.from_numpy(v) for k, v in tables.items()},
         *map(torch.from_numpy, weights), torch.from_numpy(pos), specs=specs,
         table_keys=keys, num_heads=HEADS, attn_win_size=BAND,
-        softmax_dtype='bfloat16')
+        softmax_dtype='float16')
