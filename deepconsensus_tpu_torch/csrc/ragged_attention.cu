@@ -43,12 +43,14 @@
 // max(sd), d = bf16(sd - m), e = exp(d) in float32, z = bf16(sum e).
 //
 // Tiles: a block (4 warps) owns one (window or slot, 64-query tile,
-// head); each warp 16 queries, one m16 row tile. It stages the K/V rows
+// head); each warp 16 queries, one m16 row tile. It stages the K rows
 // its tile reaches (the tile plus win rows each side: 88 at win 12) with
 // 16-byte cp.async into padded shared-memory rows, head_dim padded with
-// zeros to a multiple of 16 (140 -> 144, 9 k-steps), and each warp reads
-// its q fragments straight from device memory (each q row is used by
-// that warp alone). P is taken from the S accumulators' register layout
+// zeros to a multiple of 16 (140 -> 144, 9 k-steps); each warp reads its
+// q fragments, and its v fragments, straight from device memory (a q row
+// serves one warp; v rows serve at most three, through the read-only
+// cache), so K alone in shared memory (53,504 bytes at win 12) holds four
+// blocks on an SM. P is taken from the S accumulators' register layout
 // as the A fragment of the P v product, 16 keys at a time. Output
 // fragments go straight to device memory, each quad of threads one full
 // 32-byte sector. Loops over k-steps and output columns stay rolled:
@@ -58,16 +60,17 @@
 //   resident (win <= 16, the model's band 12): one key block; a warp's
 //     keys lie in 3 chunks of 16 (6 n-tiles, 5 in the band at win 12),
 //     whose S stays in registers: one pass.
-//   streaming (wider bands, up to slots of 256 without one): K/V in key
-//     blocks of 96 rows and two passes, the row maxima first, then the
-//     numerators and P v chunk by chunk, so every e sees the final max
-//     as the reference's does.
+//   streaming (wider bands, up to slots of 256 without one): K and V in
+//     key blocks of 96 rows (115,200 bytes, two blocks an SM) and two
+//     passes, the row maxima first, then the numerators and P v chunk by
+//     chunk, so every e sees the final max as the reference's does.
 //
 // Bound: bytes. qkv in and o out once (459 MB at 1,024 x 100, 0.137 ms
-// at 3.35 TB/s) against ~40 GFLOP of piece products. The design keeps to
-// 16-byte copies and halo re-reads of (64 + 2 win) / 64 = 1.375x at win
-// 12 (from L2); shared memory (at most a 96-row key block, 115,200
-// bytes) holds two blocks on an SM.
+// at 3.35 TB/s) against ~40 GFLOP of piece products. On an H100 the
+// staging alone runs at that bound; what the kernel adds is the S and
+// P v phases' latency (they run at a low instruction rate: neither the
+// conversions of the splits nor the MMA rate sets it), which more
+// blocks on an SM hide in part.
 #include <float.h>
 #include <limits.h>
 #include <math.h>
@@ -117,9 +120,12 @@ __host__ __device__ inline int staged_rows(int L, int win) {
   return span < kKeyBlock ? span : kKeyBlock;
 }
 
+// Dynamic shared memory: K alone for the resident kernel, K and V for
+// the streaming one.
 size_t smem_bytes(int L, int head_dim, int win) {
-  return sizeof(float) * static_cast<size_t>(staged_rows(L, win)) *
-         (k_ld(head_dim) + v_ld(head_dim));
+  const int ld = win <= kResidentMaxWin ? k_ld(head_dim)
+                                        : k_ld(head_dim) + v_ld(head_dim);
+  return sizeof(float) * static_cast<size_t>(staged_rows(L, win)) * ld;
 }
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -282,17 +288,25 @@ __device__ __forceinline__ void p_frag(uint32_t (&a)[P][4], const float* s0,
   split_pair<P>(s1[2], s1[3], &a[0][3], 4);
 }
 
-// The B fragment of v for one chunk (staged rows row0 + 2t, +1, +8, +9,
-// clamped to the staged rows) and n-tile d (column 8 d + g), in 3 pieces.
-__device__ __forceinline__ void v_frag(uint32_t (&b)[3][2], const float* vs,
-                                       int vld, int row0, int rows, int d,
-                                       int g, int t) {
+// The B fragment of v for one chunk (rows row0 + 2t, +1, +8, +9 of v,
+// clamped to its `rows`; ld floats apart) and n-tile d (column 8 d + g),
+// in 3 pieces. kDevice: v in device memory, read through the read-only
+// cache, columns past head_dim read as 0 (the last head's would run past
+// the row); else staged in shared memory with zero-padded columns.
+template <bool kDevice>
+__device__ __forceinline__ void v_frag(uint32_t (&b)[3][2], const float* v,
+                                       int ld, int hd, int row0, int rows,
+                                       int d, int g, int t) {
   const int r = row0 + 2 * t;
   const int c = 8 * d + g;
-  split_pair<3>(vs[min(r, rows - 1) * vld + c],
-                vs[min(r + 1, rows - 1) * vld + c], &b[0][0], 2);
-  split_pair<3>(vs[min(r + 8, rows - 1) * vld + c],
-                vs[min(r + 9, rows - 1) * vld + c], &b[0][1], 2);
+  float x[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float* p = v + min(r + (i & 1) + 8 * (i >> 1), rows - 1) * ld + c;
+    x[i] = kDevice ? (c < hd ? __ldg(p) : 0.f) : *p;
+  }
+  split_pair<3>(x[0], x[1], &b[0][0], 2);
+  split_pair<3>(x[2], x[3], &b[0][1], 2);
 }
 
 // Writes a thread's four output values of n-tile d (rows g and g + 8 of
@@ -413,14 +427,16 @@ __device__ __forceinline__ void store_zeros(const Tile& T, int dpad, int t,
   }
 }
 
-// The resident kernel (win <= 16: the main path's band 12): one staged
-// key block; each warp keeps S for its 3 chunks in registers, takes the
-// row maxima and sums, and then, n-tile pair by n-tile pair of v's
-// columns, forms o from P in registers and writes it. A float32 softmax
-// divides each numerator by z before P v (as torch.softmax does); a
-// bfloat16 one multiplies the exact bf16(e) and divides the output.
+// The resident kernel (win <= 16: the main path's band 12): K staged in
+// one key block; each warp keeps S for its 3 chunks in registers, takes
+// the row maxima and sums, and then, n-tile pair by n-tile pair of v's
+// columns, forms o from P in registers and writes it, reading v from
+// device memory (K alone in shared memory holds four blocks on an SM).
+// A float32 softmax divides each numerator by z before P v (as
+// torch.softmax does); a bfloat16 one multiplies the exact bf16(e) and
+// divides the output.
 template <bool kBf16Softmax, bool kVec>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, 4)
     attention_resident(const float* __restrict__ qkv,
                        const int* __restrict__ lengths, int wps,
                        float* __restrict__ out, int L, int H, int hd,
@@ -433,34 +449,25 @@ __global__ void __launch_bounds__(kThreads, 2)
   const Tile T = make_tile(qkv, lengths, wps, out, L, H, hd, win, n_tiles,
                            warp, g);
   float* ks = smem;
-  float* vs = smem + staged_rows(L, win) * kld;
   const int rows = T.hi - T.lo;
-  // K, then V in a second copy group that lands while S is formed; the
-  // first q fragments travel meanwhile.
-  stage_rows<kVec>(ks, vs, T.base, 3 * H, H, T.h, hd, dpad, kld, vld, T.lo,
-                   rows, true, false, warp, lane);
-  cp_async_commit();
-  stage_rows<kVec>(ks, vs, T.base, 3 * H, H, T.h, hd, dpad, kld, vld, T.lo,
-                   rows, false, true, warp, lane);
+  // The first q fragments travel while K lands.
+  stage_rows<kVec>(ks, nullptr, T.base, 3 * H, H, T.h, hd, dpad, kld, vld,
+                   T.lo, rows, true, false, warp, lane);
   cp_async_commit();
   float2 qb[kQDepth][4];
   prefetch_q<kVec>(qb, T.qr[0], T.qr[1], dpad / 16, t, hd);
-  cp_async_wait<1>();
-  __syncthreads();
-  if (T.c1 - T.c0 > kResidentChunks) __trap();  // the host picked wrong
-
-  constexpr int kNT = 2 * kResidentChunks;
-  float s[kNT][4];
-  if (T.active) {
-    s_tiles<kNT, kVec>(s, qb, ks, kld, 16 * T.c0, rows, T.qr[0], T.qr[1],
-                       hd, dpad / 16, g, t);
-  }
   cp_async_wait<0>();
   __syncthreads();
   if (!T.active) {
     store_zeros<kVec>(T, dpad, t, hd);
     return;
   }
+  if (T.c1 - T.c0 > kResidentChunks) __trap();  // the host picked wrong
+
+  constexpr int kNT = 2 * kResidentChunks;
+  float s[kNT][4];
+  s_tiles<kNT, kVec>(s, qb, ks, kld, 16 * T.c0, rows, T.qr[0], T.qr[1], hd,
+                     dpad / 16, g, t);
   float m[2] = {-INFINITY, -INFINITY};
   mask_s<kNT, kBf16Softmax>(s, T.lo + 16 * T.c0, T.jlo, T.jhi, t, m);
   m[0] = quad_max(m[0]);
@@ -487,6 +494,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int ch = 0; ch < kResidentChunks; ++ch) {
     p_frag<kP>(a[ch], s[2 * ch], s[2 * ch + 1]);
   }
+  const float* v = T.base + static_cast<int64_t>(T.lo) * 3 * H + 2 * H +
+                   T.h * hd;
   const int n_dt = dpad / 8;  // even
 #pragma unroll 1
   for (int d = 0; d < n_dt; d += 2) {
@@ -496,7 +505,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int ch = 0; ch < kResidentChunks; ++ch) {
         uint32_t b[3][2];
-        v_frag(b, vs, vld, 16 * (T.c0 + ch), rows, d + dd, g, t);
+        v_frag<true>(b, v, 3 * H, hd, 16 * (T.c0 + ch), rows, d + dd, g, t);
         mma_pieces<kP, 3>(acc[dd][ch], a[ch], b);
       }
 #pragma unroll
@@ -592,7 +601,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int d = 0; d < kMaxDTiles; ++d) {
         if (d >= n_dt) break;
         uint32_t b[3][2];
-        v_frag(b, vs, vld, 16 * (c - cb), rows, d, g, t);
+        v_frag<false>(b, vs, vld, hd, 16 * (c - cb), rows, d, g, t);
         mma_pieces<kP, 3>(o[d], a, b);
       }
     }
