@@ -639,9 +639,7 @@ def core_entry(qkv, *, batch: int, length: int, heads: int, win: int,
                        softmax_dtype=sdt)
 
   if lengths is None:
-    i = torch.arange(length, device=dev)
-    mask = ((i[:, None] - i[None, :]).abs() <= win)[None].expand(
-        batch, length, length)
+    mask = _band(length, win, dev)[None].expand(batch, length, length)
     keep = torch.ones(batch * length, dtype=torch.bool, device=dev)
   else:
     mask = rwa.ragged_attention_mask(lengths, length, win)

@@ -10,7 +10,10 @@ alignment DP (K11/K12) and the banded DP (K13/K14) scores rtol 1e-5
 (atol 1e-4), gradients rtol 1e-4, atol 1e-5; the banded-attention
 training kernels (K5-K7) and the block-banded flash kernels (K8-K10) as
 K1/K2, K8's logsumexp rtol = atol = 1e-4 in both types (float32 from
-the same inputs).
+the same inputs); the attention core 1e-4 with a float32 softmax and
+2e-2 with the attn_softmax_dtype=bfloat16 variant, whose model-level
+test takes the reference's bar for the lever (probabilities within
+2e-2, calls agreeing on > 99.9%).
 """
 import numpy as np
 import pytest
