@@ -2538,10 +2538,18 @@ def main(argv) -> int:
           length: _kernels.attention_smem_bytes(
               length, p.hidden_size, p.num_heads, p.attn_win_size)
           for length in (LENGTH, SLOT_LEN, 256)},
-      # K8-K10's tiles: one size for every L and band.
+      # K8-K10's tiles: one size for every L and band (the largest of
+      # the three kernels, either dtype), and the blocks of K8 and K10
+      # an SM holds, [float32, bf16].
       'flash_smem_bytes': _build.load(
           'flash_band_attention').dc_flash_band_smem_bytes(
               p.hidden_size // p.num_heads),
+      'flash_blocks_per_sm': {
+          name: [_build.load(
+              'flash_band_attention').dc_flash_band_blocks_per_sm(
+                  dkdv, is_bf16, p.hidden_size // p.num_heads)
+                 for is_bf16 in (0, 1)]
+          for dkdv, name in enumerate(('K8', 'K10'))},
       # K1/K4's condenser at the main path's tables, rows and K.
       'condense_smem_bytes': {
           dtype: _kernels.embed_condense_smem_bytes(

@@ -66,6 +66,7 @@ SIGNATURES = {
     },
     'flash_band_attention': {
         'dc_flash_band_smem_bytes': (_I,),
+        'dc_flash_band_blocks_per_sm': (_I, _I, _I),
         'dc_flash_band_fwd': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _P),
         'dc_flash_band_dq': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

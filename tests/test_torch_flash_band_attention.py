@@ -113,9 +113,13 @@ def t(x):
 
 
 @pytest.mark.parametrize('length,win', [(100, 12), (200, 12), (257, 30),
-                                        (384, 130), (192, None), (200, 0)])
+                                        (384, 130), (192, None), (200, 0),
+                                        (129, 0), (191, 12), (200, 130),
+                                        (255, None)])
 def test_k8_plain_matches_jax_forward(length, win):
-  """o and lse; at win 0 only the diagonal is valid, so o = v."""
+  """o and lse; at win 0 only the diagonal is valid, so o = v. The
+  lengths and bands past the reference's own cases cross the CUDA
+  kernels' tile edges (64-row blocks, 16-row chunks)."""
   q, k, v, _ = qkv(2, length, 2, 16, seed=length)
   before = launches()
   o, lse = fba.flash_band_attention(t(q), t(k), t(v), win, with_lse=True)
@@ -150,7 +154,8 @@ def test_k8_plain_matches_jax_forward_in_bfloat16():
 
 
 @pytest.mark.parametrize('length,win', [(100, 12), (200, 12), (257, 30),
-                                        (192, None)])
+                                        (192, None), (129, 0), (191, 12),
+                                        (200, 130), (255, None)])
 def test_gradients_match_jax_vjp(length, win, plain_calls):
   """FlashBandAttention: K8 with lse forward, delta, K9 and K10."""
   q, k, v, do = qkv(2, length, 2, 16, seed=length + 1)

@@ -924,6 +924,66 @@ def test_flash_band_wrappers_reject_bad_input(cuda):
     fba.flash_band_attention(wide, wide, wide, 4)
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('d', [8, 35, 72, 140, 256])
+@pytest.mark.parametrize('length', [129, 200])
+@pytest.mark.parametrize('win', [0, 12, None])
+def test_flash_tensor_core_kernels_across_head_widths(cuda, dtype, d, length,
+                                                      win):
+  """K8 without and with lse and K10 (on the plain lse and delta) vs
+  plain at narrow heads (8, 72), an odd width (35: bf16 rows copied 2
+  bytes at a time, unpaired stores), the main path's 140 (padded to 144)
+  and the widest, 256 (two column groups of output tiles)."""
+  q, k, v, do = flash_inputs(cuda, 3, length, dtype, seed=d + length, d=d)
+  tol = TOL[dtype]
+  o = fba.flash_band_attention(q, k, v, win)
+  o_lse, lse = fba.flash_band_attention(q, k, v, win, with_lse=True)
+  want_o, want_lse = fba.flash_band_attention_plain(q, k, v, win,
+                                                    with_lse=True)
+  delta = fba.row_delta(do, want_o)
+  dk, dv = fba.flash_band_dkdv(q, k, v, do, want_lse, delta, win)
+  want_dk, want_dv = fba.flash_band_dkdv_plain(q, k, v, do, want_lse, delta,
+                                               win)
+  torch.cuda.synchronize()
+  assert torch.equal(o, o_lse)
+  torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+  for got, want in ((o, want_o), (dk, want_dk), (dv, want_dv)):
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('length,win', [(200, 12), (384, None)])
+def test_flash_tensor_core_kernels_repeat_bit_for_bit(cuda, dtype, length,
+                                                      win):
+  """K8 with lse and K10 twice on the same inputs: the same bits (no
+  atomics; every output element written once)."""
+  q, k, v, do = flash_inputs(cuda, 32, length, dtype, seed=11)
+  runs = []
+  for _ in range(2):
+    o, lse = fba.flash_band_attention(q, k, v, win, with_lse=True)
+    delta = fba.row_delta(do, o)
+    runs.append((o, lse, *fba.flash_band_dkdv(q, k, v, do, lse, delta, win)))
+  torch.cuda.synchronize()
+  for first, second in zip(*runs):
+    assert torch.equal(first, second)
+
+
+def test_flash_tensor_core_kernels_fit_two_blocks_an_sm(cuda):
+  """At the main path's head width (140) the largest shared memory of
+  the three flash kernels, either dtype, leaves room for two blocks an SM
+  ((233,472 - 2 x 1,024) / 2 bytes), and K8 and K10 hold at least two
+  blocks an SM in both dtypes, registers and shared memory counted
+  (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+  from deepconsensus_tpu_torch.ops import _build
+
+  lib = _build.load('flash_band_attention')
+  assert lib.dc_flash_band_smem_bytes(140) <= 115_712
+  for dkdv in (0, 1):  # K8, K10
+    for is_bf16 in (0, 1):
+      assert lib.dc_flash_band_blocks_per_sm(dkdv, is_bf16, 140) >= 2
+
+
 def test_training_step_with_flash_kernels_matches_the_cpu(cuda):
   """One float32 train step at L = 200 with use_pallas_attention and
   dropout 0: the card's (K8 with lse, K9 and K10 per layer, K11/K12 at
