@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero (nothing is caught):
 1. Print the card's name and power limit, then build every CUDA kernel
    from csrc/ (one nvcc per source, all at once) and print nvcc's
    register/spill/shared-memory report, the attention core's dynamic
-   shared memory at the ragged slot length and the condenser's.
+   shared memory at the ragged slot length and the condenser's, and the
+   blocks an SM of K8-K10 and of K6's two passes.
 2. Hold each kernel against its plain PyTorch version on the card at
    its path's shapes, full width, in float32 (rtol = atol = 1e-4) and
    bfloat16 (rtol = atol = 2e-2; K3 exact), and time kernel, plain
@@ -40,8 +41,9 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    the hard minimum, with K11's gates against the plain banded DP and,
    at W = 100, against K11/K12 too; K5 (banded attention
    forward), K7 (its dropout forward) and K6 (its backward, with and
-   without the mask) at 256 windows x 100 positions x 2 heads of 140,
-   band 12, with the float32 / bfloat16 tolerances above; K8 (the
+   without the mask; its `stages`: its two passes, each launched alone)
+   at 256 windows x 100 positions x 2 heads of 140, band 12, with the
+   float32 / bfloat16 tolerances above; K8 (the
    block-banded flash forward, without and with its logsumexp, lse
    rtol = atol = 1e-4), K9 (dq) and K10 (dk/dv) at 256 windows x 200
    positions x 2 heads of 140, band 12, the same tolerances; library
@@ -185,6 +187,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1384,8 +1387,37 @@ def check_banded_attention_kernels(dtype: str, device: str = 'cuda') -> dict:
   out['K6'] = dict(max_abs_err=err6, ms=cuda_ms(k6), plain_ms=cuda_ms(k6_plain),
                    library_ms=cuda_ms(k6_library), bound_ms=t_bound,
                    bound_by=by, no_mask_ms=cuda_ms(lambda: k6(None, 1.0)),
+                   stages=k6_stages(q, k, v, mask, do, win, keep),
                    flops=10 * d * pairs, bytes=7 * tensor + band_bytes)
   return out
+
+
+def k6_stages(q, k, v, mask, do, win: int, keep: float) -> dict:
+  """K6's two passes, each launched alone through its C entry point
+  (dc_banded_attention_bwd_pass) on buffers made once: pass 1 (dq and
+  the rows' softmax statistics), then pass 2 (dk, dv) on pass 1's
+  statistics. Not counted as launches."""
+  import torch
+
+  from deepconsensus_tpu_torch.ops import _build
+  from deepconsensus_tpu_torch.ops import banded_attention as ba
+
+  b, length, heads, d = q.shape
+  lib = _build.load('banded_attention')
+  outs = [torch.empty_like(q) for _ in range(3)]
+  stats = torch.empty((b, heads, length, 3), dtype=torch.float32,
+                      device=q.device)
+  ptr = _build.ptr
+  args = (ptr(q), ptr(k), ptr(v), ptr(mask), ptr(do), float(keep),
+          *map(ptr, outs), ptr(stats), int(q.dtype == torch.bfloat16), b,
+          length, heads, d, ba.kernel_win(length, win))
+
+  def run(n):
+    return lambda: _build.launch(lib.dc_banded_attention_bwd_pass,
+                                 f'K6 pass {n}', q.device, n, *args)
+
+  run(1)()  # the statistics pass 2 reads
+  return {'pass1': cuda_ms(run(1)), 'pass2': cuda_ms(run(2))}
 
 
 def check_flash_kernels(dtype: str, device: str = 'cuda') -> dict:
@@ -2403,6 +2435,14 @@ def train_attn_step_gates(device: str = 'cuda', flash: bool = False,
   ])
 
 
+def dq_kernel_of(key: str):
+  """'false' for K9 and 'true' for K6's first pass (the kSoftmax
+  argument of band_tiles.cuh's band_dq_kernel) in a profiler kernel
+  name, else None."""
+  match = re.search(r'band_dq_kernel<[^,]+, (true|false)', key)
+  return match.group(1) if match else None
+
+
 def train_step_breakdown(dtype: str, steps: int = 5, attn: bool = False,
                          band: bool = False, flash: bool = False) -> dict:
   """Phase 4 for one dtype: one full-width batch of TRAIN_BATCH seeded
@@ -2476,13 +2516,16 @@ def train_step_breakdown(dtype: str, steps: int = 5, attn: bool = False,
       'stage_ms': stage_ms, 'step_ms': step_ms,
       'device_kernel_ms': device_ms,
       'device_idle_share': 1 - device_ms / step_ms,
-      # K5-K7 (csrc/banded_attention.cu's kernels) in the profiled step.
+      # K5-K7 (csrc/banded_attention.cu's kernels; K6's first pass is
+      # band_tiles.cuh's band_dq_kernel<T, true>) in the profiled step.
       'banded_attention_ms': sum(e.self_device_time_total for e in kernels
-                                 if 'banded_' in e.key) / 1e3,
-      # K8-K10 (csrc/flash_band_attention.cu's kernels) in the profiled
-      # step.
+                                 if 'banded_' in e.key
+                                 or dq_kernel_of(e.key) == 'true') / 1e3,
+      # K8-K10 (csrc/flash_band_attention.cu's kernels; K9 is
+      # band_dq_kernel<T, false>) in the profiled step.
       'flash_attention_ms': sum(e.self_device_time_total for e in kernels
-                                if 'flash_' in e.key) / 1e3,
+                                if 'flash_' in e.key
+                                or dq_kernel_of(e.key) == 'false') / 1e3,
       # K11-K14 (csrc/wavefront.cu's kernels) in the profiled step.
       'alignment_dp_ms': sum(e.self_device_time_total for e in kernels
                              if 'wavefront_' in e.key or 'band_fwd' in e.key
@@ -2539,17 +2582,23 @@ def main(argv) -> int:
               length, p.hidden_size, p.num_heads, p.attn_win_size)
           for length in (LENGTH, SLOT_LEN, 256)},
       # K8-K10's tiles: one size for every L and band (the largest of
-      # the three kernels, either dtype), and the blocks of K8 and K10
-      # an SM holds, [float32, bf16].
+      # the three kernels, either dtype), and the blocks of K8, K10 and
+      # K9 an SM holds, [float32, bf16]; the same for K6's two passes.
       'flash_smem_bytes': _build.load(
           'flash_band_attention').dc_flash_band_smem_bytes(
               p.hidden_size // p.num_heads),
       'flash_blocks_per_sm': {
           name: [_build.load(
               'flash_band_attention').dc_flash_band_blocks_per_sm(
-                  dkdv, is_bf16, p.hidden_size // p.num_heads)
+                  kernel, is_bf16, p.hidden_size // p.num_heads)
                  for is_bf16 in (0, 1)]
-          for dkdv, name in enumerate(('K8', 'K10'))},
+          for kernel, name in enumerate(('K8', 'K10', 'K9'))},
+      'banded_bwd_blocks_per_sm': {
+          f'K6_pass{n}': [_build.load(
+              'banded_attention').dc_banded_attention_blocks_per_sm(
+                  n, is_bf16, p.hidden_size // p.num_heads)
+                          for is_bf16 in (0, 1)]
+          for n in (1, 2)},
       # K1/K4's condenser at the main path's tables, rows and K.
       'condense_smem_bytes': {
           dtype: _kernels.embed_condense_smem_bytes(
@@ -2956,9 +3005,11 @@ def main(argv) -> int:
     if name == 'K2_int8':
       entry.update(float32_bound_ms=kernels['float32'][name]['bound_ms'],
                    ffn_only_ms=r['ffn_only_ms'])
-    if name == 'K6':  # K5's backward: no mask
+    if name == 'K6':  # K5's backward: no mask; each pass alone
       entry['no_mask_ms'] = r['no_mask_ms']
       entry['no_mask_float32_ms'] = kernels['float32']['K6']['no_mask_ms']
+      entry.update(stages=r['stages'],
+                   float32_stages=kernels['float32']['K6']['stages'])
     if name == 'K8':  # with its logsumexp (train_flash's steps)
       entry.update(lse_ms=r['lse_ms'], lse_bound_ms=r['lse_bound_ms'],
                    lse_float32_ms=kernels['float32']['K8']['lse_ms'])

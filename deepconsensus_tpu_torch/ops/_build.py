@@ -63,6 +63,9 @@ SIGNATURES = {
                                     _I, _I, _P),
         'dc_banded_attention_bwd': (_P, _P, _P, _P, _P, _F, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _P),
+        'dc_banded_attention_bwd_pass': (_I, _P, _P, _P, _P, _P, _F, _P, _P,
+                                         _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        'dc_banded_attention_blocks_per_sm': (_I, _I, _I),
     },
     'flash_band_attention': {
         'dc_flash_band_smem_bytes': (_I,),

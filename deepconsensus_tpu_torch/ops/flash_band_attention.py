@@ -23,13 +23,13 @@ reference's [B*H, L]). Every sum runs in float32 and o, dq, dk, dv come
 back in q's dtype (float32 or bfloat16).
 
 On a CUDA tensor each wrapper launches its kernel in
-csrc/flash_band_attention.cu (K8 and K10 on the tensor cores, K9 on the
-CUDA cores) and counts the launch; on a CPU tensor it runs the plain
-version beside it, which writes the same arithmetic out on full [L, L]
-blocks. `FlashBandAttention` is the differentiable form
-(K8 with lse forward, K9 and K10 backward); `flash_band_attention_vjp`
-takes K8 without lse when no input needs a gradient, as the
-reference's custom VJP runs its primal.
+csrc/flash_band_attention.cu (all three on the tensor cores) and counts
+the launch; on a CPU tensor it runs the plain version beside it, which
+writes the same arithmetic out on full [L, L] blocks.
+`FlashBandAttention` is the differentiable form (K8 with lse forward, K9
+and K10 backward); `flash_band_attention_vjp` takes K8 without lse when
+no input needs a gradient, as the reference's custom VJP runs its
+primal.
 """
 from __future__ import annotations
 
@@ -47,9 +47,8 @@ n_dq_launches = 0       # K9
 n_dkdv_launches = 0     # K10
 
 _NEG = -1e9
-# K9 keeps a row's features in registers, 8 chunks of 32 lanes; K8 and
-# K10 hold at most 144 output columns a block and take D > 144 in two
-# column groups.
+# The kernels hold at most 144 output columns a block and take D > 144
+# in two column groups.
 MAX_HEAD_DIM = 256
 
 
@@ -147,8 +146,8 @@ def row_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
 def _launch_args(q: torch.Tensor, attn_win_size: Optional[int]):
   b, length, h, d = q.shape
   if d > MAX_HEAD_DIM:
-    raise ValueError(f'head width {d} > {MAX_HEAD_DIM}: K9 keeps a row in 8 '
-                     'chunks of 32 lanes')
+    raise ValueError(f'head width {d} > {MAX_HEAD_DIM}: the kernels hold at '
+                     'most two column groups of 144')
   return _build.load('flash_band_attention'), (
       int(q.dtype == torch.bfloat16), b, length, h, d,
       ba.kernel_win(length, attn_win_size))

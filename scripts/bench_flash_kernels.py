@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Times the port's flash kernels K8 (csrc/flash_band_attention.cu's
-forward, without and with its logsumexp) and K10 (its dk/dv pass) on one
-GPU, against an earlier version of the same source and against PyTorch's
-scaled_dot_product_attention with the band as its mask.
+forward, without and with its logsumexp), K9 (its dq pass) and K10 (its
+dk/dv pass) on one GPU, against an earlier version of the same source
+and against PyTorch's scaled_dot_product_attention with the band as its
+mask.
 
   python3 scripts/bench_flash_kernels.py [--parent DIR]
 
@@ -10,15 +11,15 @@ DIR is an unpacked checkout of an earlier commit (for example
 `git archive <commit> | tar -x -C DIR`); its
 csrc/flash_band_attention.cu is built with the same nvcc flags and
 called through its own C interface (dc_flash_band_fwd,
-dc_flash_band_dkdv), as this checkout's library is, on the same inputs
-and output buffers. Shapes, two heads of 140 as the model has: the
-train_flash path's 256 windows x 200 at band 12, the buckets path's
-200-bucket pack (1,024 x 200, band 12) and one wide band (256 x 200,
-win 130); bfloat16 and float32, q/k/v/do drawn from a seed, K10 on this
-checkout's lse and delta. The two versions are timed in turns (parent,
-new, new, parent) with CUDA events, 20 launches each after a warmup;
-SDPA's forward (K8's yardstick) and its autograd backward (dq, dk and
-dv together) are timed beside them. Each row carries the bytes bound
+dc_flash_band_dq, dc_flash_band_dkdv), as this checkout's library is, on
+the same inputs and output buffers. Shapes, two heads of 140 as the
+model has: the train_flash path's 256 windows x 200 at band 12, the
+buckets path's 200-bucket pack (1,024 x 200, band 12) and one wide band
+(256 x 200, win 130); bfloat16 and float32, q/k/v/do drawn from a seed,
+K9 and K10 on this checkout's lse and delta. The two versions are timed
+in turns (parent, new, new, parent) with CUDA events, 20 launches each
+after a warmup; SDPA's forward (K8's yardstick) and its autograd
+backward (dq, dk and dv together) are timed beside them. Each row carries the bytes bound
 (each input read once, each output written once, at 3.35 TB/s) and the
 largest |new - parent|. Prints one JSON line per shape, dtype and
 kernel, and the card's name and power limit first and last; with no
@@ -68,7 +69,8 @@ def build_parent(parent: str) -> ctypes.CDLL:
                   os.path.dirname(src), '-o', out, src], check=True,
                  capture_output=True)
   lib = ctypes.CDLL(out)
-  for name in ('dc_flash_band_fwd', 'dc_flash_band_dkdv'):
+  for name in ('dc_flash_band_fwd', 'dc_flash_band_dq',
+               'dc_flash_band_dkdv'):
     fn = getattr(lib, name)
     fn.argtypes = _build.SIGNATURES['flash_band_attention'][name]
     fn.restype = ctypes.c_int
@@ -121,6 +123,11 @@ def main(argv) -> int:
             ptr(out_lse[name] if with_lse else None), *dims, stream),
             f'{name} K8')
 
+      def dq(lib, name):
+        return lambda: _build.check(lib.dc_flash_band_dq(
+            ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
+            ptr(outs[name][0]), *dims, stream), f'{name} K9')
+
       def dkdv(lib, name):
         return lambda: _build.check(lib.dc_flash_band_dkdv(
             ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
@@ -145,6 +152,7 @@ def main(argv) -> int:
           ('K8', 4 * tensor, 'fwd', lambda lib, n: fwd(lib, n, False)),
           ('K8_lse', 4 * tensor + row, 'fwd',
            lambda lib, n: fwd(lib, n, True)),
+          ('K9', 5 * tensor + 2 * row, 'bwd', dq),
           ('K10', 6 * tensor + 2 * row, 'bwd', dkdv)):
         new = make(new_lib, 'new')
         entry = {'shape': shape, 'batch': batch, 'length': length,

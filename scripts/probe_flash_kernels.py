@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Where K8's and K10's time goes: times copies of
-csrc/flash_band_attention.cu with a phase removed.
+csrc/flash_band_attention.cu (with csrc/band_tiles.cuh, the header of
+its tiles) with a phase removed.
 
   python3 scripts/probe_flash_kernels.py
 
@@ -25,6 +26,8 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, 'deepconsensus_tpu_torch', 'csrc')
+# The kernels' source and the header of their tiles, patched together.
+SOURCES = ('flash_band_attention.cu', 'band_tiles.cuh')
 
 SKIP = '    if (c < blk.c_lo || c > blk.c_hi) continue;'
 FWD_PV = """      mma_pair<PP, AP>(acc[d], acc[d + 1], pa, vs, ldv, 8 * (blk.dt0 + d),
@@ -65,23 +68,28 @@ def main() -> int:
   print(subprocess.run(
       ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
       check=True, capture_output=True, text=True).stdout.strip(), flush=True)
-  with open(os.path.join(CSRC, 'flash_band_attention.cu')) as f:
-    source = f.read()
+  sources = {}
+  for file in SOURCES:
+    with open(os.path.join(CSRC, file)) as f:
+      sources[file] = f.read()
   out_dir = os.path.join(REPO, 'build', 'probe_flash_kernels')
-  os.makedirs(out_dir, exist_ok=True)
   procs = {}
   for name, patches in COPIES.items():
-    text = source
+    texts = dict(sources)
     for old, new in patches:
-      if old not in text:
-        raise SystemExit(f'{name}: the source no longer holds {old!r}')
-      text = text.replace(old, new)
-    path = os.path.join(out_dir, f'{name}.cu')
-    with open(path, 'w') as f:
-      f.write(text)
+      if not any(old in text for text in texts.values()):
+        raise SystemExit(f'{name}: the sources no longer hold {old!r}')
+      texts = {f: text.replace(old, new) for f, text in texts.items()}
+    # A directory a copy: the copied source includes the copied header.
+    copy_dir = os.path.join(out_dir, name)
+    os.makedirs(copy_dir, exist_ok=True)
+    for file, text in texts.items():
+      with open(os.path.join(copy_dir, file), 'w') as f:
+        f.write(text)
     procs[name] = subprocess.Popen(
         [_build.nvcc_path(), *_build.NVCC_FLAGS, '-I', CSRC, '-o',
-         os.path.join(out_dir, f'lib{name}.so'), path],
+         os.path.join(out_dir, f'lib{name}.so'),
+         os.path.join(copy_dir, SOURCES[0])],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
   libs = {}
   sigs = _build.SIGNATURES['flash_band_attention']

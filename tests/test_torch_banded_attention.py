@@ -115,10 +115,18 @@ def test_k5_plain_matches_jax_kernel_and_reference(win, length):
     np.testing.assert_allclose(got, np.asarray(want), atol=2e-5, rtol=1e-5)
 
 
+# (win, length): the window of 30 and lengths across K6's 64-row blocks
+# and 16-row chunks (65, 100, 128), with band 12, the diagonal alone and
+# none. The cases at 30 keep their ids.
+VJP_CASES = [(w, n) for n in (30, 65, 100, 128) for w in (12, 0, None)]
+
+
 @pytest.mark.parametrize('masked', [False, True])
-@pytest.mark.parametrize('win', [12, None])
-def test_k7_and_k6_match_jax_vjp(win, masked):
-  q, k, v, do, mask = qkv(2, 30, 2, 24, seed=7)
+@pytest.mark.parametrize(
+    'win,length', VJP_CASES,
+    ids=[str(w) if n == 30 else f'{w}-L{n}' for w, n in VJP_CASES])
+def test_k7_and_k6_match_jax_vjp(win, length, masked):
+  q, k, v, do, mask = qkv(2, length, 2, 24, seed=7)
   keep = 0.9
   jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
   if masked:

@@ -828,6 +828,62 @@ def test_banded_attention_wrappers_reject_bad_input(cuda):
     ba.banded_attention(big, big, big, None)
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b', [1, 256])
+@pytest.mark.parametrize('masked', [False, True])
+@pytest.mark.parametrize('win', [0, 12, None])
+@pytest.mark.parametrize('length', [17, 57, 64, 65, 100, 128])
+@pytest.mark.parametrize('d', [8, 35, 140, 256])
+def test_k6_tensor_cores_match_plain(cuda, d, length, win, masked, b, dtype):
+  """K6 (dq, dk, dv), one launch, vs plain on the tensor-core tiles'
+  edges: odd lengths (17, 57: mask rows 1-byte aligned), one and two
+  64-row blocks (64, 65), the train path's 100 and the fused route's
+  longest, 128 (no band: 8 chunks a row); the diagonal alone, band 12
+  and none; narrow (8), odd (35), the main path's 140 and two column
+  groups (256); one window and 256."""
+  q, k, v, do, mask = attention_inputs(cuda, b, length, 2, d, dtype,
+                                       seed=d + length + b)
+  m, keep = (mask, 0.9) if masked else (None, 1.0)
+  before = ba.n_bwd_launches
+  got = ba.banded_attention_bwd(q, k, v, m, do, win, keep)
+  want = ba.banded_attention_bwd_plain(q, k, v, m, do, win, keep)
+  torch.cuda.synchronize()
+  assert ba.n_bwd_launches == before + 1
+  for g, w in zip(got, want):
+    assert g.dtype == dtype and torch.isfinite(g.float()).all()
+    torch.testing.assert_close(g, w, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('length,win', [(100, 12), (128, None), (57, 12)])
+def test_k6_repeats_bit_for_bit(cuda, dtype, length, win):
+  """K6 with the mask twice on the same inputs: the same bits (no
+  atomics; every output element and statistic written once)."""
+  q, k, v, do, mask = attention_inputs(cuda, 64, length, 2, 140, dtype, 3)
+  runs = [ba.banded_attention_bwd(q, k, v, mask, do, win, 0.9)
+          for _ in range(2)]
+  torch.cuda.synchronize()
+  for first, second in zip(*runs):
+    assert torch.equal(first, second)
+
+
+def test_k6_passes_fit_two_blocks_an_sm(cuda):
+  """At the main path's head width (140) both K6 passes hold at least
+  two blocks an SM in both dtypes, registers and shared memory counted,
+  and refuse a pass or width they do not have."""
+  from deepconsensus_tpu_torch.ops import _build
+
+  lib = _build.load('banded_attention')
+  for n in (1, 2):
+    for is_bf16 in (0, 1):
+      assert lib.dc_banded_attention_blocks_per_sm(n, is_bf16, 140) >= 2
+  assert lib.dc_banded_attention_blocks_per_sm(3, 0, 140) < 0
+  assert lib.dc_banded_attention_blocks_per_sm(1, 0, 264) < 0
+  q, k, v, do, _ = attention_inputs(cuda, 1, 16, 1, 264, torch.float32, 0)
+  with pytest.raises(ValueError, match='head width'):
+    ba.banded_attention_bwd(q, k, v, None, do, 4, 1.0)
+
+
 def test_training_step_with_attention_kernels_matches_the_cpu(cuda):
   """One float32 train step with use_pallas_attention, dropout 0: the
   card's (K5 forward and K6 backward per layer, K11/K12) loss within
@@ -930,7 +986,7 @@ def test_flash_band_wrappers_reject_bad_input(cuda):
 @pytest.mark.parametrize('win', [0, 12, None])
 def test_flash_tensor_core_kernels_across_head_widths(cuda, dtype, d, length,
                                                       win):
-  """K8 without and with lse and K10 (on the plain lse and delta) vs
+  """K8 without and with lse, K9 and K10 (on the plain lse and delta) vs
   plain at narrow heads (8, 72), an odd width (35: bf16 rows copied 2
   bytes at a time, unpaired stores), the main path's 140 (padded to 144)
   and the widest, 256 (two column groups of output tiles)."""
@@ -941,13 +997,16 @@ def test_flash_tensor_core_kernels_across_head_widths(cuda, dtype, d, length,
   want_o, want_lse = fba.flash_band_attention_plain(q, k, v, win,
                                                     with_lse=True)
   delta = fba.row_delta(do, want_o)
+  dq = fba.flash_band_dq(q, k, v, do, want_lse, delta, win)
   dk, dv = fba.flash_band_dkdv(q, k, v, do, want_lse, delta, win)
+  want_dq = fba.flash_band_dq_plain(q, k, v, do, want_lse, delta, win)
   want_dk, want_dv = fba.flash_band_dkdv_plain(q, k, v, do, want_lse, delta,
                                                win)
   torch.cuda.synchronize()
   assert torch.equal(o, o_lse)
   torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
-  for got, want in ((o, want_o), (dk, want_dk), (dv, want_dv)):
+  for got, want in ((o, want_o), (dq, want_dq), (dk, want_dk),
+                    (dv, want_dv)):
     assert got.dtype == dtype and torch.isfinite(got.float()).all()
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
@@ -956,14 +1015,15 @@ def test_flash_tensor_core_kernels_across_head_widths(cuda, dtype, d, length,
 @pytest.mark.parametrize('length,win', [(200, 12), (384, None)])
 def test_flash_tensor_core_kernels_repeat_bit_for_bit(cuda, dtype, length,
                                                       win):
-  """K8 with lse and K10 twice on the same inputs: the same bits (no
+  """K8 with lse, K9 and K10 twice on the same inputs: the same bits (no
   atomics; every output element written once)."""
   q, k, v, do = flash_inputs(cuda, 32, length, dtype, seed=11)
   runs = []
   for _ in range(2):
     o, lse = fba.flash_band_attention(q, k, v, win, with_lse=True)
     delta = fba.row_delta(do, o)
-    runs.append((o, lse, *fba.flash_band_dkdv(q, k, v, do, lse, delta, win)))
+    runs.append((o, lse, fba.flash_band_dq(q, k, v, do, lse, delta, win),
+                 *fba.flash_band_dkdv(q, k, v, do, lse, delta, win)))
   torch.cuda.synchronize()
   for first, second in zip(*runs):
     assert torch.equal(first, second)
@@ -972,16 +1032,16 @@ def test_flash_tensor_core_kernels_repeat_bit_for_bit(cuda, dtype, length,
 def test_flash_tensor_core_kernels_fit_two_blocks_an_sm(cuda):
   """At the main path's head width (140) the largest shared memory of
   the three flash kernels, either dtype, leaves room for two blocks an SM
-  ((233,472 - 2 x 1,024) / 2 bytes), and K8 and K10 hold at least two
-  blocks an SM in both dtypes, registers and shared memory counted
+  ((233,472 - 2 x 1,024) / 2 bytes), and K8, K10 and K9 hold at least
+  two blocks an SM in both dtypes, registers and shared memory counted
   (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
   from deepconsensus_tpu_torch.ops import _build
 
   lib = _build.load('flash_band_attention')
   assert lib.dc_flash_band_smem_bytes(140) <= 115_712
-  for dkdv in (0, 1):  # K8, K10
+  for kernel in (0, 1, 2):  # K8, K10, K9
     for is_bf16 in (0, 1):
-      assert lib.dc_flash_band_blocks_per_sm(dkdv, is_bf16, 140) >= 2
+      assert lib.dc_flash_band_blocks_per_sm(kernel, is_bf16, 140) >= 2
 
 
 def test_training_step_with_flash_kernels_matches_the_cpu(cuda):
