@@ -40,10 +40,11 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    costs with lengths 0 and m, W = 12 and W = 100 = m, loss_reg 0.1 and
    the hard minimum, with K11's gates against the plain banded DP and,
    at W = 100, against K11/K12 too; K5 (banded attention
-   forward), K7 (its dropout forward) and K6 (its backward, with and
-   without the mask; its `stages`: its two passes, each launched alone)
-   at 256 windows x 100 positions x 2 heads of 140, band 12, with the
-   float32 / bfloat16 tolerances above; K8 (the
+   forward), K7 (its dropout forward; `mask_ms`: its time over K5's) and
+   K6 (its backward, with and without the mask; its `stages`: its two
+   passes, each launched alone) at 256 windows x 100 positions x 2 heads
+   of 140, band 12, with the float32 / bfloat16 tolerances above, and
+   the blocks an SM of the forward (`blocks_per_sm`); K8 (the
    block-banded flash forward, without and with its logsumexp, lse
    rtol = atol = 1e-4), K9 (dq) and K10 (dk/dv) at 256 windows x 200
    positions x 2 heads of 140, band 12, the same tolerances; library
@@ -1309,6 +1310,7 @@ def check_banded_attention_kernels(dtype: str, device: str = 'cuda') -> dict:
   import torch
   import torch.nn.functional as F
 
+  from deepconsensus_tpu_torch.ops import _build
   from deepconsensus_tpu_torch.ops import banded_attention as ba
   from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
 
@@ -1367,14 +1369,22 @@ def check_banded_attention_kernels(dtype: str, device: str = 'cuda') -> dict:
     return F.scaled_dot_product_attention(*sdpa_in, attn_mask=band,
                                           scale=1.0)
 
+  # The forward's blocks an SM at this head width (K5's and K7's fewer).
+  fwd_blocks = _build.load(
+      'banded_attention').dc_banded_attention_blocks_per_sm(
+          0, int(dtype == 'bfloat16'), d)
   t_bound, by = bound(4 * d * pairs, 4 * tensor, dtype)
   out['K5'] = dict(max_abs_err=err5, ms=cuda_ms(k5), plain_ms=cuda_ms(k5_plain),
                    library_ms=cuda_ms(k5_library), bound_ms=t_bound,
-                   bound_by=by, flops=4 * d * pairs, bytes=4 * tensor)
+                   bound_by=by, flops=4 * d * pairs, bytes=4 * tensor,
+                   blocks_per_sm=fwd_blocks)
   t_bound, by = bound(4 * d * pairs, 4 * tensor + band_bytes, dtype)
-  out['K7'] = dict(max_abs_err=err7, ms=cuda_ms(k7), plain_ms=cuda_ms(k7_plain),
+  k7_ms = cuda_ms(k7)
+  out['K7'] = dict(max_abs_err=err7, ms=k7_ms, plain_ms=cuda_ms(k7_plain),
                    library_ms=None, bound_ms=t_bound, bound_by=by,
-                   flops=4 * d * pairs, bytes=4 * tensor + band_bytes)
+                   flops=4 * d * pairs, bytes=4 * tensor + band_bytes,
+                   blocks_per_sm=fwd_blocks,
+                   mask_ms=k7_ms - out['K5']['ms'])
   leaves = [x.detach().requires_grad_(True) for x in sdpa_in]
   sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=band,
                                             scale=1.0)
@@ -2583,7 +2593,8 @@ def main(argv) -> int:
           for length in (LENGTH, SLOT_LEN, 256)},
       # K8-K10's tiles: one size for every L and band (the largest of
       # the three kernels, either dtype), and the blocks of K8, K10 and
-      # K9 an SM holds, [float32, bf16]; the same for K6's two passes.
+      # K9 an SM holds, [float32, bf16]; the same for the K5 / K7
+      # forward and K6's two passes.
       'flash_smem_bytes': _build.load(
           'flash_band_attention').dc_flash_band_smem_bytes(
               p.hidden_size // p.num_heads),
@@ -2593,12 +2604,12 @@ def main(argv) -> int:
                   kernel, is_bf16, p.hidden_size // p.num_heads)
                  for is_bf16 in (0, 1)]
           for kernel, name in enumerate(('K8', 'K10', 'K9'))},
-      'banded_bwd_blocks_per_sm': {
-          f'K6_pass{n}': [_build.load(
+      'banded_blocks_per_sm': {
+          name: [_build.load(
               'banded_attention').dc_banded_attention_blocks_per_sm(
                   n, is_bf16, p.hidden_size // p.num_heads)
-                          for is_bf16 in (0, 1)]
-          for n in (1, 2)},
+                 for is_bf16 in (0, 1)]
+          for n, name in enumerate(('K5_K7', 'K6_pass1', 'K6_pass2'))},
       # K1/K4's condenser at the main path's tables, rows and K.
       'condense_smem_bytes': {
           dtype: _kernels.embed_condense_smem_bytes(
@@ -3005,6 +3016,13 @@ def main(argv) -> int:
     if name == 'K2_int8':
       entry.update(float32_bound_ms=kernels['float32'][name]['bound_ms'],
                    ffn_only_ms=r['ffn_only_ms'])
+    if name in ('K5', 'K7'):  # the forward's blocks an SM; K7 over K5
+      entry.update(blocks_per_sm=r['blocks_per_sm'],
+                   float32_blocks_per_sm=kernels['float32'][name][
+                       'blocks_per_sm'])
+      if name == 'K7':
+        entry.update(mask_ms=r['mask_ms'],
+                     float32_mask_ms=kernels['float32']['K7']['mask_ms'])
     if name == 'K6':  # K5's backward: no mask; each pass alone
       entry['no_mask_ms'] = r['no_mask_ms']
       entry['no_mask_float32_ms'] = kernels['float32']['K6']['no_mask_ms']

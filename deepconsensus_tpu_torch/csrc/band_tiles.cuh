@@ -674,5 +674,213 @@ __global__ void __launch_bounds__(32 * kWarps,
   }
 }
 
+// ------------------------------------------------------------------------
+// The forward: K8 and K5 / K7.
+//
+// A block of kWarps warps owns 16 kWarps query rows of one (window,
+// head), each warp one m16 row tile. q [rows, D] is staged once; k and v
+// walk a ring of kFwdStages chunks of 16 over [r0 - win, r1 + win). Per
+// chunk S (16 x 16 a warp) comes into registers as four independent MMA
+// chains (two n-tiles, even and odd k-steps), the online softmax runs on
+// the accumulators (running max m and sum l a row, by quad shuffles; acc
+// = acc alpha + P v), P is taken from the accumulators' layout as the A
+// fragment of P v, and o (16 x 144 a warp, 72 floats a thread) stays in
+// registers; o = acc / l (a row with no valid key gives 0 and lse 0).
+//   kMask false: K8, and K5 (lse null).
+//   kMask true, K7: l sums p without the mask, and the P fed to P v is p
+//     drop, drop = mask / keep_prob, so o = acc / l is the reference's
+//     (p / sum(p) mask / keep_prob) v up to rounding. The mask's bytes of
+//     the thread's accumulator positions (rows g, g + 8; keys 2t, 2t + 1)
+//     are read inside the band only, one byte each (rows of odd L are not
+//     aligned), before the chunk's S products so that they arrive under
+//     them.
+// ------------------------------------------------------------------------
+
+constexpr int kFwdStages = 3;
+
+// q [rows, ld_pairs], then kFwdStages x {k [16, ld_pairs], v [16,
+// ld_cols]}.
+template <typename T>
+__host__ __device__ inline size_t fwd_q_bytes(int dp, int rows = kBlockRows) {
+  return sizeof(T) * static_cast<size_t>(rows) * ld_pairs<T>(dp);
+}
+template <typename T>
+__host__ __device__ inline size_t fwd_stage_bytes(int dp) {
+  return sizeof(T) * static_cast<size_t>(kChunk) *
+         (ld_pairs<T>(dp) + ld_cols<T>(dp));
+}
+template <typename T>
+size_t fwd_smem(int D, int rows = kBlockRows) {
+  return fwd_q_bytes<T>(padded(D), rows) +
+         kFwdStages * fwd_stage_bytes<T>(padded(D));
+}
+
+// The body of the forward kernels: K8's flash_fwd_kernel (no mask, lse
+// optional) and K5 / K7's banded_fwd_tc_kernel (lse null).
+template <typename T, bool kMask, int kWarps = 4>
+__device__ __forceinline__ void softmax_fwd_rows(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const uint8_t* __restrict__ mask,
+    float keep_prob, T* __restrict__ o, float* __restrict__ lse, int L,
+    int H, int D, int win, int n_tiles, int ch) {
+  constexpr int kThreads = 32 * kWarps, kRows = kChunk * kWarps;
+  constexpr int AP = in_pieces<T>();
+  constexpr int PP = w_pieces<T>();
+  constexpr int kStages = kFwdStages;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  const int dp = padded(D);
+  const int ldq = ld_pairs<T>(dp), ldv = ld_cols<T>(dp);
+  const size_t stage_bytes = fwd_stage_bytes<T>(dp);
+  T* qs = reinterpret_cast<T*>(smem_tc);
+  unsigned char* ring = smem_tc + fwd_q_bytes<T>(dp, kRows);
+  auto k_stage = [&](int s) {
+    return reinterpret_cast<T*>(ring + s * stage_bytes);
+  };
+  auto v_stage = [&](int s) { return k_stage(s) + kChunk * ldq; };
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const Block blk = block_of(L, H, D, win, n_tiles, warp, kRows);
+
+  zero_pad<kThreads>(qs, ldq, kRows, D, dp, tid);
+  for (int s = 0; s < kStages; ++s) {
+    zero_pad<kThreads>(k_stage(s), ldq, kChunk, D, dp, tid);
+    zero_pad<kThreads>(v_stage(s), ldv, kChunk, D, dp, tid);
+  }
+  const int ld = static_cast<int>(blk.ld);
+  auto stage = [&](int c) {
+    const int row0 = blk.lo + kChunk * c;
+    const int n = min(kChunk, blk.hi - row0);
+    const int64_t off = blk.base + static_cast<int64_t>(row0) * ld;
+    copy_rows<kThreads>(k_stage(c % kStages), ldq, k + off, ld, kChunk, n, D,
+                        ch, tid);
+    copy_rows<kThreads>(v_stage(c % kStages), ldv, v + off, ld, kChunk, n, D,
+                        ch, tid);
+  };
+  copy_rows<kThreads>(qs, ldq, q + blk.base + static_cast<int64_t>(blk.r0) * ld,
+                      ld, kRows, blk.r1 - blk.r0, D, ch, tid);
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < blk.n_chunks) stage(c);
+    cp_async_commit();
+  }
+
+  // K7: the mask rows of the thread's two query rows (the window's first
+  // row for a row past L, never read).
+  const uint8_t* mrow[2] = {mask, mask};
+  const float inv_keep = 1.f / keep_prob;
+  if constexpr (kMask) {
+    const uint8_t* mwin =
+        mask + (static_cast<int64_t>(blk.b) * H + blk.h) * L * L;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = blk.w0 + g + 8 * r;
+      mrow[r] = mwin + static_cast<int64_t>(i < L ? i : 0) * L;
+    }
+  }
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+  float acc[kGroupTiles][4];
+#pragma unroll
+  for (int d = 0; d < kGroupTiles; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+
+  for (int c = 0; c < blk.n_chunks; ++c) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk c landed; chunk c - 1's stage is free
+    if (c + kStages - 1 < blk.n_chunks) stage(c + kStages - 1);
+    cp_async_commit();
+    if (c < blk.c_lo || c > blk.c_hi) continue;
+    const T* ks = k_stage(c % kStages);
+    const T* vs = v_stage(c % kStages);
+    const int key0 = blk.lo + kChunk * c;
+    // K7: the mask bytes of the thread's 8 positions in the band, loaded
+    // ahead of the products.
+    uint32_t keep[2][4];
+    if constexpr (kMask) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = key0 + 8 * nt + 2 * t + (e & 1);
+          const int i = blk.w0 + g + 8 * (e >> 1);
+          const bool valid = j < blk.hi && i < L && abs(i - j) <= win;
+          keep[nt][e] = valid ? mrow[e >> 1][j] : 0u;
+        }
+    }
+    float s[2][4], s_odd[2][4];
+    s_tiles<T, AP>(s, qs, ks, s_odd, qs, ks, ldq, kChunk * warp, ldq,
+                   dp / kChunk, 2, 1, lane);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] += s_odd[nt][e];
+
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = key0 + 8 * nt + 2 * t + (e & 1);
+        const int i = blk.w0 + g + 8 * (e >> 1);
+        const bool valid = j < blk.hi && i < L && abs(i - j) <= win;
+        s[nt][e] = valid ? s[nt][e] : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = m_new == -INFINITY ? 1.f : expf(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[nt][e];
+        const float p = x == -INFINITY ? 0.f : expf(x - m[e >> 1]);
+        l[e >> 1] += p;
+        if constexpr (kMask) {
+          s[nt][e] = p * drop_of(keep[nt][e], keep_prob, inv_keep);
+        } else {
+          s[nt][e] = p;
+        }
+      }
+#pragma unroll
+    for (int d = 0; d < kGroupTiles; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[d][e] *= alpha[e >> 1];
+    uint32_t pa[PP][4];
+    acc_frag<PP>(pa, s);
+#pragma unroll
+    for (int d = 0; d < kGroupTiles; d += 2) {
+      if (d >= blk.n_dt) break;
+      mma_pair<PP, AP>(acc[d], acc[d + 1], pa, vs, ldv, 8 * (blk.dt0 + d),
+                       lane);
+    }
+  }
+
+  const int64_t stats = (static_cast<int64_t>(blk.b) * H + blk.h) * L;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    const int i = blk.w0 + g + 8 * r;
+    if (i >= L) continue;
+    const float denom = l[r] == 0.f ? 1.f : l[r];
+    T* row = o + blk.base + static_cast<int64_t>(i) * ld;
+#pragma unroll
+    for (int d = 0; d < kGroupTiles; ++d) {
+      if (d >= blk.n_dt) break;
+      store_pair(row, 8 * (blk.dt0 + d) + 2 * t, D, acc[d][2 * r] / denom,
+                 acc[d][2 * r + 1] / denom);
+    }
+    if (lse != nullptr && blockIdx.z == 0 && t == 0) {
+      lse[stats + i] = l[r] == 0.f ? 0.f : m[r] + logf(denom);
+    }
+  }
+}
+
 }  // namespace band
 }  // namespace dc

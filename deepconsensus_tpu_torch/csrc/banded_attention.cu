@@ -25,12 +25,27 @@
 // every output element is written once by one thread, so results repeat
 // from run to run.
 //
-// K5 and K7, the first port's design: a block owns one (window b, tile
-// of 32 positions, head h), 256 threads; it stages the K/V rows [q0 -
-// win, q1 + win) (56 rows at win 12) in shared memory as float32, rows
-// padded to D+1 floats; a warp takes one query at a time, one lane per
-// band partner, warp shuffles for the row max and sums, then one lane per
-// feature for the weighted sums, every product a float32 fmaf.
+// K5 and K7 on the tensor cores: band_tiles.cuh's forward body, the one
+// K8 runs (softmax_fwd_rows), in banded_fwd_tc_kernel<T, kMask>. A block
+// of 4 warps owns 64 query rows of one (window, head), the heads of a
+// tile in neighbouring blocks; q [64, D] is staged once, and K and V walk
+// [r0 - win, r1 + win) in chunks of 16 through a 3-stage cp.async ring
+// (5 chunks for rows 0-63 and 3 for rows 64-99 at L = 100, band 12; 8
+// without a band at L = 128). S = q k^T comes into registers as four MMA
+// chains (the exact operand splits below), the online softmax runs on
+// the accumulators (running max and sum a row by quad shuffles, acc =
+// acc alpha + P v) and o stays in registers; K5 divides by the sum at
+// the end. K7's sum takes p without the mask and its P v takes p drop,
+// drop = mask / keep_prob from the mask's bytes of the thread's
+// accumulator positions, read inside the band only, before the chunk's
+// S products; o = acc / sum is the reference's (p / sum(p) drop) v up
+// to rounding. D is padded to 144 and
+// D > 144 takes two column groups (D <= 256, K6's limit too). At D = 140
+// they take 48,640 bytes of shared memory bf16 / 96,512 float32 and
+// 143 / 164 registers bf16 (K5 / K7), 179 / 201 float32, no spills:
+// three bf16 blocks an SM, two float32. Blocks of 2 warps or of the
+// whole window (7) were slower at L = 100 (scripts/bench_banded_kernels.py
+// --warps).
 //
 // K6 on the tensor cores, two kernels launched back to back, both on
 // band_tiles.cuh's tiles and exact operand splits (bf16 one piece;
@@ -77,169 +92,75 @@
 // (28.7 MB each in float32) and write o, and K6 reads q, k, v, do and
 // the mask's band and writes dq, dk, dv: a few operations per byte (the
 // band's products are ~0.7 GFLOP forward, ~1.7 GFLOP backward), so
-// device memory bounds them: ~34 / ~60 us in float32 at 3.35 TB/s, K6
-// 0.030 ms in bf16. On an H100 K6 takes 0.205 ms bf16 with the mask
+// device memory bounds them: ~34 / ~60 us in float32 at 3.35 TB/s, K5
+// 0.017 and K6 0.030 ms in bf16. On an H100 K5 takes 0.067 ms bf16 /
+// 0.130 float32 and K7 0.071 / 0.134 (the first port's scalar forward
+// 0.160 / 0.159 and 0.167 / 0.165; SDPA's forward with the band 0.523 /
+// 0.202). K6 takes 0.205 ms bf16 with the mask
 // (pass 1 0.103, pass 2 0.101) and 0.194 without, 0.457 / 0.444 in
 // float32 (scripts/bench_banded_kernels.py; the first port's scalar K6
 // 0.51 / 0.50).
 #include <math.h>
 #include <stdint.h>
 
-#include "attention_util.cuh"
 #include "band_tiles.cuh"
 
 namespace {
 
 using namespace dc::band;
 
-// K5 and K7.
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;
+// ------------------------------------------------------------------------
+// K5 and K7 on the tensor cores.
+// ------------------------------------------------------------------------
 
-using dc::store;
-using dc::to_f;
-using dc::warp_max;
-using dc::warp_sum;
+// Warps (16 query rows each) of a K5 / K7 block;
+// scripts/bench_banded_kernels.py times copies with other counts.
+constexpr int kFwdWarps = 4;
+constexpr int kFwdThreads = 32 * kFwdWarps;
+constexpr int kFwdRows = kChunk * kFwdWarps;
 
-// Rows a tile reaches, and partners of one position.
-__host__ __device__ inline int span_rows(int L, int win) {
-  return L < kTile + 2 * win ? L : kTile + 2 * win;
-}
-__host__ __device__ inline int band_len(int L, int win) {
-  return L < 2 * win + 1 ? L : 2 * win + 1;
-}
-
-// K5's and K7's shared memory: two staged [span, D+1] arrays, two
-// per-warp [D] rows, two per-warp [band] rows (row1 and buf1 unread).
-size_t smem_bytes(int L, int D, int win) {
-  return sizeof(float) *
-         (2 * static_cast<size_t>(span_rows(L, win)) * (D + 1) +
-          2 * kWarps * static_cast<size_t>(D) +
-          2 * kWarps * static_cast<size_t>(band_len(L, win)));
-}
-
-struct Smem {
-  float* a;     // [span, D+1]: K
-  float* b;     // [span, D+1]: V
-  float* row0;  // [kWarps, D]: this warp's q
-  float* row1;  // [kWarps, D], unread
-  float* buf0;  // [kWarps, band]
-  float* buf1;  // [kWarps, band], unread
-};
-
-__device__ inline Smem carve(float* smem, int span, int D, int band) {
-  Smem s;
-  s.a = smem;
-  s.b = s.a + span * (D + 1);
-  s.row0 = s.b + span * (D + 1);
-  s.row1 = s.row0 + kWarps * D;
-  s.buf0 = s.row1 + kWarps * D;
-  s.buf1 = s.buf0 + kWarps * band;
-  return s;
-}
-
-// Stages rows [lo, hi) of head h of two [B, L, H, D] tensors.
-template <typename T>
-__device__ inline void stage(const T* __restrict__ x, const T* __restrict__ y,
-                             int64_t base, int64_t ld, int lo, int hi, int D,
-                             float* xs, float* ys) {
-  for (int idx = threadIdx.x; idx < (hi - lo) * D; idx += kThreads) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    const int64_t off = base + static_cast<int64_t>(lo + r) * ld + d;
-    xs[r * (D + 1) + d] = to_f(x[off]);
-    ys[r * (D + 1) + d] = to_f(y[off]);
-  }
-}
-
-// s = sum_d a[d] * b[d], d ascending.
-__device__ __forceinline__ float dot(const float* a, const float* b, int D) {
-  float s = 0.f;
-  for (int d = 0; d < D; ++d) s = fmaf(a[d], b[d], s);
-  return s;
-}
-
-// K5 (mask null) and K7.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    banded_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v,
-                      const uint8_t* __restrict__ mask, float keep_prob,
-                      T* __restrict__ o, int L, int H, int D, int win,
-                      int n_tiles) {
-  extern __shared__ float smem[];
-  const int span = span_rows(L, win), band = band_len(L, win), dp = D + 1;
-  const Smem sm = carve(smem, span, D, band);
-  const int b = blockIdx.x / n_tiles;
-  const int q0 = (blockIdx.x - b * n_tiles) * kTile;
-  const int q1 = min(L, q0 + kTile);
-  const int h = blockIdx.y;
-  const int lo = max(0, q0 - win), hi = min(L, q1 + win);
-  const int64_t ld = static_cast<int64_t>(H) * D;
-  const int64_t base = static_cast<int64_t>(b) * L * ld +
-                       static_cast<int64_t>(h) * D;
-  stage(k, v, base, ld, lo, hi, D, sm.a, sm.b);
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* qb = sm.row0 + warp * D;
-  float* wb = sm.buf0 + warp * band;
-  const uint8_t* mwin =
-      mask ? mask + (static_cast<int64_t>(b) * H + h) * L * L : nullptr;
-  for (int i = q0 + warp; i < q1; i += kWarps) {
-    const int64_t row = base + static_cast<int64_t>(i) * ld;
-    for (int d = lane; d < D; d += 32) qb[d] = to_f(q[row + d]);
-    __syncwarp();
-    const int j0 = max(0, i - win), j1 = min(L - 1, i + win);
-    const int nj = j1 - j0 + 1;
-    float m = -INFINITY;
-    for (int jj = lane; jj < nj; jj += 32) {
-      const float s = dot(qb, sm.a + (j0 - lo + jj) * dp, D);
-      wb[jj] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int jj = lane; jj < nj; jj += 32) {
-      const float p = expf(wb[jj] - m);
-      wb[jj] = p;
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    if (mwin) {  // K7: w = p / sum, then times mask / keep_prob
-      const uint8_t* mrow = mwin + static_cast<int64_t>(i) * L + j0;
-      for (int jj = lane; jj < nj; jj += 32) {
-        wb[jj] = (wb[jj] / sum) * (static_cast<float>(mrow[jj]) / keep_prob);
-      }
-    }
-    __syncwarp();
-    for (int d = lane; d < D; d += 32) {
-      float acc = 0.f;
-      for (int jj = 0; jj < nj; ++jj) {
-        acc = fmaf(wb[jj], sm.b[(j0 - lo + jj) * dp + d], acc);
-      }
-      store(o + row + d, mwin ? acc : acc / sum);  // K5 divides last
-    }
-    __syncwarp();
-  }
+// K5 (kMask false) and K7. Built for three bf16 blocks an SM (48,640
+// bytes of shared memory at D = 140) and two float32 ones (96,512).
+template <typename T, bool kMask>
+__global__ void __launch_bounds__(kFwdThreads,
+                                  kFwdWarps > 4 ? 1 : sizeof(T) == 2 ? 3 : 2)
+    banded_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v,
+                         const uint8_t* __restrict__ mask, float keep_prob,
+                         T* __restrict__ o, int L, int H, int D, int win,
+                         int n_tiles, int ch) {
+  softmax_fwd_rows<T, kMask, kFwdWarps>(q, k, v, mask, keep_prob, o, nullptr,
+                                        L, H, D, win, n_tiles, ch);
 }
 
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v,
                const uint8_t* mask, float keep_prob, void* o, int B, int L,
                int H, int D, int win, cudaStream_t stream) {
-  const size_t smem = smem_bytes(L, D, win);
-  cudaError_t err = cudaFuncSetAttribute(
-      banded_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  if (bad_shape(B, L, H, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tiles = (L + kFwdRows - 1) / kFwdRows;
+  const dim3 grid(B * n_tiles * H, 1, n_groups(D));
+  if (grid.x == 0) return 0;
+  const size_t smem = fwd_smem<T>(D, kFwdRows);
+  auto kernel = mask != nullptr ? banded_fwd_tc_kernel<T, true>
+                                : banded_fwd_tc_kernel<T, false>;
+  const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_tiles = (L + kTile - 1) / kTile;
-  banded_fwd_kernel<T><<<dim3(B * n_tiles, H), kThreads, smem, stream>>>(
+  kernel<<<grid, kFwdThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, keep_prob, static_cast<T*>(o), L, H, D,
-      win, n_tiles);
+      win, n_tiles, copy_bytes<T>(D, {q, k, v}));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int fwd_blocks_per_sm(int D) {
+  const size_t smem = fwd_smem<T>(D, kFwdRows);
+  const int k5 = blocks_per_sm(banded_fwd_tc_kernel<T, false>, smem,
+                               kFwdThreads);
+  const int k7 = blocks_per_sm(banded_fwd_tc_kernel<T, true>, smem,
+                               kFwdThreads);
+  return k5 < k7 ? k5 : k7;
 }
 
 // ------------------------------------------------------------------------
@@ -471,11 +392,6 @@ int bwd_blocks_per_sm(int pass, int D) {
 
 }  // namespace
 
-// Dynamic shared memory of a K5 / K7 block.
-extern "C" int dc_banded_attention_smem_bytes(int L, int D, int win) {
-  return static_cast<int>(smem_bytes(L, D, win));
-}
-
 // q, k, v, o: [B, L, H, D] (is_bf16: bfloat16, else float32); mask
 // [B, H, L, L] uint8 or null (K5); win: band half-width, L - 1 for none.
 extern "C" int dc_banded_attention_fwd(const void* q, const void* k,
@@ -525,12 +441,17 @@ extern "C" int dc_banded_attention_bwd_pass(
                                  stats, B, L, H, D, win, pass, stream);
 }
 
-// Blocks an SM holds of K6's pass 1 or 2 at head width D (registers and
-// shared memory), or minus a cudaError_t.
+// Blocks an SM holds at head width D (registers and shared memory), or
+// minus a cudaError_t: pass 0 the forward (the fewer of K5's and K7's),
+// 1 and 2 K6's passes.
 extern "C" int dc_banded_attention_blocks_per_sm(int pass, int is_bf16,
                                                  int D) {
-  if (bad_shape(1, 1, 1, D) || (pass != 1 && pass != 2)) {
+  if (bad_shape(1, 1, 1, D) || pass < 0 || pass > 2) {
     return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (pass == 0) {
+    return is_bf16 ? fwd_blocks_per_sm<__nv_bfloat16>(D)
+                   : fwd_blocks_per_sm<float>(D);
   }
   return is_bf16 ? bwd_blocks_per_sm<__nv_bfloat16>(pass, D)
                  : bwd_blocks_per_sm<float>(pass, D);

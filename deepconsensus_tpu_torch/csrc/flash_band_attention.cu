@@ -36,13 +36,14 @@
 // output columns in registers, so D > 144 takes two column groups
 // (blockIdx.z), each forming the full S. A warp skips the chunks that
 // lie wholly outside its 16 rows' band.
-//   K8: q [64, D] staged once, K and V chunks in a 3-stage ring. S
-//     (16 x 16 per chunk) comes into registers as four independent MMA
-//     chains (two n-tiles, even and odd k-steps), the online softmax runs
-//     on the accumulators (row max and sum by quad shuffles), P is taken
-//     from the accumulators' layout as the A fragment of P v, and the
-//     running (m, l) and o (16 x 144 a warp) live in registers. lse is
-//     written once per row.
+//   K8 (band_tiles.cuh's softmax_fwd_rows, the body K5 and K7 share in
+//     banded_attention.cu): q [64, D] staged once, K and V chunks in a
+//     3-stage ring. S (16 x 16 per chunk) comes into registers as four
+//     independent MMA chains (two n-tiles, even and odd k-steps), the
+//     online softmax runs on the accumulators (row max and sum by quad
+//     shuffles), P is taken from the accumulators' layout as the A
+//     fragment of P v, and the running (m, l) and o (16 x 144 a warp)
+//     live in registers. lse is written once per row.
 //   K9 (band_tiles.cuh's band_dq_kernel): K10 seen from the query side.
 //     q and do [64, D] staged once; k and v chunks in a ring (2 stages
 //     float32, 3 bf16). Per chunk S = q k^T and dW = do v^T in one loop
@@ -97,25 +98,6 @@ using namespace dc::band;
 // K8 and K10.
 // ------------------------------------------------------------------------
 
-constexpr int kFwdStages = 3;
-
-// K8: q [64, ld_pairs], then kFwdStages x {k [16, ld_pairs], v [16,
-// ld_cols]}.
-template <typename T>
-__host__ __device__ inline size_t fwd_q_bytes(int dp) {
-  return sizeof(T) * static_cast<size_t>(kBlockRows) * ld_pairs<T>(dp);
-}
-template <typename T>
-__host__ __device__ inline size_t fwd_stage_bytes(int dp) {
-  return sizeof(T) * static_cast<size_t>(kChunk) *
-         (ld_pairs<T>(dp) + ld_cols<T>(dp));
-}
-template <typename T>
-size_t fwd_smem(int D) {
-  return fwd_q_bytes<T>(padded(D)) +
-         kFwdStages * fwd_stage_bytes<T>(padded(D));
-}
-
 // K10: k, v [64, ld_cols], then bwd_stages x {q, do [16, ld_cols], lse,
 // delta [16] float32}.
 template <typename T>
@@ -133,135 +115,15 @@ size_t dkdv_smem(int D) {
          bwd_stages<T>() * dkdv_stage_bytes<T>(padded(D));
 }
 
-// K8.
+// K8: band_tiles.cuh's forward body without a mask.
 template <typename T>
 __global__ void __launch_bounds__(kTcThreads, 2)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int L, int H, int D, int win,
                      int n_tiles, int ch) {
-  constexpr int AP = in_pieces<T>();
-  constexpr int PP = w_pieces<T>();
-  constexpr int kStages = kFwdStages;
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  const int dp = padded(D);
-  const int ldq = ld_pairs<T>(dp), ldv = ld_cols<T>(dp);
-  const size_t stage_bytes = fwd_stage_bytes<T>(dp);
-  T* qs = reinterpret_cast<T*>(smem_tc);
-  unsigned char* ring = smem_tc + fwd_q_bytes<T>(dp);
-  auto k_stage = [&](int s) {
-    return reinterpret_cast<T*>(ring + s * stage_bytes);
-  };
-  auto v_stage = [&](int s) { return k_stage(s) + kChunk * ldq; };
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const Block blk = block_of(L, H, D, win, n_tiles, warp);
-
-  zero_pad(qs, ldq, kBlockRows, D, dp, tid);
-  for (int s = 0; s < kStages; ++s) {
-    zero_pad(k_stage(s), ldq, kChunk, D, dp, tid);
-    zero_pad(v_stage(s), ldv, kChunk, D, dp, tid);
-  }
-  const int ld = static_cast<int>(blk.ld);
-  auto stage = [&](int c) {
-    const int row0 = blk.lo + kChunk * c;
-    const int n = min(kChunk, blk.hi - row0);
-    const int64_t off = blk.base + static_cast<int64_t>(row0) * ld;
-    copy_rows(k_stage(c % kStages), ldq, k + off, ld, kChunk, n, D, ch, tid);
-    copy_rows(v_stage(c % kStages), ldv, v + off, ld, kChunk, n, D, ch, tid);
-  };
-  copy_rows(qs, ldq, q + blk.base + static_cast<int64_t>(blk.r0) * ld, ld,
-            kBlockRows, blk.r1 - blk.r0, D, ch, tid);
-  for (int c = 0; c < kStages - 1; ++c) {
-    if (c < blk.n_chunks) stage(c);
-    cp_async_commit();
-  }
-
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-  float acc[kGroupTiles][4];
-#pragma unroll
-  for (int d = 0; d < kGroupTiles; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
-
-  for (int c = 0; c < blk.n_chunks; ++c) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // chunk c landed; chunk c - 1's stage is free
-    if (c + kStages - 1 < blk.n_chunks) stage(c + kStages - 1);
-    cp_async_commit();
-    if (c < blk.c_lo || c > blk.c_hi) continue;
-    const T* ks = k_stage(c % kStages);
-    const T* vs = v_stage(c % kStages);
-    float s[2][4], s_odd[2][4];
-    s_tiles<T, AP>(s, qs, ks, s_odd, qs, ks, ldq, kChunk * warp, ldq,
-                   dp / kChunk, 2, 1, lane);
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] += s_odd[nt][e];
-
-    const int key0 = blk.lo + kChunk * c;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = key0 + 8 * nt + 2 * t + (e & 1);
-        const int i = blk.w0 + g + 8 * (e >> 1);
-        const bool valid = j < blk.hi && i < L && abs(i - j) <= win;
-        s[nt][e] = valid ? s[nt][e] : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      alpha[r] = m_new == -INFINITY ? 1.f : expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[nt][e];
-        const float p = x == -INFINITY ? 0.f : expf(x - m[e >> 1]);
-        l[e >> 1] += p;
-        s[nt][e] = p;
-      }
-#pragma unroll
-    for (int d = 0; d < kGroupTiles; ++d)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[d][e] *= alpha[e >> 1];
-    uint32_t pa[PP][4];
-    acc_frag<PP>(pa, s);
-#pragma unroll
-    for (int d = 0; d < kGroupTiles; d += 2) {
-      if (d >= blk.n_dt) break;
-      mma_pair<PP, AP>(acc[d], acc[d + 1], pa, vs, ldv, 8 * (blk.dt0 + d),
-                       lane);
-    }
-  }
-
-  const int64_t stats = (static_cast<int64_t>(blk.b) * H + blk.h) * L;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] = quad_sum(l[r]);
-    const int i = blk.w0 + g + 8 * r;
-    if (i >= L) continue;
-    const float denom = l[r] == 0.f ? 1.f : l[r];
-    T* row = o + blk.base + static_cast<int64_t>(i) * ld;
-#pragma unroll
-    for (int d = 0; d < kGroupTiles; ++d) {
-      if (d >= blk.n_dt) break;
-      store_pair(row, 8 * (blk.dt0 + d) + 2 * t, D, acc[d][2 * r] / denom,
-                 acc[d][2 * r + 1] / denom);
-    }
-    if (lse != nullptr && blockIdx.z == 0 && t == 0) {
-      lse[stats + i] = l[r] == 0.f ? 0.f : m[r] + logf(denom);
-    }
-  }
+  softmax_fwd_rows<T, false>(q, k, v, nullptr, 1.f, o, lse, L, H, D, win,
+                             n_tiles, ch);
 }
 
 // K10: dk and dv over key tiles, walking the query chunks whose band

@@ -58,7 +58,6 @@ SIGNATURES = {
                         _P, _P),
     },
     'banded_attention': {
-        'dc_banded_attention_smem_bytes': (_I, _I, _I),
         'dc_banded_attention_fwd': (_P, _P, _P, _P, _F, _P, _I, _I, _I, _I,
                                     _I, _I, _P),
         'dc_banded_attention_bwd': (_P, _P, _P, _P, _P, _F, _P, _P, _P, _P,

@@ -17,11 +17,12 @@ Tensors keep the reference's layout, q, k, v, do [B, L, H, D] with q
 already scaled by D^-1/2, and mask [B, H, L, L]. Every product runs in
 float32 and the outputs come back in q's dtype (float32 or bfloat16).
 
-On a CUDA tensor each wrapper launches its kernel in
-csrc/banded_attention.cu (K6 is two tensor-core kernels in one launch
-call: dq with each row's softmax statistics, then dk and dv) and counts
-the launch; on a CPU tensor it runs the plain version beside it,
-which writes out the TPU kernel's arithmetic on full [L, L] blocks.
+On a CUDA tensor each wrapper launches its tensor-core kernel in
+csrc/banded_attention.cu (K5 and K7 one kernel, without and with the
+mask; K6 two in one launch call: dq with each row's softmax statistics,
+then dk and dv) and counts the launch; on a CPU tensor it runs the plain
+version beside it, which writes out the TPU kernel's arithmetic on full
+[L, L] blocks.
 `banded_attention_vjp` and `banded_attention_dropout_vjp` are the
 differentiable forms (K5 or K7 forward, K6 backward), saving q, k, v
 (and the mask) and recomputing the weights as the TPU kernels do.
@@ -41,10 +42,9 @@ n_bwd_launches = 0          # K6
 
 _NEG = -1e9
 _DTYPES = (torch.float32, torch.bfloat16)
-# Dynamic shared memory one block may use on the H100 (227 KB).
-MAX_SMEM_BYTES = 232448
-# K6 holds at most two column groups of 144 output columns a block.
-MAX_BWD_HEAD_DIM = 256
+# K5, K7 and K6 hold at most two column groups of 144 output columns a
+# block.
+MAX_HEAD_DIM = 256
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -167,24 +167,16 @@ def kernel_win(length: int, attn_win_size: Optional[int]) -> int:
   return min(int(attn_win_size), length - 1)
 
 
-def _launch_args(q: torch.Tensor, attn_win_size: Optional[int],
-                 bwd: bool = False):
-  """The library and the trailing launch arguments; raises for shapes
-  the forward's shared memory (K5, K7) or K6's column groups do not
-  take."""
+def _launch_args(q: torch.Tensor, attn_win_size: Optional[int]):
+  """The library and the trailing launch arguments; raises for head
+  widths the kernels' column groups do not take."""
   b, length, h, d = q.shape
   win = kernel_win(length, attn_win_size)
-  if bwd and d > MAX_BWD_HEAD_DIM:
-    raise ValueError(f'head width {d} > {MAX_BWD_HEAD_DIM}: K6 holds at most '
-                     'two column groups of 144')
-  lib = _build.load('banded_attention')
-  if not bwd:
-    smem = lib.dc_banded_attention_smem_bytes(length, d, win)
-    if smem > MAX_SMEM_BYTES:
-      raise ValueError(
-          f'banded attention at L={length}, D={d}, band +-{win} needs '
-          f'{smem} B of shared memory per block, over {MAX_SMEM_BYTES}')
-  return lib, (int(q.dtype == torch.bfloat16), b, length, h, d, win)
+  if d > MAX_HEAD_DIM:
+    raise ValueError(f'head width {d} > {MAX_HEAD_DIM}: the kernels hold at '
+                     'most two column groups of 144')
+  return (_build.load('banded_attention'),
+          (int(q.dtype == torch.bfloat16), b, length, h, d, win))
 
 
 def _launch_fwd(q, k, v, mask, attn_win_size, keep_prob) -> torch.Tensor:
@@ -239,7 +231,7 @@ def banded_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   if q.device.type == 'cpu':
     return banded_attention_bwd_plain(q, k, v, mask, do, attn_win_size,
                                       keep_prob)
-  lib, tail = _launch_args(q, attn_win_size, bwd=True)
+  lib, tail = _launch_args(q, attn_win_size)
   dq, dk, dv = (torch.empty_like(q) for _ in range(3))
   b, length, h, _ = q.shape
   # Per query row: the softmax's max, 1 / its sum, and rowsum(dw * w).

@@ -1,33 +1,38 @@
 #!/usr/bin/env python3
-"""Times the port's K6 (csrc/banded_attention.cu's backward of the
-banded training attention, with and without the dropout keep-mask) on
-one GPU, against an earlier version of the same source, against a copy
-of this one built with another block geometry, and against PyTorch's
-scaled_dot_product_attention backward with the band as its mask.
+"""Times the port's banded training attention kernels on one GPU: K5
+and K7 (csrc/banded_attention.cu's forward, without and with the
+dropout keep-mask) and K6 (its backward, with and without the mask),
+against an earlier version of the same source, against copies of this
+one built with another block geometry, and against PyTorch's
+scaled_dot_product_attention (forward and backward) with the band as
+its mask.
 
   python3 scripts/bench_banded_kernels.py [--parent DIR] [--warps N,...]
 
 DIR is an unpacked checkout of an earlier commit (for example
 `git archive <commit> | tar -x -C DIR`); its csrc/banded_attention.cu is
 built with the same nvcc flags and called through its own C interface
-(dc_banded_attention_bwd), as this checkout's library is, on the same
-inputs and output buffers. --warps (default 2,7) builds a copy of this
-checkout's source for each N with kBwdWarps = N: blocks of N warps of 16
-rows in place of 4 (7: the whole window at L <= 112).
+(dc_banded_attention_fwd, dc_banded_attention_bwd), as this checkout's
+library is, on the same inputs and output buffers. --warps (default
+2,7) builds a copy of this checkout's source for each N with kFwdWarps =
+kBwdWarps = N: blocks of N warps of 16 rows in place of 4 (7: the whole
+window at L <= 112).
 Shapes, two heads of 140 as the model has: the train_attn path's 256
 windows x 100 at band 12, no band at the fused route's longest window
-(256 x 128) and an odd length (256 x 57, band 12); bfloat16 and float32,
-with the mask (keep 0.9) and without; q/k/v/do and the mask drawn from a
-seed. The parent and this checkout are timed in turns (parent, new, new,
-parent) with CUDA events, 20 calls each after a warmup; beside them this
-checkout's two passes each alone (dc_banded_attention_bwd_pass), the
-geometry copies, and SDPA's autograd backward (dq, dk and dv; its mask
-is the band, no dropout). Each row carries the bytes bound (q, k, v, do
-and the mask's band read once, dq, dk, dv written once, at 3.35 TB/s),
+(256 x 128) and an odd length (256 x 57, band 12); bfloat16 and float32;
+K7 and K6 with the mask (keep 0.9), K5 and K6 without; q/k/v/do and the
+mask drawn from a seed. The parent and this checkout are timed in turns
+(parent, new, new, parent) with CUDA events, 20 calls each after a
+warmup; beside them K6's two passes each alone
+(dc_banded_attention_bwd_pass), the geometry copies, SDPA's forward
+(K5's yardstick) and its autograd backward (dq, dk and dv; its mask is
+the band, no dropout). Each row carries the bytes bound (the forward: q,
+k, v read once, o written once; K6: q, k, v, do read once, dq, dk, dv
+written once; the mask's band once where there is one; at 3.35 TB/s),
 the largest |new - parent| and |copy - new|, and the blocks an SM of
-each pass in every build. Prints one JSON line per shape, dtype and
-mask, and the card's name and power limit first and last; with no CUDA
-device it exits 2.
+the forward (pass 0) and K6's passes in every build. Prints one JSON
+line per kernel, shape, dtype and mask, and the card's name and power
+limit first and last; with no CUDA device it exits 2.
 """
 import argparse
 import ctypes
@@ -42,7 +47,7 @@ SHAPES = (('train_attn', 256, 100, 12), ('no_band_128', 256, 128, None),
           ('odd_57', 256, 57, 12))
 HEADS, HEAD_DIM, KEEP = 2, 140, 0.9
 OUT = os.path.join(REPO, 'build', 'bench_banded_kernels')
-WARPS = 'constexpr int kBwdWarps = 4;'
+WARPS = ('constexpr int kFwdWarps = 4;', 'constexpr int kBwdWarps = 4;')
 
 
 def timed(fn, iters=20, warmup=3) -> float:
@@ -78,10 +83,49 @@ def build(src: str, name: str, include: str) -> ctypes.CDLL:
   return lib
 
 
+def time_forward(libs, q, k, v, mask, keep, band, kwin, copies, entry,
+                tensor, sdpa_fwd_ms) -> None:
+  """Times K5 (mask None) or K7 in every build and prints its row."""
+  import torch
+
+  from deepconsensus_tpu_torch.ops import _build
+
+  ptr = _build.ptr
+  batch, length, heads, head_dim = q.shape
+  outs = {name: torch.empty_like(q) for name in libs}
+  tail = (int(q.dtype == torch.bfloat16), batch, length, heads, head_dim,
+          kwin, _build.stream_ptr(q.device))
+
+  def call(name):
+    head = (ptr(q), ptr(k), ptr(v), ptr(mask), float(keep), ptr(outs[name]))
+    lib = libs[name]
+    return lambda: _build.check(lib.dc_banded_attention_fwd(*head, *tail),
+                                f'{name} {entry["kernel"]}')
+
+  band_bytes = int(band.sum()) * batch * heads if mask is not None else 0
+  entry['bound_ms'] = (4 * tensor + band_bytes) / PEAK_BYTES * 1e3
+  new = call('new')
+  if 'parent' in libs:
+    old = call('parent')
+    turns = [timed(old), timed(new), timed(new), timed(old)]
+    entry.update(parent_ms=[turns[0], turns[3]], ms=[turns[1], turns[2]])
+    entry['max_abs_diff_vs_parent'] = float(
+        (outs['new'].float() - outs['parent'].float()).abs().max())
+  else:
+    entry['ms'] = [timed(new)]
+  for name in copies:
+    entry[f'{name}_ms'] = timed(call(name))
+    entry[f'{name}_max_abs_diff'] = float(
+        (outs[name].float() - outs['new'].float()).abs().max())
+  if mask is None:
+    entry['sdpa_fwd_ms'] = sdpa_fwd_ms
+  print(json.dumps(entry), flush=True)
+
+
 def main(argv) -> int:
   parser = argparse.ArgumentParser()
   parser.add_argument('--parent', help='unpacked checkout of an earlier '
-                      'commit whose K6 to time beside this one')
+                      'commit whose K5-K7 to time beside these')
   parser.add_argument('--warps', default='2,7',
                       help='warps a block in the geometry copies')
   args = parser.parse_args(argv)
@@ -105,13 +149,17 @@ def main(argv) -> int:
   os.makedirs(OUT, exist_ok=True)
   with open(os.path.join(csrc, 'banded_attention.cu')) as f:
     source = f.read()
-  if WARPS not in source:
-    raise SystemExit(f'the source no longer holds {WARPS!r}')
+  for line in WARPS:
+    if line not in source:
+      raise SystemExit(f'the source no longer holds {line!r}')
   copies = [f'warps{n}' for n in args.warps.split(',')]
   for name in copies:
     path = os.path.join(OUT, f'{name}.cu')
+    copy = source
+    for line in WARPS:
+      copy = copy.replace(line, line.replace('4', name[5:]))
     with open(path, 'w') as f:
-      f.write(source.replace(WARPS, f'constexpr int kBwdWarps = {name[5:]};'))
+      f.write(copy)
     libs[name] = build(path, name, csrc)
   if args.parent:
     parent = os.path.join(args.parent, 'deepconsensus_tpu_torch', 'csrc')
@@ -119,7 +167,7 @@ def main(argv) -> int:
                            'parent', parent)
   occupancy = {
       name: {f'pass{n}': [libs[name].dc_banded_attention_blocks_per_sm(
-          n, is_bf16, HEAD_DIM) for is_bf16 in (0, 1)] for n in (1, 2)}
+          n, is_bf16, HEAD_DIM) for is_bf16 in (0, 1)] for n in (0, 1, 2)}
       for name in ['new'] + copies}
   print(json.dumps({'blocks_per_sm_[float32, bf16]': occupancy}),
         flush=True)
@@ -137,6 +185,17 @@ def main(argv) -> int:
                               device=dev) < KEEP).to(torch.uint8)
       band = (torch.arange(length, device=dev)[:, None]
               - torch.arange(length, device=dev)[None, :]).abs() <= kwin
+      tensor = q.numel() * q.element_size()
+      sdpa_fwd_ms = timed(lambda: F.scaled_dot_product_attention(
+          *(x.transpose(1, 2) for x in (q, k, v)), attn_mask=band,
+          scale=1.0))
+      for masked in (False, True):
+        time_forward(libs, q, k, v, keep_mask if masked else None,
+                    KEEP if masked else 1.0, band, kwin, copies,
+                    {'kernel': 'K7' if masked else 'K5', 'shape': shape,
+                     'batch': batch, 'length': length, 'win': win,
+                     'dtype': str(dtype).split('.')[-1], 'masked': masked},
+                    tensor, sdpa_fwd_ms)
       leaves = [x.detach().transpose(1, 2).requires_grad_(True)
                 for x in (q, k, v)]
       sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=band,
@@ -144,7 +203,6 @@ def main(argv) -> int:
       do_t = do.transpose(1, 2)
       sdpa_ms = timed(lambda: torch.autograd.grad(sdpa_out, leaves, do_t,
                                                   retain_graph=True))
-      tensor = q.numel() * q.element_size()
       for masked in (True, False):
         mask, keep = (keep_mask, KEEP) if masked else (None, 1.0)
         outs = {name: [torch.empty_like(q) for _ in range(3)]
@@ -165,7 +223,8 @@ def main(argv) -> int:
               lib.dc_banded_attention_bwd_pass(n, *head), f'{name} pass {n}')
 
         band_bytes = int(band.sum()) * batch * HEADS if masked else 0
-        entry = {'shape': shape, 'batch': batch, 'length': length,
+        entry = {'kernel': 'K6', 'shape': shape, 'batch': batch,
+                 'length': length,
                  'win': win, 'dtype': str(dtype).split('.')[-1],
                  'masked': masked,
                  'bound_ms': (7 * tensor + band_bytes) / PEAK_BYTES * 1e3}

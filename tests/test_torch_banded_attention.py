@@ -102,8 +102,10 @@ def launches():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize('length', [24, 100])
-@pytest.mark.parametrize('win', [12, 6, None])
+# Lengths 65 and 128 and band 0: the kernel's 64-row block edges and the
+# diagonal alone, beside the first cases (whose ids stay).
+@pytest.mark.parametrize('length', [24, 100, 65, 128])
+@pytest.mark.parametrize('win', [12, 6, None, 0])
 def test_k5_plain_matches_jax_kernel_and_reference(win, length):
   q, k, v, _, _ = qkv(2, length, 2, 40, seed=length)
   before = launches()

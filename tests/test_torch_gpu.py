@@ -823,9 +823,66 @@ def test_banded_attention_wrappers_reject_bad_input(cuda):
     ba.banded_attention_dropout(q, k, v, mask.cpu(), 4, 0.9)
   with pytest.raises(ValueError, match='mask must be uint8'):
     ba.banded_attention_bwd(q, k, v, mask.bool(), do, 4, 0.9)
-  with pytest.raises(ValueError, match='shared memory'):
+  with pytest.raises(ValueError, match='head width'):
     big = torch.zeros(1, 128, 1, 280, device=cuda)
     ba.banded_attention(big, big, big, None)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b', [1, 256])
+@pytest.mark.parametrize('masked', [False, True])
+@pytest.mark.parametrize('win', [0, 12, None])
+@pytest.mark.parametrize('length', [17, 57, 64, 65, 100, 128])
+@pytest.mark.parametrize('d', [8, 35, 140, 256])
+def test_k5_k7_tensor_cores_match_plain(cuda, d, length, win, masked, b,
+                                        dtype):
+  """K5 (masked False) and K7 (keep 0.9), one launch, vs plain on the
+  tensor-core tiles' edges, as K6's sweep: odd lengths (mask rows 1-byte
+  aligned), one and two 64-row blocks, the train path's 100 and 128 (no
+  band: 8 chunks a row); band 0, 12 and none; head widths 8, 35, 140 and
+  256 (two column groups); one window and 256."""
+  q, k, v, _, mask = attention_inputs(cuda, b, length, 2, d, dtype,
+                                      seed=d + length + b)
+  if masked:
+    before = ba.n_dropout_fwd_launches
+    got = ba.banded_attention_dropout(q, k, v, mask, win, 0.9)
+    want = ba.banded_attention_dropout_plain(q, k, v, mask, win, 0.9)
+    torch.cuda.synchronize()
+    assert ba.n_dropout_fwd_launches == before + 1
+  else:
+    before = ba.n_fwd_launches
+    got = ba.banded_attention(q, k, v, win)
+    want = ba.banded_attention_plain(q, k, v, win)
+    torch.cuda.synchronize()
+    assert ba.n_fwd_launches == before + 1
+  assert got.dtype == dtype and torch.isfinite(got.float()).all()
+  torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('length,win', [(100, 12), (128, None), (57, 12)])
+def test_k5_k7_repeat_bit_for_bit(cuda, dtype, length, win):
+  """K5 and K7 twice on the same inputs: the same bits (no atomics;
+  every output element written once)."""
+  q, k, v, _, mask = attention_inputs(cuda, 64, length, 2, 140, dtype, 4)
+  for fn in (lambda: ba.banded_attention(q, k, v, win),
+             lambda: ba.banded_attention_dropout(q, k, v, mask, win, 0.9)):
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_k5_k7_blocks_an_sm(cuda):
+  """At the main path's head width (140) the forward (K5 and K7) holds
+  at least two float32 blocks an SM and three bf16 ones, registers and
+  shared memory counted, and refuses a width it does not have."""
+  from deepconsensus_tpu_torch.ops import _build
+
+  lib = _build.load('banded_attention')
+  assert lib.dc_banded_attention_blocks_per_sm(0, 0, 140) >= 2
+  assert lib.dc_banded_attention_blocks_per_sm(0, 1, 140) >= 3
+  assert lib.dc_banded_attention_blocks_per_sm(0, 1, 264) < 0
+  assert lib.dc_banded_attention_blocks_per_sm(-1, 1, 140) < 0
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
