@@ -51,7 +51,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    yardsticks: scaled_dot_product_attention with the band as its mask
    (K5, K8) and its autograd backward (K6; K9 and K10 together), timed
    only; and K11/K12 once more at m = n = 200 (train_flash's DP),
-   untimed. The attention core alone (csrc/ragged_attention.cu, which
+   timed as at 100 (their `m200` entries). The attention core alone (csrc/ragged_attention.cu, which
    K1, K2 and K4 launch) on a K2 block's q/k/v at 1,024 x 100 and at
    512 x 200 with lengths, in both softmax dtypes, against its plain
    version (float32 softmax 1e-4, bfloat16 2e-2), beside SDPA with the
@@ -135,8 +135,9 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    within 2% of float32's; step p50 and peak memory printed beside c's.
    f: float32 loss within 1e-5 relative, each parameter's gradient
    within 1e-3 of its norm (long_window_gates says why), the ring route
-   once per layer on both ring runs, no attention kernel launched; both
-   routes' peak memory printed. g: K8 with lse, K9 and K10 once per layer
+   once per layer on both ring runs, no attention kernel launched, K11
+   and K12 once each per run (the loss at m = n = 500); both routes'
+   peak memory printed. g: K8 with lse, K9 and K10 once per layer
    and step, K8 without lse once per layer and eval batch, K11/K12 as
    c, K5-K7 never (and no attention kernel on the module run); every
    loss and gradient norm finite; float32 losses (every step, and eval)
@@ -1098,7 +1099,8 @@ def check_ragged_kernels(dtype: str, device: str = 'cuda') -> dict:
 def check_wavefront_kernels(device: str = 'cuda') -> dict:
   """Phase 2 for the alignment DP (float32 costs in both compute
   dtypes): K11 without and with rows, K12 on those rows, vs the plain
-  DP and its autograd."""
+  DP and its autograd, at train's m = n = LENGTH and train_flash's m = n
+  = FLASH_LENGTH; the second's times and bounds go under 'm200'."""
   import numpy as np
   import torch
 
@@ -1107,83 +1109,86 @@ def check_wavefront_kernels(device: str = 'cuda') -> dict:
 
   dev = torch.device(device)
   rng = np.random.default_rng(SEED + 2)
-  b, m, n = TRAIN_BATCH, LENGTH, LENGTH
-  lens = rng.integers(m // 2, m + 1, b).astype(np.int32)
-  lens[:2] = (0, m)
-  subs = torch.from_numpy(rng.uniform(0, 8, (b, m, n)).astype(np.float32))
-  ins = torch.from_numpy(rng.uniform(0, 8, (b, n)).astype(np.float32))
-  subs, ins, lens = subs.to(dev), ins.to(dev), torch.from_numpy(lens).to(dev)
+  b = TRAIN_BATCH
   grad = torch.from_numpy(rng.uniform(0.5, 2, b).astype(np.float32)).to(dev)
-  dp = (DEL_COST, lens, LOSS_REG)
+  out = {'K11': {}, 'K12': {}}
+  for m in (LENGTH, FLASH_LENGTH):
+    n = m
+    lens = rng.integers(m // 2, m + 1, b).astype(np.int32)
+    lens[:2] = (0, m)
+    subs = torch.from_numpy(rng.uniform(0, 8, (b, m, n)).astype(np.float32))
+    ins = torch.from_numpy(rng.uniform(0, 8, (b, n)).astype(np.float32))
+    subs, ins = subs.to(dev), ins.to(dev)
+    lens = torch.from_numpy(lens).to(dev)
+    dp = (DEL_COST, lens, LOSS_REG)
 
-  def k11(s=subs, i=ins, lengths=lens):
-    return wavefront_cuda.alignment_scores_with_rows(s, i, DEL_COST,
-                                                     lengths, LOSS_REG)
+    def k11(s=subs, i=ins, lengths=lens):
+      return wavefront_cuda.alignment_scores_with_rows(s, i, DEL_COST,
+                                                       lengths, LOSS_REG)
 
-  want = wavefront.alignment_scan(subs, ins, *dp)
-  no_rows = wavefront_cuda.alignment_scores(subs, ins, *dp)
-  scores, rows = k11()
-  s_req, i_req = subs.clone().requires_grad_(True), ins.clone().requires_grad_(
-      True)
-  plain_value = wavefront.alignment_scan(s_req, i_req, *dp)
+    want = wavefront.alignment_scan(subs, ins, *dp)
+    no_rows = wavefront_cuda.alignment_scores(subs, ins, *dp)
+    scores, rows = k11()
+    s_req = subs.clone().requires_grad_(True)
+    i_req = ins.clone().requires_grad_(True)
+    plain_value = wavefront.alignment_scan(s_req, i_req, *dp)
 
-  def k12(s=subs, i=ins, lengths=lens, r=rows, g=grad):
-    return wavefront_cuda.launch_bwd(s, i, lengths, r, g, DEL_COST, LOSS_REG)
+    def k12(s=subs, i=ins, lengths=lens, r=rows, g=grad):
+      return wavefront_cuda.launch_bwd(s, i, lengths, r, g, DEL_COST,
+                                       LOSS_REG)
 
-  def k12_plain():
-    return torch.autograd.grad(plain_value, (s_req, i_req), grad,
-                               retain_graph=True)
+    def k12_plain(v=plain_value, s_=s_req, i_=i_req):
+      return torch.autograd.grad(v, (s_, i_), grad, retain_graph=True)
 
-  d_subs, d_ins = k12()
-  want_ds, want_di = k12_plain()
-  torch.cuda.synchronize()
-  err11 = max(max_err(no_rows, want, 1e-5, 1e-4),
-              max_err(scores, want, 1e-5, 1e-4))
-  err12 = max(max_err(d_subs, want_ds, 1e-4, 1e-5),
-              max_err(d_ins, want_di, 1e-4, 1e-5))
-  # train_flash's DP, m = n = FLASH_LENGTH: held to the same gates,
-  # untimed.
-  m2 = FLASH_LENGTH
-  lens2 = rng.integers(m2 // 2, m2 + 1, b).astype(np.int32)
-  lens2[:2] = (0, m2)
-  subs2, ins2 = (torch.from_numpy(rng.uniform(0, 8, shape).astype(np.float32))
-                 .to(dev).requires_grad_(True)
-                 for shape in ((b, m2, m2), (b, m2)))
-  lens2 = torch.from_numpy(lens2).to(dev)
-  grads2 = []
-  for fn in (wavefront_cuda.alignment_scores_vjp,
-             lambda s, i, l, d, r: wavefront.alignment_scan(s, i, d, l, r)):
-    value = fn(subs2, ins2, lens2, DEL_COST, LOSS_REG)
-    grads2.append((value.detach(),
-                   *torch.autograd.grad(value, (subs2, ins2), grad)))
-  err11 = max(err11, max_err(grads2[0][0], grads2[1][0], 1e-5, 1e-4))
-  err12 = max(err12, *(max_err(g, w, 1e-4, 1e-5)
-                       for g, w in zip(grads2[0][1:], grads2[1][1:])))
-  # Bytes: each input read once, each output written once. Operations:
-  # the cells this run's lengths need, (len + 1) x (n + 1) per row.
-  cells = int(((lens.long() + 1) * (n + 1)).sum())
-  in_bytes = (subs.numel() + ins.numel() + lens.numel()) * 4
-  rows_bytes = rows.numel() * 4
-  fwd_bytes = in_bytes + b * 4 + rows_bytes
-  bwd_bytes = in_bytes + rows_bytes + b * 4 + (subs.numel() + ins.numel()) * 4
-  one = (subs[:1], ins[:1], lens[:1])
-  _, rows1 = k11(*one)
-  out = {}
-  t_bound, by = bound(cells * FWD_OPS_PER_CELL, fwd_bytes, 'float32')
-  out['K11'] = dict(
-      max_abs_err=err11, ms=cuda_ms(k11),
-      no_rows_ms=cuda_ms(lambda: wavefront_cuda.alignment_scores(
-          subs, ins, *dp)),
-      plain_ms=cuda_ms(lambda: wavefront.alignment_scan(subs, ins, *dp)),
-      library_ms=None, bound_ms=t_bound, bound_by=by,
-      serial_floor_ms=cuda_ms(lambda: k11(*one)),
-      flops=cells * FWD_OPS_PER_CELL, bytes=fwd_bytes)
-  t_bound, by = bound(cells * BWD_OPS_PER_CELL, bwd_bytes, 'float32')
-  out['K12'] = dict(
-      max_abs_err=err12, ms=cuda_ms(k12), plain_ms=cuda_ms(k12_plain),
-      library_ms=None, bound_ms=t_bound, bound_by=by,
-      serial_floor_ms=cuda_ms(lambda: k12(*one, rows1, grad[:1])),
-      flops=cells * BWD_OPS_PER_CELL, bytes=bwd_bytes)
+    d_subs, d_ins = k12()
+    want_ds, want_di = k12_plain()
+    torch.cuda.synchronize()
+    err11 = max(max_err(no_rows, want, 1e-5, 1e-4),
+                max_err(scores, want, 1e-5, 1e-4))
+    err12 = max(max_err(d_subs, want_ds, 1e-4, 1e-5),
+                max_err(d_ins, want_di, 1e-4, 1e-5))
+    # The autograd route as the loss calls it.
+    s2, i2 = subs.clone().requires_grad_(True), ins.clone().requires_grad_(
+        True)
+    value = wavefront_cuda.alignment_scores_vjp(s2, i2, lens, DEL_COST,
+                                                LOSS_REG)
+    g_s, g_i = torch.autograd.grad(value, (s2, i2), grad)
+    err11 = max(err11, max_err(value.detach(), want, 1e-5, 1e-4))
+    err12 = max(err12, max_err(g_s, want_ds, 1e-4, 1e-5),
+                max_err(g_i, want_di, 1e-4, 1e-5))
+    # Bytes: each input read once, each output written once. Operations:
+    # the cells this run's lengths need, (len + 1) x (n + 1) per row.
+    cells = int(((lens.long() + 1) * (n + 1)).sum())
+    in_bytes = (subs.numel() + ins.numel() + lens.numel()) * 4
+    rows_bytes = rows.numel() * 4
+    fwd_bytes = in_bytes + b * 4 + rows_bytes
+    bwd_bytes = in_bytes + rows_bytes + b * 4 + (subs.numel() + ins.numel()) * 4
+    one = (subs[:1], ins[:1], lens[:1])
+    _, rows1 = k11(*one)
+    t11, by11 = bound(cells * FWD_OPS_PER_CELL, fwd_bytes, 'float32')
+    t12, by12 = bound(cells * BWD_OPS_PER_CELL, bwd_bytes, 'float32')
+    k11_entry = dict(
+        max_abs_err=err11, ms=cuda_ms(k11),
+        no_rows_ms=cuda_ms(lambda: wavefront_cuda.alignment_scores(
+            subs, ins, *dp)),
+        plain_ms=cuda_ms(lambda: wavefront.alignment_scan(subs, ins, *dp)),
+        library_ms=None, bound_ms=t11, bound_by=by11,
+        serial_floor_ms=cuda_ms(lambda: k11(*one)),
+        flops=cells * FWD_OPS_PER_CELL, bytes=fwd_bytes)
+    k12_entry = dict(
+        max_abs_err=err12, ms=cuda_ms(k12), plain_ms=cuda_ms(k12_plain),
+        library_ms=None, bound_ms=t12, bound_by=by12,
+        serial_floor_ms=cuda_ms(lambda: k12(*one, rows1, grad[:1])),
+        flops=cells * BWD_OPS_PER_CELL, bytes=bwd_bytes)
+    if m == LENGTH:
+      out['K11'].update(k11_entry)
+      out['K12'].update(k12_entry)
+    else:
+      out['K11']['m200'] = k11_entry
+      out['K12']['m200'] = k12_entry
+      for name in ('K11', 'K12'):
+        out[name]['max_abs_err'] = max(out[name]['max_abs_err'],
+                                       out[name]['m200']['max_abs_err'])
   return out
 
 
@@ -2284,8 +2289,9 @@ def long_window_gates(device: str = 'cuda', batch: int = TRAIN_BATCH
   by up to ~1e-3 of its norm (the two routes agree to 1e-12 in float64,
   tests/test_torch_ring_attention.py; on an H100 the routes differ by
   1.6e-4 at batch 256 and 1.7e-3 at batch 64, in an embedding or a
-  ReZero alpha); the ring route taken once per layer and no
-  attention kernel launched. Raises on a failed gate."""
+  ReZero alpha); the ring route taken once per layer, no attention
+  kernel launched and the loss's K11 and K12 once each. Raises on a
+  failed gate."""
   import numpy as np
   import torch
 
@@ -2334,6 +2340,7 @@ def long_window_gates(device: str = 'cuda', batch: int = TRAIN_BATCH
           ring_calls=ring_attention.n_calls,
           attention_launches=sum(read_launches()[n]
                                  for n in ('K5', 'K6', 'K7')),
+          dp_launches={n: read_launches()[n] for n in ('K11', 'K12')},
           grads={n: p.grad for n, p in model.named_parameters()})
     ring, module = runs['ring'], runs['module']
     leaf_rel = {n: float((g.float() - module['grads'][n].float()).norm()
@@ -2350,6 +2357,8 @@ def long_window_gates(device: str = 'cuda', batch: int = TRAIN_BATCH
         'ring_calls': {k: r['ring_calls'] for k, r in runs.items()},
         'attention_kernel_launches': {k: r['attention_launches']
                                       for k, r in runs.items()},
+        # The loss's DP at m = n = 500: K11 with rows, K12.
+        'dp_launches': {k: r['dp_launches'] for k, r in runs.items()},
         'peak_bytes': {k: r['peak_bytes'] for k, r in runs.items()},
         'ms': {k: r['ms'] for k, r in runs.items()},
     }
@@ -2369,6 +2378,9 @@ def long_window_gates(device: str = 'cuda', batch: int = TRAIN_BATCH
          f'{dtype}: the ring route was not taken once per layer'),
         (all(v == 0 for v in g['attention_kernel_launches'].values()),
          f'{dtype}: an attention kernel launched at L = {length}'),
+        (all(v == {'K11': 1, 'K12': 1} for v in g['dp_launches'].values()),
+         f'{dtype}: the loss did not launch K11 and K12 once each at L = '
+         f'{length}'),
         (all(math.isfinite(v) for v in g['loss'].values()),
          f'{dtype}: a loss is not finite'),
     ]

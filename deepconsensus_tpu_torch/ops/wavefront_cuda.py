@@ -29,8 +29,9 @@ n_bwd_launches = 0
 n_band_fwd_launches = 0
 n_band_bwd_launches = 0
 
-# One block per batch row, one thread per DP row index i <= m (K11/K12)
-# or per band slot d <= 2W (K13/K14).
+# One block per batch row: warps of 32 lanes holding 1, 2 or 4 DP row
+# indices i <= m each (K11/K12, at most 8 warps), or one thread per band
+# slot d <= 2W (K13/K14).
 MAX_M = 1023
 MAX_WIDTH = 511
 
@@ -39,8 +40,8 @@ def _check_inputs(subs_costs: torch.Tensor, ins_costs: torch.Tensor,
                   seq_lens: torch.Tensor) -> Tuple[int, int, int]:
   batch, m, n = _check_shapes(subs_costs, ins_costs, seq_lens)
   if m > MAX_M:
-    raise ValueError(f'm = {m}: the kernels run one thread per DP row '
-                     f'and take m + 1 <= {MAX_M + 1}')
+    raise ValueError(f'm = {m}: the kernels hold a batch row\'s DP row '
+                     f'indices in one block and take m + 1 <= {MAX_M + 1}')
   return batch, m, n
 
 
@@ -103,7 +104,7 @@ def _launch_fwd(subs, ins, lens, del_cost, loss_reg, inf, emit_rows):
       _build.load('wavefront').dc_wavefront_fwd, 'wavefront_fwd',
       subs.device, _build.ptr(subs), _build.ptr(ins), _build.ptr(lens),
       batch, m, n, float(del_cost), reg, soft, float(inf), _build.ptr(scores),
-      _build.ptr(rows))
+      _build.ptr(rows), 0)
   n_fwd_launches += 1
   return scores, rows
 
@@ -125,7 +126,7 @@ def launch_bwd(subs, ins, lens, rows, grad, del_cost, loss_reg):
       _build.load('wavefront').dc_wavefront_bwd, 'wavefront_bwd',
       subs.device, _build.ptr(subs), _build.ptr(ins), _build.ptr(lens),
       _build.ptr(rows), _build.ptr(grad), batch, m, n, float(del_cost), reg,
-      soft, _build.ptr(d_subs), _build.ptr(d_ins))
+      soft, _build.ptr(d_subs), _build.ptr(d_ins), 0)
   n_bwd_launches += 1
   return d_subs, d_ins
 

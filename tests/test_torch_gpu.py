@@ -338,7 +338,8 @@ def wavefront_costs(device, batch, m, n, seed):
 
 
 @pytest.mark.parametrize('loss_reg', [None, 0.1, 1.0])
-@pytest.mark.parametrize('m,n', [(100, 100), (30, 57), (200, 200)])
+@pytest.mark.parametrize('m,n', [(100, 100), (30, 57), (200, 200), (1, 1),
+                                 (500, 500), (1023, 40)])
 def test_wavefront_kernels_match_plain(cuda, loss_reg, m, n):
   """K11 (without and with rows) and K12 against the plain DP and its
   autograd, on one launch each: scores rtol 1e-5 (atol 1e-4),
@@ -363,6 +364,52 @@ def test_wavefront_kernels_match_plain(cuda, loss_reg, m, n):
   torch.testing.assert_close(gv, wv, rtol=1e-5, atol=1e-4)
   torch.testing.assert_close(gs, ws, rtol=1e-4, atol=1e-5)
   torch.testing.assert_close(gi, wi, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize('loss_reg', [None, 0.1])
+@pytest.mark.parametrize('m', [100, 200])
+def test_wavefront_kernels_repeat_bit_for_bit(cuda, loss_reg, m):
+  """K11 and K12 at the train paths' shapes (256 rows, m = n = 100 and
+  200): two launches give the same scores, rows and gradients bit for
+  bit (K12 sums d_ins without atomics), and K11's scores equal the plain
+  DP's bit for bit (it repeats the plain version's roundings)."""
+  subs, ins, lens = wavefront_costs(cuda, 256, m, m, seed=m)
+  grad = torch.rand(256, device=cuda) + 0.5
+  runs = []
+  for _ in range(2):
+    scores, rows = wavefront_cuda.alignment_scores_with_rows(
+        subs, ins, 10.0, lens, loss_reg)
+    d_subs, d_ins = wavefront_cuda.launch_bwd(
+        subs, ins, lens, rows, grad, 10.0, loss_reg)
+    runs.append((scores, rows, d_subs, d_ins))
+  torch.cuda.synchronize()
+  for first, second in zip(*runs):
+    assert torch.equal(first, second)
+  want = wavefront.alignment_scan(subs, ins, 10.0, lens, loss_reg)
+  assert torch.equal(runs[0][0], want)
+
+
+def test_band_kernels_unchanged_at_train_band_shape(cuda):
+  """K13 and K14 at train_band's shape (256 x 100, band 12, loss_reg
+  0.1), which the redesign of K11/K12 leaves as they were: K13's scores
+  equal the plain banded DP's bit for bit, K14's gradients match its
+  autograd (rtol 1e-4, atol 1e-5)."""
+  subs, ins, lens = wavefront_costs(cuda, 256, 100, 100, seed=12)
+  weights = torch.rand(256, device=cuda) + 0.5
+  got = wavefront_cuda.banded_alignment_scores(subs, ins, 10.0, lens, 12,
+                                               0.1)
+  want = wavefront.banded_alignment_scan(subs, ins, 10.0, lens, 12, 0.1)
+  assert torch.equal(got, want)
+  grads = []
+  for fn in (wavefront_cuda.banded_alignment_scores_vjp,
+             lambda s, i, l, d, r, w: wavefront.banded_alignment_scan(
+                 s, i, d, l, w, r)):
+    s, i = subs.clone().requires_grad_(True), ins.clone().requires_grad_(True)
+    value = fn(s, i, lens, 10.0, 0.1, 12)
+    grads.append(torch.autograd.grad(value, (s, i), weights))
+  torch.cuda.synchronize()
+  for got_grad, want_grad in zip(*grads):
+    torch.testing.assert_close(got_grad, want_grad, rtol=1e-4, atol=1e-5)
 
 
 def test_wavefront_wrapper_rejects_bad_input(cuda):

@@ -8,7 +8,8 @@ What is held against JAX, with its tolerance:
   and wavefront_pallas.alignment_scores(interpret=True): rtol 1e-5, atol
   1e-4, as tests/test_wavefront_pallas.py;
 * its gradients (the CPU side of K12) vs jax.grad through
-  alignment_scores_vjp(interpret=True): rtol 1e-4, atol 1e-5;
+  alignment_scores_vjp(interpret=True): rtol 1e-4, atol 1e-5; both also
+  at m = n = 1 and at 3 x 40 x 17 (lengths 0 and m);
 * the plain banded DP (the CPU side of K13) vs
   wavefront.banded_alignment_scan and, at b = 3, m = 8, W = 2,
   banded_alignment_scores(interpret=True): rtol 1e-5, atol 1e-4; its
@@ -209,6 +210,45 @@ def test_dp_gradients_match_jax_vjp_kernel(loss_reg):
   val.backward()
   assert wavefront_cuda.n_bwd_launches == before
   np.testing.assert_allclose(val.item(), float(want_val), rtol=1e-5)
+  np.testing.assert_allclose(s.grad.numpy(), np.asarray(want_ds), rtol=1e-4,
+                             atol=1e-5)
+  np.testing.assert_allclose(i.grad.numpy(), np.asarray(want_di), rtol=1e-4,
+                             atol=1e-5)
+
+
+@pytest.mark.parametrize('loss_reg', [None, 0.1])
+@pytest.mark.parametrize('b,m,n', [(3, 1, 1), (3, 40, 17)])
+def test_dp_edge_shapes_match_jax_scan_and_kernels(loss_reg, b, m, n):
+  """The smallest DP (m = n = 1) and a wide, short one (m = 40 past a
+  warp of DP rows, n = 17), lengths 0 and m: the plain DP (K11's and
+  K12's CPU side) vs jax's scan and the interpret-mode Pallas K11 for
+  the scores (rtol 1e-5, atol 1e-4), and vs jax.grad through the Pallas
+  custom VJP (K12) for the gradients (rtol 1e-4, atol 1e-5)."""
+  subs, ins, lens = random_costs(b + m + n, b, m, n)
+  weights = np.random.default_rng(m + n).uniform(0.5, 2, b).astype(
+      np.float32)
+  args = (jnp.asarray(subs), jnp.asarray(ins), 3.0, jnp.asarray(lens))
+  scan = jax_wavefront.alignment_scan(*args[:2], jnp.float32(3.0), args[3],
+                                      jax_minop(loss_reg))
+  kernel = wavefront_pallas.alignment_scores(*args, loss_reg=loss_reg,
+                                             interpret=True)
+
+  def jax_loss(s, i):
+    return jnp.sum(wavefront_pallas.alignment_scores_vjp(
+        s, i, args[3], 3.0, loss_reg, interpret=True) * weights)
+
+  want_ds, want_di = jax.grad(jax_loss, (0, 1))(*args[:2])
+  before = (wavefront_cuda.n_fwd_launches, wavefront_cuda.n_bwd_launches)
+  s = torch.from_numpy(subs).requires_grad_(True)
+  i = torch.from_numpy(ins).requires_grad_(True)
+  got = wavefront_cuda.alignment_scores_vjp(s, i, torch.from_numpy(lens), 3.0,
+                                            loss_reg)
+  (got * torch.from_numpy(weights)).sum().backward()
+  assert (wavefront_cuda.n_fwd_launches,
+          wavefront_cuda.n_bwd_launches) == before  # CPU: the plain DP
+  for want in (scan, kernel):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-4)
   np.testing.assert_allclose(s.grad.numpy(), np.asarray(want_ds), rtol=1e-4,
                              atol=1e-5)
   np.testing.assert_allclose(i.grad.numpy(), np.asarray(want_di), rtol=1e-4,
