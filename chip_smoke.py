@@ -50,8 +50,10 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    positions x 2 heads of 140, band 12, the same tolerances; library
    yardsticks: scaled_dot_product_attention with the band as its mask
    (K5, K8) and its autograd backward (K6; K9 and K10 together), timed
-   only; and K11/K12 once more at m = n = 200 (train_flash's DP),
-   timed as at 100 (their `m200` entries). The attention core alone (csrc/ragged_attention.cu, which
+   only; and K11/K12 once more at m = n = 200 (train_flash's DP) and
+   at m = n = 500 (long_window's), with the same gates and timed as at
+   100 (their `m200` and `m500` entries). The attention core alone
+   (csrc/ragged_attention.cu, which
    K1, K2 and K4 launch) on a K2 block's q/k/v at 1,024 x 100 and at
    512 x 200 with lengths, in both softmax dtypes, against its plain
    version (float32 softmax 1e-4, bfloat16 2e-2), beside SDPA with the
@@ -1099,11 +1101,14 @@ def check_ragged_kernels(dtype: str, device: str = 'cuda') -> dict:
 def check_wavefront_kernels(device: str = 'cuda') -> dict:
   """Phase 2 for the alignment DP (float32 costs in both compute
   dtypes): K11 without and with rows, K12 on those rows, vs the plain
-  DP and its autograd, at train's m = n = LENGTH and train_flash's m = n
-  = FLASH_LENGTH; the second's times and bounds go under 'm200'."""
+  DP and its autograd, at train's m = n = LENGTH, train_flash's m = n =
+  FLASH_LENGTH and long_window's m = n = LONG_INSERT_WINDOW_LEN (two DP
+  rows a lane there); the last two's times and bounds go under 'm200'
+  and 'm500'."""
   import numpy as np
   import torch
 
+  from deepconsensus_tpu_torch.models import config as config_lib
   from deepconsensus_tpu_torch.ops import wavefront
   from deepconsensus_tpu_torch.ops import wavefront_cuda
 
@@ -1112,7 +1117,7 @@ def check_wavefront_kernels(device: str = 'cuda') -> dict:
   b = TRAIN_BATCH
   grad = torch.from_numpy(rng.uniform(0.5, 2, b).astype(np.float32)).to(dev)
   out = {'K11': {}, 'K12': {}}
-  for m in (LENGTH, FLASH_LENGTH):
+  for m in (LENGTH, FLASH_LENGTH, config_lib.LONG_INSERT_WINDOW_LEN):
     n = m
     lens = rng.integers(m // 2, m + 1, b).astype(np.int32)
     lens[:2] = (0, m)
@@ -1184,11 +1189,11 @@ def check_wavefront_kernels(device: str = 'cuda') -> dict:
       out['K11'].update(k11_entry)
       out['K12'].update(k12_entry)
     else:
-      out['K11']['m200'] = k11_entry
-      out['K12']['m200'] = k12_entry
+      out['K11'][f'm{m}'] = k11_entry
+      out['K12'][f'm{m}'] = k12_entry
       for name in ('K11', 'K12'):
         out[name]['max_abs_err'] = max(out[name]['max_abs_err'],
-                                       out[name]['m200']['max_abs_err'])
+                                       out[name][f'm{m}']['max_abs_err'])
   return out
 
 

@@ -50,10 +50,9 @@ SIGNATURES = {
                                              _P, _P, _P)},
     'wavefront': {
         'dc_wavefront_fwd': (_P, _P, _P, _I, _I, _I, _F, _F, _I, _F, _P, _P,
-                             _I, _P),
+                             _P),
         'dc_wavefront_bwd': (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P,
-                             _P, _I, _P),
-        'dc_wavefront_smem_bytes': (_I, _I, _I),
+                             _P, _P),
         'dc_band_fwd': (_P, _P, _P, _I, _I, _I, _F, _F, _I, _F, _P, _P, _P),
         'dc_band_bwd': (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _F, _P,
                         _P, _P),

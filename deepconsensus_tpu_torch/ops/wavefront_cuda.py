@@ -104,7 +104,7 @@ def _launch_fwd(subs, ins, lens, del_cost, loss_reg, inf, emit_rows):
       _build.load('wavefront').dc_wavefront_fwd, 'wavefront_fwd',
       subs.device, _build.ptr(subs), _build.ptr(ins), _build.ptr(lens),
       batch, m, n, float(del_cost), reg, soft, float(inf), _build.ptr(scores),
-      _build.ptr(rows), 0)
+      _build.ptr(rows))
   n_fwd_launches += 1
   return scores, rows
 
@@ -126,7 +126,7 @@ def launch_bwd(subs, ins, lens, rows, grad, del_cost, loss_reg):
       _build.load('wavefront').dc_wavefront_bwd, 'wavefront_bwd',
       subs.device, _build.ptr(subs), _build.ptr(ins), _build.ptr(lens),
       _build.ptr(rows), _build.ptr(grad), batch, m, n, float(del_cost), reg,
-      soft, _build.ptr(d_subs), _build.ptr(d_ins), 0)
+      soft, _build.ptr(d_subs), _build.ptr(d_ins))
   n_bwd_launches += 1
   return d_subs, d_ins
 

@@ -7,18 +7,18 @@ against an earlier version of the same source, and tries each geometry.
 
 DIR is an unpacked checkout of an earlier commit (for example
 `git archive <commit> | tar -x -C DIR`); its csrc/wavefront.cu is built
-with the same nvcc flags and called through its own C interface
-(dc_wavefront_fwd / _bwd without the cells-per-lane argument, and
-dc_band_fwd / _bwd), on the same inputs. Shapes: the train path's 256 x
-100 x 100, train_flash's 256 x 200 x 200 and long_window's 256 x 500 x
-500 float32 costs, and one batch row of each; costs U(0, 8), lengths
-U[m/2, m] with 0 and m among them, del 10, loss_reg 0.1, from a seed
-(as chip_smoke.py draws them). K12 runs on this checkout's rows (the
-layout, [m+n+1, B, m+1], is the parent's). The two versions are timed
-in turns (parent, new, new, parent) with CUDA events, 20 launches each
-after a warmup; then this checkout's kernels at each cells-per-lane
-geometry that fits (1, 2, 4), with the shared memory of each and of the
-default. Each row carries the
+with the same nvcc flags and called through the same C interface, on the
+same inputs. Shapes: the train path's 256 x 100 x 100, train_flash's
+256 x 200 x 200 and long_window's 256 x 500 x 500 float32 costs, and one
+batch row of each; costs U(0, 8), lengths U[m/2, m] with 0 and m among
+them, del 10, loss_reg 0.1, from a seed (as chip_smoke.py draws them).
+K12 runs on this checkout's rows (the layout, [m+n+1, B, m+1], is the
+parent's). The two versions are timed in turns (parent, new, new,
+parent) with CUDA events, 20 launches each after a warmup. Then each
+geometry that fits eight warps (1, 2 or 4 cells a lane) is timed from a
+copy of this checkout's wavefront.cu whose default_cells_per_lane
+returns that number, with the dynamic shared memory it launches with
+(the kernel's host-side formula, repeated below). Each row carries the
 bytes bound (each input read once, each output written once, at 3.35
 TB/s) and the largest |new - parent| of every output. A last row holds
 K13 / K14 (the banded DP, band 12, unchanged by the redesign) against
@@ -30,8 +30,10 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
+from typing import Dict, Optional
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PEAK_BYTES = 3.35e12
@@ -56,30 +58,66 @@ def timed(fn, iters=20, warmup=3) -> float:
   return start.elapsed_time(end) / iters
 
 
-def build_parent(parent: str) -> ctypes.CDLL:
-  """The parent's wavefront library, its entry points typed as they
-  were before the cells-per-lane argument."""
+OUT = os.path.join(REPO, 'build', 'bench_dp_kernels')
+CELLS = (1, 2, 4)
+
+
+def build_libs(parent: Optional[str]) -> Dict[str, ctypes.CDLL]:
+  """The parent's wavefront library (if given) and one copy of this
+  checkout's per geometry, `cells_C`, built by parallel nvcc runs."""
   from deepconsensus_tpu_torch.ops import _build
 
-  src = os.path.join(parent, 'deepconsensus_tpu_torch', 'csrc',
-                     'wavefront.cu')
-  out = os.path.join(REPO, 'build', 'bench_dp_kernels', 'libparent_dp.so')
-  os.makedirs(os.path.dirname(out), exist_ok=True)
-  subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, '-I',
-                  os.path.dirname(src), '-o', out, src], check=True,
-                 capture_output=True)
-  lib = ctypes.CDLL(out)
-  p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-  argtypes = {
-      'dc_wavefront_fwd': (p, p, p, i, i, i, f, f, i, f, p, p, p),
-      'dc_wavefront_bwd': (p, p, p, p, p, i, i, i, f, f, i, p, p, p),
-      'dc_band_fwd': _build.SIGNATURES['wavefront']['dc_band_fwd'],
-      'dc_band_bwd': _build.SIGNATURES['wavefront']['dc_band_bwd']}
-  for name, types in argtypes.items():
-    fn = getattr(lib, name)
-    fn.argtypes = types
-    fn.restype = ctypes.c_int
-  return lib
+  os.makedirs(OUT, exist_ok=True)
+  source = open(os.path.join(_build.CSRC, 'wavefront.cu')).read()
+  choice = re.compile(r'int default_cells_per_lane\(int m\) \{.*?\n\}\n',
+                      re.S)
+  if not choice.search(source):
+    raise RuntimeError('default_cells_per_lane is gone from wavefront.cu')
+  sources = {}
+  for cells in CELLS:
+    path = os.path.join(OUT, f'cells_{cells}.cu')
+    with open(path, 'w') as f:
+      f.write(choice.sub(
+          f'int default_cells_per_lane(int) {{ return {cells}; }}\n', source))
+    sources[f'cells_{cells}'] = path
+  if parent:
+    sources['parent'] = os.path.join(parent, 'deepconsensus_tpu_torch',
+                                     'csrc', 'wavefront.cu')
+  procs = {
+      name: subprocess.Popen(
+          [_build.nvcc_path(), *_build.NVCC_FLAGS, '-I',
+           os.path.dirname(src), '-I', str(_build.CSRC), '-o',
+           os.path.join(OUT, f'lib{name}.so'), src],
+          stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+      for name, src in sources.items()}
+  libs = {}
+  for name, proc in procs.items():
+    _, err = proc.communicate()
+    if proc.returncode:
+      raise RuntimeError(f'nvcc {name}: {err.decode()[-2000:]}')
+    lib = ctypes.CDLL(os.path.join(OUT, f'lib{name}.so'))
+    for fn, types in _build.SIGNATURES['wavefront'].items():
+      getattr(lib, fn).argtypes = types
+      getattr(lib, fn).restype = ctypes.c_int
+    libs[name] = lib
+  return libs
+
+
+def smem_bytes(m: int, cells: int, bwd: bool) -> Optional[int]:
+  """wavefront.cu's dynamic shared memory for K11 (bwd False) or K12 at m
+  with `cells` cells a lane (dp_warps, tile_floats, dp_stages and
+  dp_smem_bytes there), or None where the geometry needs more than eight
+  warps."""
+  tile, pitch, ring, max_warps = 8, 9, 32, 8
+  link = 4 + 4 * ring
+  warps = (m + 32 * cells) // (32 * cells)
+  if warps > max_warps:
+    return None
+  floats = (32 * cells * pitch + 32 * cells + tile
+            + ((tile + 1) * (32 * cells + 1) if bwd else 0) + 3) // 4 * 4
+  stages = next((s for s in (4, 3)
+                 if (warps - 1) * link + warps * s * floats <= 25 * 1024), 2)
+  return ((warps - 1) * link + warps * stages * floats) * 4
 
 
 def costs(batch, m, n, seed):
@@ -125,7 +163,8 @@ def main(argv) -> int:
   for line in log.read_text().splitlines():
     if 'registers' in line or 'spill' in line or 'Compiling entry' in line:
       print('ptxas wavefront:', line.strip())
-  parent = build_parent(args.parent) if args.parent else None
+  libs = build_libs(args.parent)
+  parent = libs.get('parent')
   stream = _build.stream_ptr(torch.device('cuda'))
   ptr = _build.ptr
   for shape, full_batch, m in SHAPES:
@@ -142,23 +181,22 @@ def main(argv) -> int:
                      d_ins=torch.empty_like(ins))
           for name in ('new', 'parent')}
 
-      def fwd(lib, name, rows, *cells):
+      def fwd(lib, name, rows):
         o = out[name]
         return lambda: _build.check(lib.dc_wavefront_fwd(
             ptr(subs), ptr(ins), ptr(lens), *dp,
             ptr(o['scores'] if rows else o['no_rows']),
-            ptr(o['rows'] if rows else None), *cells, stream), f'{name} K11')
+            ptr(o['rows'] if rows else None), stream), f'{name} K11')
 
-      def bwd(lib, name, *cells):
+      def bwd(lib, name):
         o = out[name]
         return lambda: _build.check(lib.dc_wavefront_bwd(
             ptr(subs), ptr(ins), ptr(lens), ptr(out['new']['rows']),
-            ptr(grad), *dp[:-1], ptr(o['d_subs']), ptr(o['d_ins']), *cells,
-            stream), f'{name} K12')
+            ptr(grad), *dp[:-1], ptr(o['d_subs']), ptr(o['d_ins']), stream),
+            f'{name} K12')
 
-      kernels = {'K11': lambda lib, name, *c: fwd(lib, name, True, *c),
-                 'K11_no_rows': lambda lib, name, *c: fwd(lib, name, False,
-                                                          *c),
+      kernels = {'K11': lambda lib, name: fwd(lib, name, True),
+                 'K11_no_rows': lambda lib, name: fwd(lib, name, False),
                  'K12': bwd}
       in_bytes = (subs.numel() + ins.numel() + lens.numel()) * 4
       rows_bytes = out['new']['rows'].numel() * 4
@@ -167,9 +205,9 @@ def main(argv) -> int:
                 'K12': in_bytes + rows_bytes + batch * 4 + in_bytes
                        - lens.numel() * 4}
       # Outputs first (K12 reads the new K11's rows), then the turns.
-      fwd(new, 'new', True, 0)()
+      fwd(new, 'new', True)()
       for name, make in kernels.items():
-        make(new, 'new', 0)()
+        make(new, 'new')()
         if parent is not None:
           make(parent, 'parent')()
       torch.cuda.synchronize()
@@ -179,9 +217,9 @@ def main(argv) -> int:
                'bound_ms': nbytes[name] / PEAK_BYTES * 1e3,
                'bytes': nbytes[name]}
         if parent is not None:
-          times = [timed(make(lib, tag, *c)) for lib, tag, c in (
-              (parent, 'parent', ()), (new, 'new', (0,)),
-              (new, 'new', (0,)), (parent, 'parent', ()))]
+          times = [timed(make(lib, tag)) for lib, tag in (
+              (parent, 'parent'), (new, 'new'), (new, 'new'),
+              (parent, 'parent'))]
           row['ms'] = times[1:3]
           row['parent_ms'] = [times[0], times[3]]
           keys = {'K11': ('scores', 'rows'), 'K11_no_rows': ('no_rows',),
@@ -189,14 +227,13 @@ def main(argv) -> int:
           row['max_abs_new_minus_parent'] = {
               k: diff(out['new'][k], out['parent'][k]) for k in keys}
         else:
-          row['ms'] = [timed(make(new, 'new', 0))]
-        for cells in (1, 2, 4):
-          smem = new.dc_wavefront_smem_bytes(m, cells, int(name == 'K12'))
-          if smem >= 0:
-            row[f'cells_{cells}_ms'] = timed(make(new, 'new', cells))
+          row['ms'] = [timed(make(new, 'new'))]
+        for cells in CELLS:
+          smem = smem_bytes(m, cells, name == 'K12')
+          if smem is not None:
+            row[f'cells_{cells}_ms'] = timed(make(libs[f'cells_{cells}'],
+                                                  'new'))
             row[f'cells_{cells}_smem_bytes'] = smem
-        row['default_smem_bytes'] = new.dc_wavefront_smem_bytes(
-            m, 0, int(name == 'K12'))
         print(json.dumps(row), flush=True)
       del out
   if parent is not None:

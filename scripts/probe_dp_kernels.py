@@ -71,10 +71,10 @@ CUTS = {
     'no_staging': [('if (kb <= k_last) stage_costs<C>', 'if (false) stage_costs<C>'),
                    ('    if (kb >= kb_last) {\n      stage_costs<C>',
                     '    if (false) {\n      stage_costs<C>')],
-    'no_ring_read': [('const float4 e = ld_entry(in_link.ring + ((k - in_b) & (kRing - 1)));',
-                      'const float4 e = make_float4(0.f, 0.f, 0.f, 0.f);'),
-                     ('const float4 e =\n            ld_entry(in_link.ring + ((in_first - k) & (kRing - 1)));',
-                      'const float4 e = make_float4(0.f, 0.f, 0.f, 0.f);')],
+    'no_ring_read': [('const float4 e =\n            ld_entry(has_in && lane == 0 && k <= in_last,',
+                      'const float4 e =\n            ld_entry(false,'),
+                     ('const float4 e =\n            ld_entry(from_in && lane == 31,',
+                      'const float4 e =\n            ld_entry(false,')],
     'no_tile_wait': [('    wait_oldest_tile(stages);\n', '')],
 }
 
@@ -178,17 +178,17 @@ def main() -> int:
       def k11(lib=lib):
         _build.check(lib.dc_wavefront_fwd(
             ptr(subs), ptr(ins), ptr(lens), *dp, 1e9, ptr(scores), ptr(rows),
-            0, _build.stream_ptr(subs.device)), 'K11')
+            _build.stream_ptr(subs.device)), 'K11')
 
       def k12(lib=lib):
         _build.check(lib.dc_wavefront_bwd(
             ptr(subs), ptr(ins), ptr(lens), ptr(rows), ptr(grad), *dp,
-            ptr(d_subs), ptr(d_ins), 0, _build.stream_ptr(subs.device)),
+            ptr(d_subs), ptr(d_ins), _build.stream_ptr(subs.device)),
             'K12')
 
       libs['as_is'].dc_wavefront_fwd(
           ptr(subs), ptr(ins), ptr(lens), *dp, 1e9, ptr(scores), ptr(rows),
-          0, _build.stream_ptr(subs.device))
+          _build.stream_ptr(subs.device))
       row[name] = {kernel: graph_ms(fn) * 1e6 / (m + n - 1)
                    for kernel, fn in (('K11', k11), ('K12', k12))}
     print(json.dumps(row), flush=True)
