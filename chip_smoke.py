@@ -39,7 +39,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    banded DP's forward, with and without rows, and backward) at the same
    costs with lengths 0 and m, W = 12 and W = 100 = m, loss_reg 0.1 and
    the hard minimum, with K11's gates against the plain banded DP and,
-   at W = 100, against K11/K12 too; K5 (banded attention
+   at W = 100, against K11/K12 too (timed there as well, `w100_ms`); K5 (banded attention
    forward), K7 (its dropout forward; `mask_ms`: its time over K5's) and
    K6 (its backward, with and without the mask; its `stages`: its two
    passes, each launched alone) at 256 windows x 100 positions x 2 heads
@@ -1212,7 +1212,8 @@ def check_band_kernels(device: str = 'cuda') -> dict:
   """Phase 2 for the banded DP (float32 costs): K13 without and with
   rows, K14 on those rows, vs the plain banded DP and its autograd, at
   W = 12 and W = 100 = m, loss_reg 0.1 and the hard minimum; at W = 100
-  also vs K11/K12, whose DP the band then covers."""
+  also vs K11/K12, whose DP the band then covers, and timed apart
+  (`w100_ms`: eight band slots a lane where W = 12 takes one)."""
   import numpy as np
   import torch
 
@@ -1229,7 +1230,7 @@ def check_band_kernels(device: str = 'cuda') -> dict:
   subs, ins, lens = subs.to(dev), ins.to(dev), torch.from_numpy(lens).to(dev)
   grad = torch.from_numpy(rng.uniform(0.5, 2, b).astype(np.float32)).to(dev)
   errs = {'K13': [], 'K14': [], 'K13_vs_K11': [], 'K14_vs_K12': []}
-  timed = {}
+  timed, wide = {}, {}
   for width in (BAND_WIDTH, m):
     for reg in (LOSS_REG, None):
       def k13(s=subs, i=ins, lengths=lens, w=width, r=reg):
@@ -1272,6 +1273,8 @@ def check_band_kernels(device: str = 'cuda') -> dict:
         errs['K13_vs_K11'].append(max_err(scores, full, 1e-5, 1e-4))
         errs['K14_vs_K12'].append(max(max_err(d_subs, f_ds, 1e-4, 1e-5),
                                       max_err(d_ins, f_di, 1e-4, 1e-5)))
+        if reg == LOSS_REG:
+          wide = dict(K13=cuda_ms(k13), K14=cuda_ms(k14))
       if width == BAND_WIDTH and reg == LOSS_REG:
         one = (subs[:1], ins[:1], lens[:1])
         _, rows1 = k13(*one)
@@ -1301,14 +1304,14 @@ def check_band_kernels(device: str = 'cuda') -> dict:
       no_rows_ms=timed['no_rows_ms'], plain_ms=timed['k13_plain_ms'],
       library_ms=None, bound_ms=t_bound, bound_by=by,
       serial_floor_ms=timed['k13_floor_ms'],
-      max_abs_err_vs_K11=max(errs['K13_vs_K11']),
+      max_abs_err_vs_K11=max(errs['K13_vs_K11']), w100_ms=wide['K13'],
       flops=cells * FWD_OPS_PER_CELL, bytes=fwd_bytes)
   t_bound, by = bound(cells * BWD_OPS_PER_CELL, bwd_bytes, 'float32')
   out['K14'] = dict(
       max_abs_err=max(errs['K14']), ms=timed['k14_ms'],
       plain_ms=timed['k14_plain_ms'], library_ms=None, bound_ms=t_bound,
       bound_by=by, serial_floor_ms=timed['k14_floor_ms'],
-      max_abs_err_vs_K12=max(errs['K14_vs_K12']),
+      max_abs_err_vs_K12=max(errs['K14_vs_K12']), w100_ms=wide['K14'],
       flops=cells * BWD_OPS_PER_CELL, bytes=bwd_bytes)
   return out
 
@@ -3058,7 +3061,7 @@ def main(argv) -> int:
       ('K14', 'deepconsensus_tpu/ops/wavefront_pallas.py:905', 'train_band')):
     r = dp_kernels[name]
     extra = {k: r[k] for k in ('no_rows_ms', 'max_abs_err_vs_K11',
-                               'max_abs_err_vs_K12') if k in r}
+                               'max_abs_err_vs_K12', 'w100_ms') if k in r}
     line.append({
         'name': name, 'route': 'cuda',
         'source': 'deepconsensus_tpu_torch/csrc/wavefront.cu',

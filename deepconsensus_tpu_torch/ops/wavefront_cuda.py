@@ -30,8 +30,8 @@ n_band_fwd_launches = 0
 n_band_bwd_launches = 0
 
 # One block per batch row: warps of 32 lanes holding 1, 2 or 4 DP row
-# indices i <= m each (K11/K12, at most 8 warps), or one thread per band
-# slot d <= 2W (K13/K14).
+# indices i <= m each (K11/K12, at most 8 warps), or one warp holding the
+# band slots d <= 2W, up to 32 a lane (K13/K14).
 MAX_M = 1023
 MAX_WIDTH = 511
 
@@ -53,8 +53,8 @@ def _check_band_inputs(subs_costs: torch.Tensor, ins_costs: torch.Tensor,
     raise ValueError(f'banded alignment requires m == n, got {m} x {n}')
   if not 1 <= width <= MAX_WIDTH:
     raise ValueError(f'band width {width}: the kernels take 1 <= width and '
-                     f'2 * width + 1 <= {2 * MAX_WIDTH + 2} (one thread per '
-                     'band slot)')
+                     f'2 * width + 1 <= {2 * MAX_WIDTH + 2} (one warp holds '
+                     'the band, up to 32 slots a lane)')
   for name, t in (('subs_costs', subs_costs), ('ins_costs', ins_costs)):
     if t.dtype != torch.float32:
       raise ValueError(f'{name} is {t.dtype}; the banded DP takes float32 '

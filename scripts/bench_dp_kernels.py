@@ -20,9 +20,12 @@ copy of this checkout's wavefront.cu whose default_cells_per_lane
 returns that number, with the dynamic shared memory it launches with
 (the kernel's host-side formula, repeated below). Each row carries the
 bytes bound (each input read once, each output written once, at 3.35
-TB/s) and the largest |new - parent| of every output. A last row holds
-K13 / K14 (the banded DP, band 12, unchanged by the redesign) against
-the parent. Prints nvcc's register and shared-memory report for
+TB/s) and the largest |new - parent| of every output. The banded DP's
+rows follow: K13 (with and without rows) and K14 on train_band's 256 x
+100 costs at band 12 (one slot a lane), on one batch row of them (length
+m: the chain's floor), and at bands 40 and 100 (4 and 8 slots a lane),
+timed against the parent in the same turns; their bytes count the band's
+cells of subs. Prints nvcc's register and shared-memory report for
 wavefront.cu, one JSON line per row, and the card's name and power limit
 first and last; with no CUDA device it exits 2.
 """
@@ -39,7 +42,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PEAK_BYTES = 3.35e12
 SHAPES = (('train', 256, 100), ('train_flash', 256, 200),
           ('long_window', 256, 500))
-DEL_COST, LOSS_REG, BAND_WIDTH, SEED = 10.0, 0.1, 12, 22
+# Banded rows: (name, batch rows, m, band width).
+BAND_SHAPES = (('train_band', 256, 100, 12), ('train_band', 1, 100, 12),
+               ('band_40', 256, 100, 40), ('band_100', 256, 100, 100))
+DEL_COST, LOSS_REG, SEED = 10.0, 0.1, 22
 
 
 def timed(fn, iters=20, warmup=3) -> float:
@@ -236,45 +242,80 @@ def main(argv) -> int:
             row[f'cells_{cells}_smem_bytes'] = smem
         print(json.dumps(row), flush=True)
       del out
-  if parent is not None:
-    band_check(new, parent, stream)
+  band_check(new, parent, stream)
   print(card, flush=True)
   return 0
 
 
 def band_check(new, parent, stream) -> None:
-  """K13 (with rows) and K14 at train_band's shape: new vs parent."""
+  """K13 (with and without rows) and K14 at BAND_SHAPES: new vs parent
+  in turns (parent, new, new, parent), K14 on the new K13's rows."""
   import torch
 
   from deepconsensus_tpu_torch.ops import _build
 
   ptr = _build.ptr
-  batch, m, width = 256, 100, BAND_WIDTH
-  subs, ins, lens, grad = costs(batch, m, m, SEED)
-  res = {}
-  for tag, lib in (('new', new), ('parent', parent)):
-    scores = torch.empty(batch, device='cuda')
-    rows = torch.empty((2 * m - 1, batch, 2 * width + 1), device='cuda')
-    d_subs, d_ins = torch.empty_like(subs), torch.empty_like(ins)
+  libs = [('new', new)] + ([('parent', parent)] if parent is not None else [])
+  for shape, batch, m, width in BAND_SHAPES:
+    subs, ins, lens, grad = costs(256, m, m, SEED)
+    if batch == 1:  # the row of length m: every diagonal
+      subs, ins, lens, grad = subs[1:2], ins[1:2], lens[1:2], grad[1:2]
+    nd = 2 * width + 1
     dp = (batch, m, width, DEL_COST, LOSS_REG, 1, 1e9)
-    fwd = lambda: _build.check(lib.dc_band_fwd(  # noqa: E731
-        ptr(subs), ptr(ins), ptr(lens), *dp, ptr(scores), ptr(rows),
-        stream), 'K13')
-    bwd = lambda: _build.check(lib.dc_band_bwd(  # noqa: E731
-        ptr(subs), ptr(ins), ptr(lens), ptr(rows), ptr(grad), *dp,
-        ptr(d_subs), ptr(d_ins), stream), 'K14')
-    fwd()
-    bwd()
+    out = {tag: dict(scores=torch.empty(batch, device='cuda'),
+                     no_rows=torch.empty(batch, device='cuda'),
+                     rows=torch.empty((2 * m - 1, batch, nd), device='cuda'),
+                     d_subs=torch.empty_like(subs),
+                     d_ins=torch.empty_like(ins))
+           for tag, _ in libs}
+
+    def fwd(lib, tag, rows):
+      o = out[tag]
+      return lambda: _build.check(lib.dc_band_fwd(
+          ptr(subs), ptr(ins), ptr(lens), *dp,
+          ptr(o['scores'] if rows else o['no_rows']),
+          ptr(o['rows'] if rows else None), stream), f'{tag} K13')
+
+    def bwd(lib, tag):
+      o = out[tag]
+      return lambda: _build.check(lib.dc_band_bwd(
+          ptr(subs), ptr(ins), ptr(lens), ptr(out['new']['rows']),
+          ptr(grad), *dp, ptr(o['d_subs']), ptr(o['d_ins']), stream),
+          f'{tag} K14')
+
+    kernels = {'K13': lambda lib, tag: fwd(lib, tag, True),
+               'K13_no_rows': lambda lib, tag: fwd(lib, tag, False),
+               'K14': bwd}
+    band_subs = batch * sum(min(m - 1, i + width) - max(0, i - width) + 1
+                            for i in range(m))
+    in_bytes = (band_subs + ins.numel() + lens.numel()) * 4
+    rows_bytes = out['new']['rows'].numel() * 4
+    nbytes = {'K13': in_bytes + batch * 4 + rows_bytes,
+              'K13_no_rows': in_bytes + batch * 4,
+              'K14': in_bytes + rows_bytes + batch * 4
+                     + (subs.numel() + ins.numel()) * 4}
+    keys = {'K13': ('scores', 'rows'), 'K13_no_rows': ('no_rows',),
+            'K14': ('d_subs', 'd_ins')}
+    fwd(new, 'new', True)()  # the rows both K14s read
+    for name, make in kernels.items():
+      for tag, lib in libs:
+        make(lib, tag)()
     torch.cuda.synchronize()
-    res[tag] = dict(scores=scores, rows=rows, d_subs=d_subs, d_ins=d_ins,
-                    K13_ms=timed(fwd), K14_ms=timed(bwd))
-  print(json.dumps({
-      'shape': 'train_band', 'kernel': 'K13_K14',
-      'max_abs_new_minus_parent': {
-          k: diff(res['new'][k], res['parent'][k])
-          for k in ('scores', 'rows', 'd_subs', 'd_ins')},
-      **{f'{tag}_{k}': res[tag][k] for tag in res
-         for k in ('K13_ms', 'K14_ms')}}), flush=True)
+    for name, make in kernels.items():
+      row = {'shape': shape, 'batch': batch, 'm': m, 'width': width,
+             'kernel': name, 'bound_ms': nbytes[name] / PEAK_BYTES * 1e3,
+             'bytes': nbytes[name]}
+      if parent is not None:
+        times = [timed(make(lib, tag)) for lib, tag in (
+            (parent, 'parent'), (new, 'new'), (new, 'new'),
+            (parent, 'parent'))]
+        row['ms'] = times[1:3]
+        row['parent_ms'] = [times[0], times[3]]
+        row['max_abs_new_minus_parent'] = {
+            k: diff(out['new'][k], out['parent'][k]) for k in keys[name]}
+      else:
+        row['ms'] = [timed(make(new, 'new'))]
+      print(json.dumps(row), flush=True)
 
 
 if __name__ == '__main__':

@@ -17,6 +17,11 @@ around 20 launches replayed from a CUDA graph:
   of the warp-to-warp ring, the tile wait), timed on one batch row (m = n
   = 100, length m) and on train's 256 rows, K11 with rows and K12, soft
   minimum. A copy computes wrong values; only its time is read.
+* `band`: the same for the banded DP (K13 with and without rows, K14) on
+  one batch row and on train_band's 256 rows (m = 100, band 12), soft
+  and hard minimum: wavefront.cu and copies without the feeder's
+  cp.async copies, its soft-min terms (K14), its output codes (K14), its
+  stores of K13's rows and K14's d_subs rows.
 
 Prints the card's name and power limit first and last; with no CUDA
 device it exits 2.
@@ -77,6 +82,24 @@ CUTS = {
                       'const float4 e =\n            ld_entry(false,')],
     'no_tile_wait': [('    wait_oldest_tile(stages);\n', '')],
 }
+BAND_CUTS = {
+    'no_copies': [
+        ('stage_band_costs<C>(dst, dst + T * P, sb, ib, 2 + T * (f + F * r),',
+         'if (false) stage_band_costs<C>(dst, dst + T * P, sb, ib, 2 + T * (f + F * r),'),
+        ('stage_band_costs<C>(dst, dst + T * P, sb, ib, kb, lane, width, m);', ''),
+        ('cp_async<4>(dst + (2 * T + u) * P + G::skew(d),',
+         'if (false) cp_async<4>(dst + (2 * T + u) * P + G::skew(d),')],
+    'no_terms': [('''const OptionTerms w = option_terms(
+          band_at(t, k - 2, d) + sc, band_at(t + 1, k - 1, d + 1) + del_cost,
+          band_at(t + 1, k - 1, d - 1) + ic, inv_reg, kSoft);''',
+                  'const OptionTerms w = {{sc, ic, 1.f}, 2.f, 0.5f};')],
+    'no_codes': [('o[5 * P] = __int_as_float(cell);', 'o[5 * P] = -1;'),
+                 ('o[6 * P] = __int_as_float(col);', 'o[6 * P] = -2;')],
+    'no_outputs': [('if (with_rows) write_rows(i - S);', ''),
+                   ('if (with_rows) write_rows(j);', ''),
+                   ('flush_tile(i - S);', ''), ('flush_tile(j);', ''),
+                   ('for (int x = m; x >= 1; --x) flush(x);', '')],
+}
 
 
 def graph_ms(fn, iters=20) -> float:
@@ -105,17 +128,35 @@ def graph_ms(fn, iters=20) -> float:
   return start.elapsed_time(end) / (5 * iters)
 
 
-def build(name: str, source: str) -> ctypes.CDLL:
+def build(sources: dict) -> dict:
+  """name -> source text, built by parallel nvcc runs: name -> CDLL."""
   from deepconsensus_tpu_torch.ops import _build
 
   os.makedirs(OUT, exist_ok=True)
-  path = os.path.join(OUT, f'{name}.cu')
-  with open(path, 'w') as f:
-    f.write(source)
-  lib = os.path.join(OUT, f'lib{name}.so')
-  subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, '-I', str(_build.CSRC),
-                  '-o', lib, path], check=True, capture_output=True)
-  return ctypes.CDLL(lib)
+  procs = {}
+  for name, source in sources.items():
+    path = os.path.join(OUT, f'{name}.cu')
+    with open(path, 'w') as f:
+      f.write(source)
+    procs[name] = subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, '-I', str(_build.CSRC), '-o',
+         os.path.join(OUT, f'lib{name}.so'), path],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+  libs = {}
+  for name, proc in procs.items():
+    _, err = proc.communicate()
+    if proc.returncode:
+      raise RuntimeError(f'nvcc {name}: {err.decode()[-2000:]}')
+    libs[name] = ctypes.CDLL(os.path.join(OUT, f'lib{name}.so'))
+  return libs
+
+
+def cut(source: str, name: str, cuts) -> str:
+  for old, new in cuts:
+    if old not in source:
+      raise RuntimeError(f'{name}: the text to cut is gone from wavefront.cu')
+    source = source.replace(old, new)
+  return source
 
 
 def main() -> int:
@@ -135,7 +176,13 @@ def main() -> int:
   functions = re.search(r'struct LogSumExp3 \{.*?\n\}\n\n__device__ '
                         r'__forceinline__ float soft_min3\(.*?\n\}\n', source,
                         re.S).group(0)
-  chain = build('chain', CHAIN % {'functions': functions})
+  sources = {'chain': CHAIN % {'functions': functions}, 'as_is': source}
+  sources.update({name: cut(source, name, cuts)
+                  for name, cuts in CUTS.items()})
+  sources.update({f'band_{name}': cut(source, name, cuts)
+                  for name, cuts in BAND_CUTS.items()})
+  libs = build(sources)
+  chain = libs.pop('chain')
   chain.dc_chain.argtypes = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                              ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
   out = torch.empty(32, device='cuda')
@@ -147,20 +194,13 @@ def main() -> int:
       print(json.dumps({'row': 'chain', 'soft': soft, 'shuffle': shuffle,
                         'ns_per_diagonal': ms * 1e6 / DIAGONALS}), flush=True)
 
-  libs = {'as_is': source}
-  for name, cuts in CUTS.items():
-    text = source
-    for old, new in cuts:
-      if old not in text:
-        raise RuntimeError(f'{name}: the text to cut is gone from wavefront.cu')
-      text = text.replace(old, new)
-    libs[name] = text
-  for name in libs:
-    lib = build(name, libs[name])
+  for lib in libs.values():
     for fn, types in _build.SIGNATURES['wavefront'].items():
       getattr(lib, fn).argtypes = types
       getattr(lib, fn).restype = ctypes.c_int
-    libs[name] = lib
+  band_libs = {'as_is': libs['as_is']}
+  band_libs.update({name[5:]: libs.pop(name) for name in list(libs)
+                    if name.startswith('band_')})
   ptr = _build.ptr
   for batch in (1, 256):
     m = n = 100
@@ -192,6 +232,42 @@ def main() -> int:
       row[name] = {kernel: graph_ms(fn) * 1e6 / (m + n - 1)
                    for kernel, fn in (('K11', k11), ('K12', k12))}
     print(json.dumps(row), flush=True)
+  for batch in (1, 256):
+    m, width = 100, 12
+    gen = torch.Generator(device='cuda').manual_seed(batch)
+    subs = torch.rand((batch, m, m), generator=gen, device='cuda') * 8
+    ins = torch.rand((batch, m), generator=gen, device='cuda') * 8
+    lens = torch.full((batch,), m, dtype=torch.int32, device='cuda')
+    grad = torch.ones(batch, device='cuda')
+    scores = torch.empty(batch, device='cuda')
+    rows = torch.empty((2 * m - 1, batch, 2 * width + 1), device='cuda')
+    d_subs, d_ins = torch.empty_like(subs), torch.empty_like(ins)
+    for soft in (1, 0):
+      dp = (batch, m, width, 10.0, 0.1, soft, 1e9)
+      row = {'row': 'band', 'batch': batch, 'm': m, 'width': width,
+             'soft': soft}
+      band_libs['as_is'].dc_band_fwd(ptr(subs), ptr(ins), ptr(lens), *dp,
+                                     ptr(scores), ptr(rows),
+                                     _build.stream_ptr(subs.device))
+      for name, lib in band_libs.items():
+        def k13(lib=lib, with_rows=True):
+          _build.check(lib.dc_band_fwd(
+              ptr(subs), ptr(ins), ptr(lens), *dp, ptr(scores),
+              ptr(rows if with_rows else None),
+              _build.stream_ptr(subs.device)), 'K13')
+
+        def k14(lib=lib):
+          _build.check(lib.dc_band_bwd(
+              ptr(subs), ptr(ins), ptr(lens), ptr(rows), ptr(grad), *dp,
+              ptr(d_subs), ptr(d_ins), _build.stream_ptr(subs.device)),
+              'K14')
+
+        row[name] = {kernel: graph_ms(fn) * 1e6 / (2 * m - 1)
+                     for kernel, fn in (
+                         ('K13', k13),
+                         ('K13_no_rows', lambda k13=k13: k13(with_rows=False)),
+                         ('K14', k14))}
+      print(json.dumps(row), flush=True)
   print(card, flush=True)
   return 0
 

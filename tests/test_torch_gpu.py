@@ -391,9 +391,9 @@ def test_wavefront_kernels_repeat_bit_for_bit(cuda, loss_reg, m):
 
 def test_band_kernels_unchanged_at_train_band_shape(cuda):
   """K13 and K14 at train_band's shape (256 x 100, band 12, loss_reg
-  0.1), which the redesign of K11/K12 leaves as they were: K13's scores
-  equal the plain banded DP's bit for bit, K14's gradients match its
-  autograd (rtol 1e-4, atol 1e-5)."""
+  0.1): K13's scores equal the plain banded DP's bit for bit (it repeats
+  the plain version's roundings), K14's gradients match its autograd
+  (rtol 1e-4, atol 1e-5)."""
   subs, ins, lens = wavefront_costs(cuda, 256, 100, 100, seed=12)
   weights = torch.rand(256, device=cuda) + 0.5
   got = wavefront_cuda.banded_alignment_scores(subs, ins, 10.0, lens, 12,
@@ -410,6 +410,26 @@ def test_band_kernels_unchanged_at_train_band_shape(cuda):
   torch.cuda.synchronize()
   for got_grad, want_grad in zip(*grads):
     torch.testing.assert_close(got_grad, want_grad, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize('loss_reg', [None, 0.1])
+@pytest.mark.parametrize('width', [12, 100])
+def test_band_kernels_repeat_bit_for_bit(cuda, loss_reg, width):
+  """K13 and K14 at train_band's shape (256 rows, m = 100) with band 12
+  (one slot a lane) and 100 (eight): two launches give the same scores,
+  rows and gradients bit for bit (K14 sums d_ins without atomics)."""
+  subs, ins, lens = wavefront_costs(cuda, 256, 100, 100, seed=width)
+  grad = torch.rand(256, device=cuda) + 0.5
+  runs = []
+  for _ in range(2):
+    scores, rows = wavefront_cuda.banded_alignment_scores_with_rows(
+        subs, ins, 10.0, lens, width, loss_reg)
+    d_subs, d_ins = wavefront_cuda.launch_band_bwd(
+        subs, ins, lens, rows, grad, width, 10.0, loss_reg)
+    runs.append((scores, rows, d_subs, d_ins))
+  torch.cuda.synchronize()
+  for first, second in zip(*runs):
+    assert torch.equal(first, second)
 
 
 def test_wavefront_wrapper_rejects_bad_input(cuda):
@@ -454,11 +474,15 @@ def test_training_step_on_the_card_matches_the_cpu(cuda):
 @pytest.mark.parametrize('loss_reg', [None, 0.1])
 @pytest.mark.parametrize('b', [1, 5, 256])
 @pytest.mark.parametrize('m', [8, 100])
-@pytest.mark.parametrize('width_of_m', [1, 12, 'm', 'm+7'])
+@pytest.mark.parametrize('width_of_m',
+                         [1, 12, 'm', 'm+7', 15, 16, 40, 200, 511])
 def test_band_kernels_match_plain(cuda, loss_reg, b, m, width_of_m):
   """K13 (without and with rows) and K14 against the plain banded DP
   and its autograd, lengths 0 and m included; at W >= m, K13 against
-  K11 as well (the band then holds the whole DP)."""
+  K11 as well (the band then holds the whole DP). Widths 15 and 16 are
+  the edge of one slot a lane (31 and 33 slots), 40, 100, 200 and 511
+  take 4, 8, 16 and 32 slots a lane; at m = 100, W = 511 K14 stores its
+  d_subs cells directly (its rows do not fit in shared memory)."""
   width = {'m': m, 'm+7': m + 7}.get(width_of_m, width_of_m)
   subs, ins, lens = wavefront_costs(cuda, b, m, m, seed=b + m + width)
   fwd = wavefront_cuda.n_band_fwd_launches
