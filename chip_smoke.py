@@ -183,7 +183,9 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    card line again, and the last line `{"ok": true, "device": {...}}`.
 
 `--kernels-only` stops after phase 2 and prints no result (a first
-check of newly written kernels). Without a CUDA device, or away from the repository, it exits 2 and
+check of newly written kernels); `--stage-split-only` builds the
+kernels and runs only the stage split of phase 3 (the L100 bfloat16
+`cli run` once per --end_after_stage cut). Without a CUDA device, or away from the repository, it exits 2 and
 prints no result.
 """
 from __future__ import annotations
@@ -1704,6 +1706,48 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
           lengths, seconds, torch.cuda.max_memory_allocated())
 
 
+STAGE_CUTS = ('dc_input', 'tf_examples', 'run_model', 'full')
+STAGE_KEYS = ('bam_decode_seconds', 'featurize_seconds',
+              'triage_format_seconds', 'model_seconds', 'stitch_seconds',
+              'untimed_seconds', 'h2d_seconds', 'device_forward_seconds',
+              'd2h_seconds')
+
+
+def stage_split(bams, weights, dtype: str = 'bfloat16', extra=()) -> dict:
+  """The L100 `cli run` once per --end_after_stage cut (BAM decode
+  only, + featurize, + model, full), after one full run that warms the
+  process up (printed as the cut `warmup`): each cut's wall clock and
+  its stage seconds, printed as `stage_split` lines; returns {cut:
+  counters}."""
+  from deepconsensus_tpu_torch import cli
+
+  params_path = os.path.join(WORK, f'params_split_{dtype}.json')
+  with open(params_path, 'w') as f:
+    json.dump(make_params(dtype).to_dict(), f)
+  cuts = {}
+  for cut in ('warmup',) + STAGE_CUTS:
+    out = os.path.join(WORK, f'out_split_{cut}.fastq')
+    argv = ['run', '--subreads_to_ccs', bams[0], '--ccs_bam', bams[1],
+            '--weights', weights, '--params', params_path, '--output', out,
+            '--batch_size', str(BATCH), '--batch_zmws', str(N_ZMWS),
+            '--min_quality', '0', '--skip_windows_above', '0',
+            '--end_after_stage', 'full' if cut == 'warmup' else cut,
+            *extra]
+    t0 = time.perf_counter()
+    if cli.main(argv) != 0:
+      raise AssertionError(f'cli run --end_after_stage {cut} failed')
+    seconds = time.perf_counter() - t0
+    with open(out + '.inference.json') as f:
+      cuts[cut] = counters = json.load(f)
+    print(json.dumps({
+        'phase': 'stage_split', 'cut': cut, 'dtype': dtype,
+        'extra': list(extra), 'seconds': seconds,
+        'total_seconds': counters['total_seconds'],
+        'windows': counters.get('n_windows_to_model', 0),
+        **{k: counters.get(k) for k in STAGE_KEYS}}), flush=True)
+  return cuts
+
+
 def enforce(path: str, gates: dict, checks) -> dict:
   """Prints a path's gate values, then raises on the first failed
   (ok, message) check."""
@@ -2565,6 +2609,28 @@ def train_step_breakdown(dtype: str, steps: int = 5, attn: bool = False,
   }
 
 
+def make_run_inputs():
+  """The `run` paths' synthetic BAMs ({'L100': ..., 'ragged': ...}) and
+  the seeded full-width weights (.npz), under WORK."""
+  import torch
+
+  from deepconsensus_tpu_torch.models import model as model_lib
+  from deepconsensus_tpu_torch.models import weights as weights_lib
+  from deepconsensus_tpu_torch.testing import synthetic
+
+  os.makedirs(WORK, exist_ok=True)
+  bams = {path: synthetic.write_synthetic_zmw_bams(
+      os.path.join(WORK, f'bams_{path}'), n_zmws=N_ZMWS,
+      n_subreads=N_SUBREADS, seq_len=SEQ_LEN, seed=SEED,
+      smart_windows=path == 'ragged') for path in RUN_PATHS}
+  model = model_lib.DeepConsensusModel(make_params('float32'), device='cpu')
+  model.init_weights(torch.Generator().manual_seed(SEED))
+  weights = os.path.join(WORK, 'weights.npz')
+  weights_lib.save_npz(weights, weights_lib.to_flax_params(
+      model.state_dict()))
+  return bams, weights
+
+
 def main(argv) -> int:
   kernels_only = '--kernels-only' in argv
   try:
@@ -2636,6 +2702,11 @@ def main(argv) -> int:
               fwa.resolve_dtype(dtype), layout.entries, p.total_rows,
               cond_in) for dtype in ('bfloat16', 'float32')}}), flush=True)
 
+  if '--stage-split-only' in argv:
+    bams, weights = make_run_inputs()
+    stage_split(bams['L100'], weights)
+    return 0
+
   kernels = {}
   for dtype in ('float32', 'bfloat16'):
     result = check_kernels(dtype)
@@ -2653,17 +2724,7 @@ def main(argv) -> int:
                       **r}), flush=True)
   if kernels_only:
     return 0
-
-  os.makedirs(WORK, exist_ok=True)
-  bams = {path: synthetic.write_synthetic_zmw_bams(
-      os.path.join(WORK, f'bams_{path}'), n_zmws=N_ZMWS,
-      n_subreads=N_SUBREADS, seq_len=SEQ_LEN, seed=SEED,
-      smart_windows=path == 'ragged') for path in RUN_PATHS}
-  model = model_lib.DeepConsensusModel(make_params('float32'), device='cpu')
-  model.init_weights(torch.Generator().manual_seed(SEED))
-  weights = os.path.join(WORK, 'weights.npz')
-  weights_lib.save_npz(weights, weights_lib.to_flax_params(
-      model.state_dict()))
+  bams, weights = make_run_inputs()
 
   launches_by_path = {}
   main_runs = {}

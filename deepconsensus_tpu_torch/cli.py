@@ -230,6 +230,10 @@ def _add_run(sub) -> None:
   p.add_argument('--limit', type=int, default=0)
   p.add_argument('--dtype', default=None, choices=['float32', 'bfloat16'],
                  help='Compute dtype (default: params.json "dtype").')
+  p.add_argument('--end_after_stage', default='full',
+                 choices=['dc_input', 'tf_examples', 'run_model', 'full'],
+                 help='Stop the pipeline early to time its stages: after '
+                 'BAM decode, featurize or the model.')
   _add_quant_flags(p)
   p.add_argument('--device', default=None,
                  help='cuda (default) or cpu.')
@@ -272,6 +276,7 @@ def main(argv: Optional[List[str]] = None) -> int:
       use_ragged_kernel=args.use_ragged_kernel,
       max_base_quality=args.max_base_quality,
       limit=args.limit,
+      end_after_stage=args.end_after_stage,
       dc_calibration_values=calibration_lib.parse_calibration_string(dc_cal),
       ccs_calibration_values=calibration_lib.parse_calibration_string(
           args.ccs_calibration),
@@ -284,6 +289,8 @@ def main(argv: Optional[List[str]] = None) -> int:
   print(json.dumps({k: counters[k] for k in (
       'success', 'n_windows_to_model', 'n_model_packs', 'model_seconds',
       'total_seconds') if k in counters}))
+  if args.end_after_stage != 'full':
+    return 0  # a truncated run writes no reads
   return 0 if counters.get('success', 0) > 0 else 1
 
 

@@ -34,6 +34,7 @@ per window of a ragged slot), reassembled on the card. The output plane
 from __future__ import annotations
 
 import collections
+import csv
 import dataclasses
 import json
 import os
@@ -93,6 +94,9 @@ class InferenceOptions:
   ins_trim: int = 5
   max_base_quality: int = 93
   limit: int = 0
+  # Debug stage truncation (reference DebugStage): dc_input stops after
+  # BAM decode, tf_examples after featurize, run_model after the model.
+  end_after_stage: str = 'full'  # dc_input | tf_examples | run_model | full
   dc_calibration_values: calibration_lib.QualityCalibrationValues = (
       dataclasses.field(
           default_factory=lambda: calibration_lib.parse_calibration_string(
@@ -102,6 +106,11 @@ class InferenceOptions:
           default_factory=lambda: calibration_lib.parse_calibration_string(
               'skip')))
 
+
+# Host stages timed into <output>.inference.json; untimed_seconds is
+# total_seconds minus their sum.
+_STAGE_KEYS = ('bam_decode_seconds', 'featurize_seconds',
+               'triage_format_seconds', 'model_seconds', 'stitch_seconds')
 
 _SN_ROWS = 4  # trailing rows: per-window SN constants (layout: pileup.py)
 
@@ -205,6 +214,9 @@ class ModelRunner:
     self.n_pad_rows_by_bucket = collections.Counter()
     self.model_seconds = 0.0
     self.d2h_bytes_per_pack = 0
+    # On the card: per pack, CUDA events before and after the H2D copy,
+    # after the forward and after the D2H copy (device_seconds()).
+    self._pack_events: List[Tuple[Any, ...]] = []
 
   def _configure_epilogue(self) -> None:
     """Builds the exact threshold table for the device output plane
@@ -234,8 +246,11 @@ class ModelRunner:
       pad = np.zeros((batch - n,) + rows.shape[1:], rows.dtype)
       rows = np.concatenate([rows, pad])
     sn = np.ascontiguousarray(rows[:, -_SN_ROWS:, 0, 0].astype(np.float32))
-    main_dev = self._main_rows_to_device(rows)
+    main_u8 = self._main_rows_u8(rows)
+    events = self._record_event()
+    main_dev = torch.from_numpy(main_u8).to(self.device)
     sn_dev = torch.from_numpy(sn).to(self.device)
+    events += self._record_event()
     preds = self.model(_assemble_rows(main_dev, sn_dev, self._bq_row),
                        plain=self.plain)
     width = rows.shape[2]
@@ -245,17 +260,40 @@ class ModelRunner:
     self.n_windows_by_bucket[width] += n
     self.n_packs_by_bucket[width] += 1
     self.n_pad_rows_by_bucket[width] += batch - n
-    return self._epilogue(preds), n
+    out = self._epilogue(preds)
+    return out, n, events + self._record_event()
 
-  def _main_rows_to_device(self, rows: np.ndarray) -> torch.Tensor:
-    """The non-SN rows of [B, R, L, 1] as uint8 on the device, the
-    ccs_bq row biased by +1."""
+  def _record_event(self) -> Tuple[Any, ...]:
+    if self.device.type != 'cuda':
+      return ()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return (event,)
+
+  def device_seconds(self) -> Dict[str, Optional[float]]:
+    """Device time of the packs so far, by CUDA events: H2D copies,
+    forwards (with the output plane) and D2H copies, each from an event
+    recorded just before it is queued; None off the card."""
+    if self.device.type != 'cuda':
+      return dict.fromkeys(('h2d_seconds', 'device_forward_seconds',
+                            'd2h_seconds'))
+    torch.cuda.synchronize(self.device)
+    sums = [0.0, 0.0, 0.0]
+    for events in self._pack_events:
+      for i, (a, b) in enumerate(((0, 1), (1, 2), (3, 4))):
+        sums[i] += events[a].elapsed_time(events[b]) / 1e3
+    return dict(zip(('h2d_seconds', 'device_forward_seconds',
+                     'd2h_seconds'), sums))
+
+  def _main_rows_u8(self, rows: np.ndarray) -> np.ndarray:
+    """The non-SN rows of [B, R, L, 1] as uint8, the ccs_bq row biased
+    by +1."""
     main = rows[:, :-_SN_ROWS, :, 0]
     main_u8 = main.astype(np.uint8)
     if self._bq_row is not None:
       main_u8[:, self._bq_row] = (main[:, self._bq_row] + 1.0).astype(
           np.uint8)
-    return torch.from_numpy(main_u8).to(self.device)
+    return main_u8
 
   def _epilogue(self, preds: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     if self._thresholds is not None:
@@ -280,19 +318,25 @@ class ModelRunner:
     sn_w = np.take_along_axis(
         sn_planes, np.clip(starts, 0, slot_len - 1)[:, None, :], axis=2)
     sn_w = sn_w.transpose(0, 2, 1) * (lengths > 0)[:, :, None]
+    main_u8 = self._main_rows_u8(rows)
+    events = self._record_event()
+    main_dev = torch.from_numpy(main_u8).to(self.device)
     sn_dev = torch.from_numpy(
         np.ascontiguousarray(sn_w, dtype=np.float32)).to(self.device)
     len_dev = torch.from_numpy(lengths).to(self.device)
-    rows_dev = _assemble_rows_ragged(self._main_rows_to_device(rows),
-                                     sn_dev, len_dev, self._bq_row)
+    events += self._record_event()
+    rows_dev = _assemble_rows_ragged(main_dev, sn_dev, len_dev, self._bq_row)
     preds = self.model(rows_dev, plain=self.plain, window_lengths=len_dev)
-    return self._epilogue(preds), n_slots
+    return self._epilogue(preds), n_slots, events + self._record_event()
 
   def finalize(self, dispatched) -> Tuple[np.ndarray, np.ndarray]:
     """Drains a dispatch into (base ids [n, L], qualities [n, L])."""
-    (out_a, out_b), n = dispatched
+    (out_a, out_b), n, events = dispatched
+    events += self._record_event()
     out_a = out_a.cpu().numpy()
     out_b = out_b.cpu().numpy()
+    if events:
+      self._pack_events.append(events + self._record_event())
     self.d2h_bytes_per_pack = int(out_a.nbytes + out_b.nbytes)
     out_a, out_b = out_a[:n], out_b[:n]
     if self.device_epilogue:
@@ -462,20 +506,36 @@ def run_inference(
         deliver=lambda ticket, ids, quals: ticket[0](ticket[1], ids, quals))
   outcome = stitch.OutcomeCounter()
   timings = collections.Counter()
+  timing_rows: List[Dict[str, Any]] = []
+  stage = options.end_after_stage
   out_tmp = output + '.tmp'
   t_start = time.perf_counter()
 
   def flush(zmw_batch, sink) -> None:
     t0 = time.perf_counter()
+    n_subreads = sum(len(z[0]) - 1 for z in zmw_batch)
+    if stage == 'dc_input':
+      return
     windows: List[Dict[str, Any]] = []
     for zmw_input in zmw_batch:
       features, zmw_counter = preprocess_zmw(zmw_input)
       counter.update(zmw_counter)
       windows.extend(features)
     t1 = time.perf_counter()
+    timings['featurize_seconds'] += t1 - t0
+    timing_rows.append(dict(stage='preprocess', runtime=t1 - t0,
+                            n_zmws=len(zmw_batch),
+                            n_examples=len(windows), n_subreads=n_subreads))
+    if stage == 'tf_examples':
+      return
     model_before = runner.model_seconds
     mols = _polish_batch(windows, runner, options, counter, packer)
     t2 = time.perf_counter()
+    model = runner.model_seconds - model_before
+    timings['model_seconds'] += model
+    timings['triage_format_seconds'] += t2 - t1 - model
+    if stage == 'run_model':
+      return
     for name in sorted(mols):
       mol = mols[name]
       result = stitch.stitch_arrays(
@@ -485,25 +545,45 @@ def run_inference(
           outcome_counter=outcome)
       if result is not None:
         sink.write(stitch.format_fastq_bytes(name, result[0], result[1]))
-    timings['featurize_seconds'] += t1 - t0
-    timings['model_seconds'] += runner.model_seconds - model_before
-    timings['triage_format_seconds'] += (
-        t2 - t1 - (runner.model_seconds - model_before))
-    timings['stitch_seconds'] += time.perf_counter() - t2
+    t3 = time.perf_counter()
+    timings['stitch_seconds'] += t3 - t2
+    timing_rows.append(dict(stage='stitch_and_write_fastq', runtime=t3 - t2,
+                            n_zmws=len(zmw_batch), n_examples=len(windows),
+                            n_subreads=n_subreads))
 
   with open(out_tmp, 'wb') as sink:
     zmw_batch = []
-    for zmw_input in feeder():
+    zmws = feeder()
+    t_decode = time.perf_counter()
+    for zmw_input in zmws:
       zmw_batch.append(zmw_input)
       if options.batch_zmws and len(zmw_batch) >= options.batch_zmws:
+        timings['bam_decode_seconds'] += time.perf_counter() - t_decode
+        timing_rows.append(dict(
+            stage='dc_input', runtime=time.perf_counter() - t_decode,
+            n_zmws=len(zmw_batch), n_examples=0,
+            n_subreads=sum(len(z[0]) - 1 for z in zmw_batch)))
         flush(zmw_batch, sink)
         zmw_batch = []
+        t_decode = time.perf_counter()
+    timings['bam_decode_seconds'] += time.perf_counter() - t_decode
     if zmw_batch:
+      timing_rows.append(dict(
+          stage='dc_input', runtime=time.perf_counter() - t_decode,
+          n_zmws=len(zmw_batch), n_examples=0,
+          n_subreads=sum(len(z[0]) - 1 for z in zmw_batch)))
       flush(zmw_batch, sink)
   os.replace(out_tmp, output)
   counters: Dict[str, Any] = dict(counter)
   counters.update(dataclasses.asdict(outcome))
+  total = time.perf_counter() - t_start
+  for key in _STAGE_KEYS:
+    timings[key] += 0.0
   counters.update({k: round(v, 6) for k, v in timings.items()})
+  counters['untimed_seconds'] = round(
+      total - sum(timings[k] for k in _STAGE_KEYS), 6)
+  counters['end_after_stage'] = stage
+  counters.update(runner.device_seconds())
   packs = runner if packer is None else packer
   if packer is None:
     by_bucket = (runner.n_windows_by_bucket, runner.n_packs_by_bucket,
@@ -513,7 +593,7 @@ def run_inference(
     by_bucket = (packer.n_windows_by_bucket, {slot_len: packer.n_packs},
                  {slot_len: packer.n_pad_rows})
   counters.update(
-      total_seconds=round(time.perf_counter() - t_start, 6),
+      total_seconds=round(total, 6),
       window_buckets=list(runner.window_buckets),
       use_ragged_kernel=int(packer is not None),
       n_windows_by_bucket=dict(by_bucket[0]),
@@ -530,6 +610,11 @@ def run_inference(
       inference_dtype=runner.inference_dtype,
       n_quantized_matmuls=runner.n_quantized_matmuls,
   )
+  with open(output + '.runtime.csv', 'w', newline='') as f:
+    writer = csv.DictWriter(f, fieldnames=['stage', 'runtime', 'n_zmws',
+                                           'n_examples', 'n_subreads'])
+    writer.writeheader()
+    writer.writerows(timing_rows)
   with open(output + '.inference.json', 'w') as f:
     json.dump(counters, f, indent=2, sort_keys=True)
   return counters
