@@ -5,8 +5,10 @@
 
 Phases, in order; any failure exits non-zero (nothing is caught):
 
-1. Print the card's name and power limit, then build every CUDA kernel
-   from csrc/ (one nvcc per source, all at once) and print nvcc's
+1. Print the card's name and power limit, then build the native BGZF /
+   TFRecord library (native/bgzf.cpp, g++, into build/native/) and every
+   CUDA kernel from csrc/ (one nvcc per source, all at once) and print
+   nvcc's
    register/spill/shared-memory report, the attention core's dynamic
    shared memory at the ragged slot length and the condenser's, and the
    blocks an SM of K8-K10 and of K6's two passes.
@@ -110,7 +112,18 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    k. `softmax_bf16`: a's and b's `cli run` over params with
       attn_softmax_dtype=bfloat16 (bfloat16, float32, float32 plain),
       a's int8 run in float32 with it, and c's `cli train --set
-      attn_softmax_dtype=bfloat16` in float32 (the module route).
+      attn_softmax_dtype=bfloat16` in float32 (the module route);
+   l. `pipeline` (right after a and b): a's and b's `cli run` in
+      bfloat16 at --batch_zmws 16 (8 featurize batches), with the
+      pipeline's defaults (cross-batch packing, dispatch depth 8) and
+      with the serial settings (--dispatch_depth 1
+      --no_cross_batch_packing), a's with --cpus 4 (the featurization
+      pool) and with a .bam output; then `stage_split`: a's bfloat16 run
+      once per --end_after_stage cut after a warm-up run.
+   Every `run` prints its stage seconds (BAM decode, featurize,
+   triage/format, model, stitch), the untimed remainder, the card's
+   H2D / forward / D2H time by CUDA events, the model stage's idle share
+   and which BAM decoder ran, and fails unless it was the native one.
    Gates: each path's kernels launched (a: K1-K3, b: K4, K2, K3, c: K11
    once per step and eval batch, K12 once per step, no K5-K7; d: K7 and
    K6 once per layer and step, K5 once per layer and eval batch, K11
@@ -169,7 +182,16 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    delivered positions (the reference's bar for the lever); on the int8
    run K2 int8's variant once per layer and pack, ids as that bar
    against i's float32 run; on the train run every loss and gradient
-   norm finite and the first loss within 2% of c's float32 run's.
+   norm finite and the first loss within 2% of c's float32 run's. l:
+   one read per ZMW, 8 featurize batches, the kernels once per pack
+   (K1 or K4, K3) and per layer and pack (K2); pipelined and serial
+   FASTQ byte-identical, a's pipelined FASTQ also to a's and to the
+   --cpus 4 run's; a's packs: across batches ceil(windows / 1024) with
+   pad rows only in the tail, per batch the sum over batches; b's: each
+   pack's lengths equal to the ragged packer's plan replayed on the
+   recorded submissions, every pipelined pack but the last full, slots
+   of one 200 and of two 100s present; the .bam records equal to the
+   FASTQ's reads, each with zm, rq and np tags.
 4. Where a full-width train step's time goes, in bfloat16 and float32,
    and in bfloat16 with attention through K5-K7, with band_width 12 and
    with attention through K8-K10 at L = 200:
@@ -1607,18 +1629,25 @@ RAGGED_FLAGS = BUCKET_FLAGS + ('--use_ragged_kernel',)
 
 
 def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
-                  attn: bool = False, softmax_bf16: bool = False):
+                  attn: bool = False, softmax_bf16: bool = False,
+                  extra=(), tag: str = '', output_ext: str = 'fastq',
+                  batch_zmws: int = N_ZMWS, record_packer=None):
   """One `run` over the synthetic BAMs on one path ('L100', 'ragged',
   'buckets' or 'int8'; attn: params with use_pallas_attention; 'int8':
   the L100 run with --quantize_matmuls int8, and in bfloat16
   --inference_dtype bfloat16 over float32 params; softmax_bf16: params
-  with attn_softmax_dtype=bfloat16); returns (counters,
-  launch counts, delivered-position ids and quals, per-pack lengths,
-  seconds, peak bytes)."""
+  with attn_softmax_dtype=bfloat16; extra: more `cli run` flags, tag:
+  the output's suffix; record_packer: a list that receives the ragged
+  packer's add/flush calls); returns (counters, launch counts,
+  delivered-position ids and quals, per-pack lengths, seconds, peak
+  bytes). The planes are read where the pipeline delivers them,
+  ModelRunner.finalize, in finalize order. Raises unless the BAMs were
+  decoded natively."""
   import numpy as np
   import torch
 
   from deepconsensus_tpu_torch import cli
+  from deepconsensus_tpu_torch.inference import engine as engine_lib
   from deepconsensus_tpu_torch.inference import runner as runner_lib
 
   ragged = path == 'ragged'
@@ -1639,30 +1668,38 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
   with open(params_path, 'w') as f:
     json.dump(params.to_dict(), f)
   out = os.path.join(
-      WORK, f'out_{path}_{dtype}{flag}{"_plain" if plain else ""}.fastq')
+      WORK, f'out_{path}_{dtype}{flag}{"_plain" if plain else ""}{tag}'
+      f'.{output_ext}')
   planes = []
-  predict = runner_lib.ModelRunner.predict
-  predict_ragged = runner_lib.ModelRunner.predict_ragged
+  finalize = runner_lib.ModelRunner.finalize
+  add = engine_lib._RaggedPacker.add
+  flush = engine_lib._RaggedPacker.flush
 
-  def recording_predict(self, rows):
-    ids, quals = predict(self, rows)
-    planes.append((np.array(ids), np.array(quals), None))
+  def recording_finalize(self, handle):
+    ids, quals = finalize(self, handle)
+    planes.append((np.array(ids), np.array(quals),
+                   np.array(handle.lengths) if handle.ragged else None))
     return ids, quals
 
-  def recording_predict_ragged(self, rows, lengths):
-    ids, quals = predict_ragged(self, rows, lengths)
-    planes.append((np.array(ids), np.array(quals), np.array(lengths)))
-    return ids, quals
+  def recording_add(self, rows, tickets):
+    record_packer.append(('add', int(rows.shape[2]), len(rows)))
+    return add(self, rows, tickets)
+
+  def recording_flush(self, drain=True):
+    record_packer.append(('flush', drain))
+    return flush(self, drain)
 
   argv = ['run', '--subreads_to_ccs', bams[0], '--ccs_bam', bams[1],
           '--weights', weights, '--params', params_path, '--output', out,
-          '--batch_size', str(BATCH), '--batch_zmws', str(N_ZMWS),
-          '--min_quality', '0', '--skip_windows_above', '0']
+          '--batch_size', str(BATCH), '--batch_zmws', str(batch_zmws),
+          '--min_quality', '0', '--skip_windows_above', '0', *extra]
   if smart:
     argv += RAGGED_FLAGS if ragged else BUCKET_FLAGS
   argv += levers
-  runner_lib.ModelRunner.predict = recording_predict
-  runner_lib.ModelRunner.predict_ragged = recording_predict_ragged
+  runner_lib.ModelRunner.finalize = recording_finalize
+  if record_packer is not None:
+    engine_lib._RaggedPacker.add = recording_add
+    engine_lib._RaggedPacker.flush = recording_flush
   torch.cuda.reset_peak_memory_stats()
   reset_launches()
   t0 = time.perf_counter()
@@ -1673,7 +1710,7 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
 
       params = config_lib.read_params_from_json(params_path)
       options = runner_lib.InferenceOptions(
-          batch_size=BATCH, batch_zmws=N_ZMWS, min_quality=0,
+          batch_size=BATCH, batch_zmws=batch_zmws, min_quality=0,
           skip_windows_above=0, use_ccs_smart_windows=smart,
           window_buckets=BUCKETS if smart else None,
           use_ragged_kernel=ragged,
@@ -1688,12 +1725,16 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
     elif cli.main(argv) != 0:
       raise AssertionError(f'cli run failed ({path}, {dtype})')
   finally:
-    runner_lib.ModelRunner.predict = predict
-    runner_lib.ModelRunner.predict_ragged = predict_ragged
+    runner_lib.ModelRunner.finalize = finalize
+    engine_lib._RaggedPacker.add = add
+    engine_lib._RaggedPacker.flush = flush
   seconds = time.perf_counter() - t0
   launches = read_launches()
   with open(out + '.inference.json') as f:
     counters = json.load(f)
+  if counters['bam_decoder'] != 'native':
+    raise AssertionError(f'{path} {dtype}{tag}: the BAMs were decoded by '
+                         f'{counters["bam_decoder"]}, not natively')
   ids, quals, lengths = [], [], []
   for pid, pq, pl in planes:
     if pl is not None:  # a ragged pack: keep the windows' positions
@@ -1706,6 +1747,21 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
           lengths, seconds, torch.cuda.max_memory_allocated())
 
 
+def stage_fields(counters) -> dict:
+  """A run's stage seconds, untimed remainder, decoder and the card's
+  share of the model stage's wall time not busy with packs."""
+  return {'bam_decoder': counters['bam_decoder'],
+          'bam_open_seconds': counters.get('bam_open_seconds'),
+          **{k: counters.get(k) for k in STAGE_KEYS},
+          'model_device_seconds': counters.get('model_device_seconds'),
+          'model_stage_wall_seconds': counters.get(
+              'model_stage_wall_seconds'),
+          'model_idle_share': counters.get('model_idle_share'),
+          'transfer_overlap_fraction': counters.get(
+              'transfer_overlap_fraction'),
+          'n_featurize_batches': counters.get('n_featurize_batches')}
+
+
 STAGE_CUTS = ('dc_input', 'tf_examples', 'run_model', 'full')
 STAGE_KEYS = ('bam_decode_seconds', 'featurize_seconds',
               'triage_format_seconds', 'model_seconds', 'stitch_seconds',
@@ -1713,7 +1769,7 @@ STAGE_KEYS = ('bam_decode_seconds', 'featurize_seconds',
               'd2h_seconds')
 
 
-def stage_split(bams, weights, dtype: str = 'bfloat16', extra=()) -> dict:
+def stage_split(bams, weights, dtype: str = 'bfloat16') -> dict:
   """The L100 `cli run` once per --end_after_stage cut (BAM decode
   only, + featurize, + model, full), after one full run that warms the
   process up (printed as the cut `warmup`): each cut's wall clock and
@@ -1731,8 +1787,7 @@ def stage_split(bams, weights, dtype: str = 'bfloat16', extra=()) -> dict:
             '--weights', weights, '--params', params_path, '--output', out,
             '--batch_size', str(BATCH), '--batch_zmws', str(N_ZMWS),
             '--min_quality', '0', '--skip_windows_above', '0',
-            '--end_after_stage', 'full' if cut == 'warmup' else cut,
-            *extra]
+            '--end_after_stage', 'full' if cut == 'warmup' else cut]
     t0 = time.perf_counter()
     if cli.main(argv) != 0:
       raise AssertionError(f'cli run --end_after_stage {cut} failed')
@@ -1741,11 +1796,218 @@ def stage_split(bams, weights, dtype: str = 'bfloat16', extra=()) -> dict:
       cuts[cut] = counters = json.load(f)
     print(json.dumps({
         'phase': 'stage_split', 'cut': cut, 'dtype': dtype,
-        'extra': list(extra), 'seconds': seconds,
+        'seconds': seconds,
         'total_seconds': counters['total_seconds'],
         'windows': counters.get('n_windows_to_model', 0),
-        **{k: counters.get(k) for k in STAGE_KEYS}}), flush=True)
+        **stage_fields(counters)}), flush=True)
+    if counters['bam_decoder'] != 'native':
+      raise AssertionError(f'stage split {cut}: BAMs decoded by '
+                           f'{counters["bam_decoder"]}')
   return cuts
+
+
+PIPELINE_BATCH_ZMWS = 16
+SERIAL_FLAGS = ('--dispatch_depth', '1', '--no_cross_batch_packing')
+
+
+def main_path_line(path: str, label: str, run) -> None:
+  counters, launches = run[:2]
+  n_win = counters['n_windows_to_model']
+  print(json.dumps({
+      'phase': 'main_path', 'path': path, 'run': label,
+      'launches': launches, 'reads': counters['success'],
+      'windows': n_win, 'packs': counters['n_model_packs'],
+      'windows_by_bucket': counters['n_windows_by_bucket'],
+      'pad_rows': counters['n_model_pad_rows'], 'seconds': run[5],
+      'total_seconds': counters['total_seconds'],
+      'windows_per_s': n_win / counters['total_seconds'],
+      'model_windows_per_s': n_win / counters['model_seconds'],
+      'device_windows_per_s': (n_win / counters['model_device_seconds']
+                               if counters['model_device_seconds'] else None),
+      'peak_bytes': run[6], **stage_fields(counters)}), flush=True)
+
+
+def replay_ragged_plan(calls) -> list:
+  """The lengths rows of every pack the ragged packer cuts for a
+  recorded sequence of add(width, count) / flush(drain) calls, from
+  the packer itself on a stub runner."""
+  import types
+
+  import numpy as np
+
+  from deepconsensus_tpu_torch.inference import engine as engine_lib
+
+  cut = []
+
+  class Stub:
+
+    def dispatch_ragged(self, pack, lengths):
+      cut.append(np.array(lengths))
+      return pack
+
+    def finalize(self, pack):
+      zeros = np.zeros(pack.shape[::2][:2], np.uint8)
+      return zeros, zeros
+
+  packer = engine_lib._RaggedPacker(
+      Stub(), types.SimpleNamespace(batch_size=BATCH, dispatch_depth=1),
+      BUCKETS, deliver=lambda *_: None)
+  for call in calls:
+    if call[0] == 'add':
+      packer.add(np.zeros((call[2], 1, call[1], 1), np.float32),
+                 [None] * call[2])
+    else:
+      packer.flush(call[1])
+  return cut
+
+
+def fastq_diff(a: bytes, b: bytes) -> dict:
+  """Reads whose name or bases differ, reads whose qualities differ,
+  and the largest quality difference, between two FASTQ files."""
+  import numpy as np
+
+  def reads(data):
+    lines = data.split(b'\n')
+    return [(lines[i], lines[i + 1], lines[i + 3])
+            for i in range(0, len(lines) - 1, 4)]
+
+  ra, rb = reads(a), reads(b)
+  diff = {'reads': [len(ra), len(rb)], 'bases_differ': 0, 'quals_differ': 0,
+          'max_qual_diff': 0}
+  for (na, sa, qa), (nb, sb, qb) in zip(ra, rb):
+    if (na, sa) != (nb, sb):
+      diff['bases_differ'] += 1
+    elif qa != qb:
+      diff['quals_differ'] += 1
+      d = np.abs(np.frombuffer(qa, np.uint8).astype(int)
+                 - np.frombuffer(qb, np.uint8).astype(int))
+      diff['max_qual_diff'] = max(diff['max_qual_diff'], int(d.max()))
+  return diff
+
+
+def batch_windows(out: str) -> list:
+  """Windows per featurize batch, from a run's <output>.runtime.csv."""
+  import csv
+
+  with open(out + '.runtime.csv', newline='') as f:
+    return [int(r['n_examples']) for r in csv.DictReader(f)
+            if r['stage'] == 'preprocess']
+
+
+def pipeline_gates(bams, weights) -> dict:
+  """Phase 3l: the L100 and ragged `cli run` in bfloat16 at
+  --batch_zmws 16 (8 featurize batches), pipelined (the defaults) and
+  with the serial settings (--dispatch_depth 1 --no_cross_batch_packing),
+  then the pipelined L100 run with --cpus 4 and with a .bam output.
+  Gates: one read per ZMW and the BAMs decoded natively on every run;
+  pipelined and serial FASTQ byte-identical (L100: also to a's
+  128-ZMW run), and the --cpus 4 FASTQ to the pipelined one; the
+  kernels once per pack (K1 or K4, K3) and per layer and pack (K2);
+  L100's packs: cut across batches ceil(windows / 1024) with the pad
+  rows of the end-of-input tail only, per batch the sum over batches;
+  ragged: every pack's lengths equal to the packer's plan replayed on
+  the recorded submissions, every pipelined pack but the last full,
+  and slots of one 200 and of two 100s both present; the .bam output's
+  records equal to the FASTQ's reads, each with zm, rq and np tags.
+  Raises on a failed gate."""
+  import numpy as np
+
+  from deepconsensus_tpu_torch.io import bam as bam_lib
+  from deepconsensus_tpu_torch.utils import phred
+
+  layers = make_params('float32').num_hidden_layers
+  bz = PIPELINE_BATCH_ZMWS
+  gates = {}
+  checks = []
+  outputs = {}
+  for path in RUN_PATHS:
+    first = 'K4' if path == 'ragged' else 'K1'
+    for label, extra in (('pipelined', ()), ('serial', SERIAL_FLAGS),
+                         ('cpus4', ('--cpus', '4'))):
+      if label == 'cpus4' and path != 'L100':
+        continue
+      record = []
+      tag = f'_bz{bz}_{label}'
+      run = run_main_path(path, bams[path], weights, 'bfloat16', extra=extra,
+                          tag=tag, batch_zmws=bz, record_packer=record)
+      main_path_line(path, f'bfloat16{tag}', run)
+      out = os.path.join(WORK, f'out_{path}_bfloat16{tag}.fastq')
+      with open(out, 'rb') as f:
+        outputs[path, label] = f.read()
+      counters, launches, _, _, lengths = run[:5]
+      packs = counters['n_model_packs']
+      key = f'{path}_{label}'
+      gates[f'{key}_packs'] = packs
+      want = {first: packs, 'K2': layers * packs, 'K3': packs}
+      checks += [
+          (counters['success'] == N_ZMWS, f'{key}: not one read per ZMW'),
+          (counters['n_featurize_batches'] == N_ZMWS // bz,
+           f'{key}: not {N_ZMWS // bz} featurize batches'),
+          ({k: launches[k] for k in want} == want,
+           f'{key}: launches {launches} differ from {want}')]
+      windows = counters['n_windows_to_model']
+      if path == 'L100':
+        per_batch = batch_windows(out)
+        expect = (-(-windows // BATCH) if label != 'serial'
+                  else sum(-(-n // BATCH) for n in per_batch))
+        checks += [
+            (packs == expect, f'{key}: {packs} packs, want {expect}'),
+            (counters['n_model_pad_rows'] == packs * BATCH - windows,
+             f'{key}: pad rows other than the packs\' tails')]
+        continue
+      plan = replay_ragged_plan(record)
+      full = [int(l.sum()) == SLOTS * SLOT_LEN for l in lengths]
+      slots = np.concatenate(lengths)
+      gates[f'{key}_partial_packs'] = full.count(False)
+      checks += [
+          (len(plan) == len(lengths) == packs
+           and all(np.array_equal(a, b) for a, b in zip(plan, lengths)),
+           f'{key}: packs differ from the packer\'s plan'),
+          ((slots == [200, 0]).all(1).any()
+           and (slots == [100, 100]).all(1).any(),
+           f'{key}: slots of both compositions did not occur')]
+      if label == 'pipelined':
+        checks.append((all(full[:-1]) and not full[-1],
+                       f'{key}: a pack before the last is partial'))
+      else:
+        checks.append((full.count(False) <= N_ZMWS // bz,
+                       f'{key}: more partial packs than featurize batches'))
+    same = outputs[path, 'pipelined'] == outputs[path, 'serial']
+    gates[f'{path}_pipelined_vs_serial_identical'] = same
+    gates[f'{path}_pipelined_vs_serial_diff'] = fastq_diff(
+        outputs[path, 'pipelined'], outputs[path, 'serial'])
+    checks.append((same, f'{path}: pipelined and serial FASTQ differ'))
+  with open(os.path.join(WORK, 'out_ragged_bfloat16.fastq'), 'rb') as f:
+    gates['ragged_bz16_vs_bz128_diff'] = fastq_diff(
+        f.read(), outputs['ragged', 'pipelined'])
+  with open(os.path.join(WORK, 'out_L100_bfloat16.fastq'), 'rb') as f:
+    same = f.read() == outputs['L100', 'pipelined']
+  gates['L100_bz16_vs_bz128_identical'] = same
+  gates['L100_cpus4_identical'] = (
+      outputs['L100', 'cpus4'] == outputs['L100', 'pipelined'])
+  checks += [(same, 'L100: 16- and 128-ZMW featurize batches differ'),
+             (gates['L100_cpus4_identical'],
+              'L100: the --cpus 4 FASTQ differs')]
+  tag = f'_bz{bz}_bam'
+  run = run_main_path('L100', bams['L100'], weights, 'bfloat16', tag=tag,
+                      batch_zmws=bz, output_ext='bam')
+  main_path_line('L100', f'bfloat16{tag}', run)
+  lines = outputs['L100', 'pipelined'].split(b'\n')
+  reads = [(lines[i][1:].decode(), lines[i + 1], lines[i + 3])
+           for i in range(0, len(lines) - 1, 4)]
+  with bam_lib.BamReader(os.path.join(WORK, f'out_L100_bfloat16{tag}.bam')
+                         ) as reader:
+    records = list(reader)
+  decoded = [(r.qname, r.seq.encode(),
+              phred.quality_scores_to_string(r.quals).encode())
+             for r in records]
+  gates['bam_records'] = len(records)
+  checks += [
+      (run[0]['output_format'] == 'bam' and decoded == reads,
+       'the .bam records differ from the FASTQ reads'),
+      (all({'zm', 'rq', 'np'} <= set(r.tags) for r in records),
+       'a .bam record lacks zm, rq or np')]
+  return enforce('pipeline', gates, checks)
 
 
 def enforce(path: str, gates: dict, checks) -> dict:
@@ -2650,13 +2912,17 @@ def main(argv) -> int:
   card = card_line()
   print(card, flush=True)
 
-  from deepconsensus_tpu_torch.models import model as model_lib
-  from deepconsensus_tpu_torch.models import weights as weights_lib
+  from deepconsensus_tpu_torch import native
   from deepconsensus_tpu_torch.ops import _build
   from deepconsensus_tpu_torch.ops import _kernels
   from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
   from deepconsensus_tpu_torch.testing import synthetic
 
+  t0 = time.perf_counter()
+  if native.get_lib() is None:
+    raise AssertionError('the native BGZF library did not build')
+  print(json.dumps({'phase': 'build_native', 'library': os.path.relpath(
+      native.library_path(), REPO), 'seconds': time.perf_counter() - t0}))
   t0 = time.perf_counter()
   paths = _build.build_all()
   print(json.dumps({'phase': 'build', 'seconds': time.perf_counter() - t0}))
@@ -2737,18 +3003,7 @@ def main(argv) -> int:
           path, bams[path], weights, dtype, plain)
       label = dtype + ('_plain' if plain else '')
       runs[label] = (counters, launches, ids, quals, lengths, seconds, peak)
-      n_win = counters['n_windows_to_model']
-      print(json.dumps({
-          'phase': 'main_path', 'path': path, 'run': label,
-          'launches': launches, 'reads': counters['success'],
-          'windows': n_win, 'packs': counters['n_model_packs'],
-          'windows_by_bucket': counters['n_windows_by_bucket'],
-          'pad_rows': counters['n_model_pad_rows'], 'seconds': seconds,
-          'windows_per_s': n_win / counters['total_seconds'],
-          'model_windows_per_s': n_win / counters['model_seconds'],
-          'model_seconds': counters['model_seconds'],
-          'featurize_seconds': counters['featurize_seconds'],
-          'peak_bytes': peak}), flush=True)
+      main_path_line(path, label, runs[label])
       if counters['success'] != N_ZMWS:
         raise AssertionError(f'{path} {label}: {counters["success"]} reads, '
                              f'want {N_ZMWS}')
@@ -2761,6 +3016,8 @@ def main(argv) -> int:
                              'int8 weights')
     path_gates(path, {k: r[:5] for k, r in runs.items()})
     launches_by_path[path] = runs['bfloat16'][1]
+  pipeline_gates(bams, weights)
+  stage_split(bams['L100'], weights)
   int8_runs = {}
   for dtype, plain in (('bfloat16', False), ('float32', False),
                        ('float32', True)):
@@ -2783,7 +3040,7 @@ def main(argv) -> int:
         / l100[0]['total_seconds'],
         'l100_model_windows_per_s': l100[0]['n_windows_to_model']
         / l100[0]['model_seconds'],
-        'l100_peak_bytes': l100[6]}), flush=True)
+        'l100_peak_bytes': l100[6], **stage_fields(counters)}), flush=True)
     if counters['success'] != N_ZMWS:
       raise AssertionError(f'int8 {label}: {counters["success"]} reads, '
                            f'want {N_ZMWS}')
@@ -2812,7 +3069,7 @@ def main(argv) -> int:
           'float32_softmax_windows_per_s': ref['n_windows_to_model']
           / ref['total_seconds'],
           'float32_softmax_model_windows_per_s': ref['n_windows_to_model']
-          / ref['model_seconds']}), flush=True)
+          / ref['model_seconds'], **stage_fields(counters)}), flush=True)
       if counters['success'] != N_ZMWS:
         raise AssertionError(f'softmax_bf16 {path} {label}: '
                              f'{counters["success"]} reads, want {N_ZMWS}')
@@ -2848,9 +3105,7 @@ def main(argv) -> int:
         'seconds': seconds,
         'windows_per_s': n_win / counters['total_seconds'],
         'model_windows_per_s': n_win / counters['model_seconds'],
-        'model_seconds': counters['model_seconds'],
-        'featurize_seconds': counters['featurize_seconds'],
-        'peak_bytes': peak}), flush=True)
+        'peak_bytes': peak, **stage_fields(counters)}), flush=True)
     if counters['success'] != N_ZMWS:
       raise AssertionError(f'buckets {label}: {counters["success"]} reads, '
                            f'want {N_ZMWS}')

@@ -195,7 +195,8 @@ def _evaluate(args) -> int:
 
 
 def _add_run(sub) -> None:
-  p = sub.add_parser('run', help='Run inference: BAMs -> polished FASTQ.')
+  p = sub.add_parser('run', help='Run inference: BAMs -> polished FASTQ '
+                     '(or BAM, for an --output ending in .bam).')
   p.add_argument('--subreads_to_ccs', required=True)
   p.add_argument('--ccs_bam', required=True)
   p.add_argument('--weights', required=True,
@@ -234,6 +235,22 @@ def _add_run(sub) -> None:
                  choices=['dc_input', 'tf_examples', 'run_model', 'full'],
                  help='Stop the pipeline early to time its stages: after '
                  'BAM decode, featurize or the model.')
+  p.add_argument('--cpus', type=int, default=0,
+                 help='Featurization worker processes (0 or 1 = in the '
+                 'pipeline\'s producer thread; tensors travel through '
+                 'shared memory).')
+  p.add_argument('--dispatch_depth', type=int, default=8,
+                 help='Model packs kept in flight on the card before the '
+                 'oldest is drained; also the pinned host buffers per '
+                 'pack shape.')
+  p.add_argument('--emit_queue_depth', type=int, default=4,
+                 help='Featurize batches buffered between the model '
+                 'stage and the stitch/emit thread before the model '
+                 'stage blocks.')
+  p.add_argument('--no_cross_batch_packing', action='store_true',
+                 help='Pad out each featurize batch\'s model tail '
+                 'instead of packing windows across batches into full '
+                 'packs.')
   _add_quant_flags(p)
   p.add_argument('--device', default=None,
                  help='cuda (default) or cpu.')
@@ -277,6 +294,10 @@ def main(argv: Optional[List[str]] = None) -> int:
       max_base_quality=args.max_base_quality,
       limit=args.limit,
       end_after_stage=args.end_after_stage,
+      cpus=args.cpus,
+      dispatch_depth=args.dispatch_depth,
+      emit_queue_depth=args.emit_queue_depth,
+      pack_across_batches=not args.no_cross_batch_packing,
       dc_calibration_values=calibration_lib.parse_calibration_string(dc_cal),
       ccs_calibration_values=calibration_lib.parse_calibration_string(
           args.ccs_calibration),

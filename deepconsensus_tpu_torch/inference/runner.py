@@ -1,23 +1,43 @@
-"""Serial inference: BAM -> windows -> model on the card -> FASTQ.
+"""Inference: BAM -> windows -> model on the card -> FASTQ or BAM.
 
-Port of deepconsensus_tpu/inference/runner.py as a serial runner:
-featurize a batch of ZMWs, triage its windows (CCS adoption for
-overflow and high-quality windows), run the rest through the model in
-fixed-shape packs of batch_size windows, stitch each molecule, and write
-FASTQ plus `<output>.inference.json` counters. The reference's
-cross-batch packer, featurization worker pool, resume, tracing and
-fault quarantine are not part of the port yet (ROADMAP); a decode or
-model error fails the run.
+Port of deepconsensus_tpu/inference/runner.py. `run_inference` is a
+three-stage pipeline:
+
+1. a producer thread decodes the BAMs (natively, `native/`) and
+   featurizes batches of `batch_zmws` ZMWs, in-process or in a
+   featurization worker pool (`cpus` > 1, `inference/featurize.py`);
+2. the model stage on the calling thread triages each batch's windows
+   (CCS adoption for overflow and high-quality windows) and submits the
+   rest to a `ConsensusEngine` (inference/engine.py), whose packers cut
+   full packs across featurize batches (`pack_across_batches`) and keep
+   up to `dispatch_depth` of them in flight on the card;
+3. an emit thread behind a queue of `emit_queue_depth` batches stitches
+   each completed batch's molecules and writes the reads.
+
+`dispatch_depth=1, pack_across_batches=False, cpus=0` give the output
+of a serial run. The reference's resume, sharding, tracing and fault
+quarantine are not part of the port yet (ROADMAP); a decode or model
+error fails the run.
+
+The model stage ships each pack to the card compactly, as in the
+reference: uint8 rows (the ccs_bq row biased by +1 so its -1 gaps
+survive) plus float SN scalars ([B, 4] per window, or [slots, wps, 4]
+per window of a ragged slot), reassembled on the card. On the card,
+ModelRunner.dispatch formats each pack into a ring of pinned host
+buffers, copies it to the card on a copy stream (the forward's stream
+waits on the copy's event, so one pack's copy overlaps the forward
+before it), launches the forward and copies the two output planes
+back into pinned buffers without blocking; finalize waits only on that
+pack's event. On the CPU the same code runs without pinning or
+streams.
 
 Mixed-width windows (--use_ccs_smart_windows with --window_buckets, e.g.
-100,200) run per bucket by default: each featurize batch's model
-windows group by width, and each bucket runs in packs of batch_size
-windows, padded to batch_size, in featurize order. Windows of at most
-128 positions take the fused route (K1, K2), wider ones the encoder's
-module route (K8 under use_pallas_attention). With --use_ragged_kernel
-they pack instead into ragged slots of the largest bucket
-(inference/engine.py) and run through the model's ragged forward (K4,
-then K2 with lengths).
+100,200) run per bucket by default: windows of at most 128 positions
+take the fused route (K1, K2), wider ones the encoder's module route
+(K8 under use_pallas_attention). With --use_ragged_kernel they pack
+into ragged slots of the largest bucket and run through the model's
+ragged forward (K4, then K2 with lengths). The output plane (K3) leaves
+the card as two uint8 planes.
 
 The inference levers (--inference_dtype bfloat16, --quantize_matmuls
 int8) apply once when ModelRunner loads the weights
@@ -25,19 +45,20 @@ int8) apply once when ModelRunner loads the weights
 `n_quantized_matmuls`. Under int8 each encoder block runs K2's int8
 variant.
 
-The model stage ships each pack to the card compactly, as in the
-reference: uint8 rows (the ccs_bq row biased by +1 so its -1 gaps
-survive) plus float SN scalars ([B, 4] per window, or [slots, wps, 4]
-per window of a ragged slot), reassembled on the card. The output plane
-(K3) leaves the card as two uint8 planes.
+Besides the output, a run writes `<output>.inference.json` (counters,
+each stage's seconds and what was not timed) and
+`<output>.runtime.csv` (one row per batch and stage).
 """
 from __future__ import annotations
 
 import collections
 import csv
 import dataclasses
+import itertools
 import json
 import os
+import queue as queue_lib
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -47,25 +68,26 @@ import torch
 from deepconsensus_tpu_torch.calibration import lib as calibration_lib
 from deepconsensus_tpu_torch.devices import resolve_device
 from deepconsensus_tpu_torch.inference import engine as engine_lib
+from deepconsensus_tpu_torch.inference import featurize as featurize_lib
+from deepconsensus_tpu_torch.io import bam as bam_lib
 from deepconsensus_tpu_torch.models import config as config_lib
-from deepconsensus_tpu_torch.models import data as data_lib
 from deepconsensus_tpu_torch.models import model as model_lib
 from deepconsensus_tpu_torch.models import quantize as quantize_lib
 from deepconsensus_tpu_torch.ops import output_plane
 from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
 from deepconsensus_tpu_torch.postprocess import stitch
-from deepconsensus_tpu_torch.preprocess.feeder import (
-    create_proc_feeder,
-    reads_to_pileup,
-)
+from deepconsensus_tpu_torch.preprocess.feeder import create_proc_feeder
 from deepconsensus_tpu_torch.preprocess.pileup import FeatureLayout, row_indices
-from deepconsensus_tpu_torch.utils import phred
+
+preprocess_zmw = featurize_lib.preprocess_zmw
+
+STAGES = ('dc_input', 'tf_examples', 'run_model', 'full')
 
 
 @dataclasses.dataclass
 class InferenceOptions:
-  """Knobs of the serial inference pipeline (a subset of the
-  reference's InferenceOptions)."""
+  """Knobs of the inference pipeline (a subset of the reference's
+  InferenceOptions)."""
 
   max_length: int = config_lib.DEFAULT_MAX_LENGTH
   max_passes: int = 20
@@ -85,15 +107,29 @@ class InferenceOptions:
   use_ragged_kernel: bool = False
   skip_windows_above: int = 45
   # Inference levers (models/quantize.py), folded into params by
-  # ModelRunner (_apply_quant_levers) and applied once at load. inference_dtype: None
-  # keeps the checkpoint's float32 weights and params.dtype; 'bfloat16'
-  # casts the weights and runs the model in bfloat16. quantize_matmuls:
-  # None or 'none' off; 'int8' quantizes the encoder matmuls.
+  # ModelRunner (_apply_quant_levers) and applied once at load.
+  # inference_dtype: None keeps the checkpoint's float32 weights and
+  # params.dtype; 'bfloat16' casts the weights and runs the model in
+  # bfloat16. quantize_matmuls: None or 'none' off; 'int8' quantizes the
+  # encoder matmuls.
   inference_dtype: Optional[str] = None
   quantize_matmuls: Optional[str] = None
   ins_trim: int = 5
   max_base_quality: int = 93
   limit: int = 0
+  # > 1: featurization worker processes (tensors travel through shared
+  # memory). The reference's measured caveat holds: the IPC can eat
+  # the gain on a fast host.
+  cpus: int = 0
+  # Packs in flight on the card (per packer) before the oldest is
+  # drained; also the number of pinned input buffers per pack shape.
+  dispatch_depth: int = 8
+  # Cut model packs from a window buffer spanning featurize batches, so
+  # only the end-of-input tail pads (False pads each batch's tail).
+  pack_across_batches: bool = True
+  # Featurize batches queued between the model stage and the emit
+  # thread before the model stage blocks.
+  emit_queue_depth: int = 4
   # Debug stage truncation (reference DebugStage): dc_input stops after
   # BAM decode, tf_examples after featurize, run_model after the model.
   end_after_stage: str = 'full'  # dc_input | tf_examples | run_model | full
@@ -106,11 +142,6 @@ class InferenceOptions:
           default_factory=lambda: calibration_lib.parse_calibration_string(
               'skip')))
 
-
-# Host stages timed into <output>.inference.json; untimed_seconds is
-# total_seconds minus their sum.
-_STAGE_KEYS = ('bam_decode_seconds', 'featurize_seconds',
-               'triage_format_seconds', 'model_seconds', 'stitch_seconds')
 
 _SN_ROWS = 4  # trailing rows: per-window SN constants (layout: pileup.py)
 
@@ -171,6 +202,77 @@ def _apply_quant_levers(params, options: InferenceOptions) -> None:
     params.quantize_matmuls = options.quantize_matmuls
 
 
+class _HostRing:
+  """Host buffers of one pack shape, handed out round robin and
+  allocated at first use (pinned on the card's host side). A slot is
+  handed out again only after the event its last user left has
+  completed (the H2D copy that read it), and an output slot whose pack
+  is not finalized yet is first drained into that pack's own arrays."""
+
+  def __init__(self, specs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]],
+               n_slots: int, pin: bool):
+    self._specs = specs
+    self._pin = pin
+    self._slots: List[Optional[Dict[str, torch.Tensor]]] = [None] * n_slots
+    self._free_after: List[Any] = [None] * n_slots
+    self.owners: List[Any] = [None] * n_slots
+    self._next = 0
+
+  def take(self, owner=None) -> Tuple[int, Dict[str, torch.Tensor]]:
+    i = self._next
+    self._next = (i + 1) % len(self._slots)
+    if self._free_after[i] is not None:
+      self._free_after[i].synchronize()
+      self._free_after[i] = None
+    if self.owners[i] is not None:
+      self.owners[i].drain()
+    if self._slots[i] is None:
+      self._slots[i] = {
+          name: torch.empty(shape, dtype=dtype, pin_memory=self._pin)
+          for name, (shape, dtype) in self._specs.items()}
+    self.owners[i] = owner
+    return i, self._slots[i]
+
+  def free_after(self, i: int, event) -> None:
+    self._free_after[i] = event
+
+
+class _DispatchHandle:
+  """One in-flight pack: the runner's dispatch contract. Holds the
+  pack's pinned output slot and, on the card, its CUDA events (H2D
+  start and end on the copy stream; forward start, forward end and D2H
+  end on the compute stream). drain() waits on the last event only and
+  copies the delivered rows out of the slot."""
+
+  __slots__ = ('n', 'ragged', 'lengths', 'host_out', 'events', 'ring',
+               'slot', 'result')
+
+  def __init__(self, n: int, ragged: bool, lengths: Optional[np.ndarray]):
+    self.n = n
+    self.ragged = ragged
+    self.lengths = lengths  # [n_slots, wps] for a ragged pack
+    self.host_out: Tuple[torch.Tensor, ...] = ()
+    self.events: Tuple[Any, ...] = ()
+    self.ring: Optional[_HostRing] = None
+    self.slot = -1
+    self.result: Optional[Tuple[np.ndarray, np.ndarray]] = None
+
+  @property
+  def done(self) -> bool:
+    return not self.events or self.events[-1].query()
+
+  def drain(self) -> Tuple[np.ndarray, np.ndarray]:
+    if self.result is None:
+      if self.events:
+        self.events[-1].synchronize()
+      self.result = tuple(np.array(t.numpy()[:self.n])
+                          for t in self.host_out)
+      self.host_out = ()
+      if self.ring is not None and self.ring.owners[self.slot] is self:
+        self.ring.owners[self.slot] = None
+    return self.result
+
+
 class ModelRunner:
   """The model stage: (formatted window rows) -> (base ids, qualities).
 
@@ -181,6 +283,10 @@ class ModelRunner:
   options are folded into params (_apply_quant_levers), and those in
   params (params.inference_dtype, params.quantize_matmuls) are applied
   to state_dict here, before the weights go to the device.
+
+  dispatch()/dispatch_ragged() return a _DispatchHandle while the card
+  may still be working; finalize() resolves one. One thread drives a
+  runner.
   """
 
   def __init__(self, params, state_dict: Dict[str, torch.Tensor],
@@ -204,19 +310,22 @@ class ModelRunner:
     self.model = model_lib.inference_model(params, state_dict, self.device)
     self._bq_row = _bq_row_index(params)
     self._configure_epilogue()
-    self.n_packs = 0
-    self.n_pack_rows = 0
-    self.n_pad_rows = 0
-    # Per bucket width, for dispatch(): windows, packs and pad rows.
-    self.n_windows_by_bucket = collections.Counter(
-        dict.fromkeys(self.window_buckets, 0))
-    self.n_packs_by_bucket = collections.Counter()
-    self.n_pad_rows_by_bucket = collections.Counter()
-    self.model_seconds = 0.0
+    self._cuda = self.device.type == 'cuda'
+    self._copy_stream = (torch.cuda.Stream(self.device) if self._cuda
+                         else None)
+    self._rings: Dict[Tuple[Any, ...], _HostRing] = {}
+    self._last: Optional[_DispatchHandle] = None
     self.d2h_bytes_per_pack = 0
-    # On the card: per pack, CUDA events before and after the H2D copy,
-    # after the forward and after the D2H copy (device_seconds()).
+    self.reset_timing()
+
+  def reset_timing(self) -> None:
+    """Zeroes the model stage's clocks and transfer counters."""
+    self.model_seconds = 0.0  # host time inside dispatch and finalize
+    self._t_first_dispatch: Optional[float] = None
+    self._t_last_finalize: Optional[float] = None
     self._pack_events: List[Tuple[Any, ...]] = []
+    self.n_transfer_overlapped = 0
+    self.n_transfer_direct = 0
 
   def _configure_epilogue(self) -> None:
     """Builds the exact threshold table for the device output plane
@@ -234,66 +343,154 @@ class ModelRunner:
   def device_epilogue(self) -> bool:
     return self._thresholds is not None
 
-  def dispatch(self, rows: np.ndarray) -> Tuple[Tuple[torch.Tensor, ...], int]:
-    """Runs one pack: rows [n, R, L, 1] formatted windows (n <=
-    batch_size), padded to batch_size. Returns the device outputs and n;
-    the card may still be working when this returns."""
+  def _ring(self, key: Tuple[Any, ...], specs, n_slots: int) -> _HostRing:
+    ring = self._rings.get(key)
+    if ring is None:
+      ring = self._rings[key] = _HostRing(specs, n_slots, pin=self._cuda)
+    return ring
+
+  def _format_main(self, rows: np.ndarray, main: np.ndarray) -> None:
+    """Writes the non-SN rows of [n, R, L, 1] into main [B, R-4, L] as
+    uint8, the ccs_bq row biased by +1; rows past n are zero (their
+    ccs_bq row 1, as a zero row biased)."""
     n = rows.shape[0]
+    np.copyto(main[:n], rows[:, :-_SN_ROWS, :, 0], casting='unsafe')
+    main[n:] = 0
+    if self._bq_row is not None:
+      np.copyto(main[:n, self._bq_row], rows[:, self._bq_row, :, 0] + 1.0,
+                casting='unsafe')
+      main[n:, self._bq_row] = 1
+
+  def _start(self) -> float:
+    t0 = time.perf_counter()
+    if self._t_first_dispatch is None:
+      self._t_first_dispatch = t0
+    return t0
+
+  def dispatch(self, rows: np.ndarray) -> _DispatchHandle:
+    """Starts one pack: rows [n, R, L, 1] formatted windows (n <=
+    batch_size), padded to batch_size. The card may still be working
+    when this returns."""
+    t0 = self._start()
+    n, total_rows, width, _ = rows.shape
     batch = self.options.batch_size
     if n > batch:
       raise ValueError(f'{n} windows exceed batch_size {batch}')
-    if n < batch:
-      pad = np.zeros((batch - n,) + rows.shape[1:], rows.dtype)
-      rows = np.concatenate([rows, pad])
-    sn = np.ascontiguousarray(rows[:, -_SN_ROWS:, 0, 0].astype(np.float32))
-    main_u8 = self._main_rows_u8(rows)
-    events = self._record_event()
-    main_dev = torch.from_numpy(main_u8).to(self.device)
-    sn_dev = torch.from_numpy(sn).to(self.device)
-    events += self._record_event()
-    preds = self.model(_assemble_rows(main_dev, sn_dev, self._bq_row),
-                       plain=self.plain)
-    width = rows.shape[2]
-    self.n_packs += 1
-    self.n_pack_rows += n
-    self.n_pad_rows += batch - n
-    self.n_windows_by_bucket[width] += n
-    self.n_packs_by_bucket[width] += 1
-    self.n_pad_rows_by_bucket[width] += batch - n
-    out = self._epilogue(preds)
-    return out, n, events + self._record_event()
+    main_rows = total_rows - _SN_ROWS
+    ring = self._ring(
+        ('pack', batch, main_rows, width),
+        {'main': ((batch, main_rows, width), torch.uint8),
+         'sn': ((batch, _SN_ROWS), torch.float32)},
+        max(1, self.options.dispatch_depth))
+    slot, bufs = ring.take()
+    self._format_main(rows, bufs['main'].numpy())
+    sn = bufs['sn'].numpy()
+    sn[:n] = rows[:, -_SN_ROWS:, 0, 0]
+    sn[n:] = 0
 
-  def _record_event(self) -> Tuple[Any, ...]:
-    if self.device.type != 'cuda':
-      return ()
-    event = torch.cuda.Event(enable_timing=True)
-    event.record()
-    return (event,)
+    def forward(dev):
+      return self.model(_assemble_rows(dev['main'], dev['sn'], self._bq_row),
+                        plain=self.plain)
 
-  def device_seconds(self) -> Dict[str, Optional[float]]:
-    """Device time of the packs so far, by CUDA events: H2D copies,
-    forwards (with the output plane) and D2H copies, each from an event
-    recorded just before it is queued; None off the card."""
-    if self.device.type != 'cuda':
-      return dict.fromkeys(('h2d_seconds', 'device_forward_seconds',
-                            'd2h_seconds'))
-    torch.cuda.synchronize(self.device)
-    sums = [0.0, 0.0, 0.0]
-    for events in self._pack_events:
-      for i, (a, b) in enumerate(((0, 1), (1, 2), (3, 4))):
-        sums[i] += events[a].elapsed_time(events[b]) / 1e3
-    return dict(zip(('h2d_seconds', 'device_forward_seconds',
-                     'd2h_seconds'), sums))
+    handle = self._launch(ring, slot, bufs, forward,
+                          _DispatchHandle(n, False, None))
+    self.model_seconds += time.perf_counter() - t0
+    return handle
 
-  def _main_rows_u8(self, rows: np.ndarray) -> np.ndarray:
-    """The non-SN rows of [B, R, L, 1] as uint8, the ccs_bq row biased
-    by +1."""
-    main = rows[:, :-_SN_ROWS, :, 0]
-    main_u8 = main.astype(np.uint8)
-    if self._bq_row is not None:
-      main_u8[:, self._bq_row] = (main[:, self._bq_row] + 1.0).astype(
-          np.uint8)
-    return main_u8
+  def dispatch_ragged(self, rows: np.ndarray,
+                      lengths: np.ndarray) -> _DispatchHandle:
+    """dispatch() for one ragged pack: rows [n_slots, R, slot_len, 1]
+    with mixed-width windows packed back to back per slot, lengths
+    [n_slots, wps] int32 window widths (0 = unused capacity). The SN
+    plane ships as per-window scalars [n_slots, wps, 4], sampled at each
+    window's start column."""
+    t0 = self._start()
+    n_slots, total_rows, slot_len, _ = rows.shape
+    lengths = np.ascontiguousarray(lengths, dtype=np.int32)
+    wps = lengths.shape[1]
+    main_rows = total_rows - _SN_ROWS
+    ring = self._ring(
+        ('ragged', n_slots, main_rows, slot_len, wps),
+        {'main': ((n_slots, main_rows, slot_len), torch.uint8),
+         'sn': ((n_slots, wps, _SN_ROWS), torch.float32),
+         'lengths': ((n_slots, wps), torch.int32)},
+        max(1, self.options.dispatch_depth))
+    slot, bufs = ring.take()
+    self._format_main(rows, bufs['main'].numpy())
+    starts = np.zeros_like(lengths)
+    starts[:, 1:] = np.cumsum(lengths[:, :-1], axis=1)
+    sn_planes = rows[:, -_SN_ROWS:, :, 0]  # [n_slots, 4, slot_len]
+    sn_w = np.take_along_axis(
+        sn_planes, np.clip(starts, 0, slot_len - 1)[:, None, :], axis=2)
+    bufs['sn'].numpy()[...] = (
+        sn_w.transpose(0, 2, 1) * (lengths > 0)[:, :, None])
+    bufs['lengths'].numpy()[...] = lengths
+
+    def forward(dev):
+      rows_dev = _assemble_rows_ragged(dev['main'], dev['sn'],
+                                       dev['lengths'], self._bq_row)
+      return self.model(rows_dev, plain=self.plain,
+                        window_lengths=dev['lengths'])
+
+    handle = self._launch(ring, slot, bufs, forward,
+                          _DispatchHandle(n_slots, True, lengths))
+    self.model_seconds += time.perf_counter() - t0
+    return handle
+
+  def _launch(self, ring: _HostRing, slot: int, bufs, forward,
+              handle: _DispatchHandle) -> _DispatchHandle:
+    """Copies a formatted input slot to the device, runs the forward
+    and the output plane, and queues the outputs' copy into a pinned
+    output slot. On the card the copy runs on the copy stream; the
+    compute stream waits on its event, and the device inputs are
+    recorded on the compute stream so their memory outlives the
+    forward."""
+    events: Tuple[Any, ...] = ()
+    if self._cuda:
+      if self._last is not None and not self._last.done:
+        self.n_transfer_overlapped += 1
+      else:
+        self.n_transfer_direct += 1
+      compute = torch.cuda.current_stream(self.device)
+      h2d_start = torch.cuda.Event(enable_timing=True)
+      h2d_end = torch.cuda.Event(enable_timing=True)
+      with torch.cuda.stream(self._copy_stream):
+        h2d_start.record()
+        dev = {k: v.to(self.device, non_blocking=True)
+               for k, v in bufs.items()}
+        h2d_end.record()
+      ring.free_after(slot, h2d_end)
+      compute.wait_event(h2d_end)
+      for t in dev.values():
+        t.record_stream(compute)
+      fwd_start = torch.cuda.Event(enable_timing=True)
+      fwd_start.record(compute)
+      events = (h2d_start, h2d_end, fwd_start)
+    else:
+      self.n_transfer_direct += 1
+      dev = bufs
+    out = self._epilogue(forward(dev))
+    if self._cuda:
+      fwd_end = torch.cuda.Event(enable_timing=True)
+      fwd_end.record()
+      events += (fwd_end,)
+    shapes = tuple((tuple(t.shape), t.dtype) for t in out)
+    out_ring = self._ring(
+        ('out',) + shapes, dict(zip(('a', 'b'), shapes)),
+        max(1, self.options.dispatch_depth) + 1)
+    handle.slot, host = out_ring.take(handle)
+    handle.ring = out_ring
+    handle.host_out = (host['a'], host['b'])
+    for dst, src in zip(handle.host_out, out):
+      dst.copy_(src, non_blocking=self._cuda)
+    if self._cuda:
+      d2h_end = torch.cuda.Event(enable_timing=True)
+      d2h_end.record()
+      events += (d2h_end,)
+    handle.events = events
+    self.d2h_bytes_per_pack = int(sum(t.nbytes for t in handle.host_out))
+    self._last = handle
+    return handle
 
   def _epilogue(self, preds: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     if self._thresholds is not None:
@@ -303,169 +500,164 @@ class ModelRunner:
     max_prob, pred_ids = preds.max(dim=-1)
     return pred_ids.to(torch.int32), max_prob
 
-  def dispatch_ragged(self, rows: np.ndarray, lengths: np.ndarray
-                      ) -> Tuple[Tuple[torch.Tensor, ...], int]:
-    """dispatch() for one ragged pack: rows [n_slots, R, slot_len, 1]
-    with mixed-width windows packed back to back per slot, lengths
-    [n_slots, wps] int32 window widths (0 = unused capacity). The SN
-    plane ships as per-window scalars [n_slots, wps, 4], sampled at each
-    window's start column."""
-    n_slots, _, slot_len, _ = rows.shape
-    lengths = np.ascontiguousarray(lengths, dtype=np.int32)
-    starts = np.zeros_like(lengths)
-    starts[:, 1:] = np.cumsum(lengths[:, :-1], axis=1)
-    sn_planes = rows[:, -_SN_ROWS:, :, 0]  # [n_slots, 4, slot_len]
-    sn_w = np.take_along_axis(
-        sn_planes, np.clip(starts, 0, slot_len - 1)[:, None, :], axis=2)
-    sn_w = sn_w.transpose(0, 2, 1) * (lengths > 0)[:, :, None]
-    main_u8 = self._main_rows_u8(rows)
-    events = self._record_event()
-    main_dev = torch.from_numpy(main_u8).to(self.device)
-    sn_dev = torch.from_numpy(
-        np.ascontiguousarray(sn_w, dtype=np.float32)).to(self.device)
-    len_dev = torch.from_numpy(lengths).to(self.device)
-    events += self._record_event()
-    rows_dev = _assemble_rows_ragged(main_dev, sn_dev, len_dev, self._bq_row)
-    preds = self.model(rows_dev, plain=self.plain, window_lengths=len_dev)
-    return self._epilogue(preds), n_slots, events + self._record_event()
-
-  def finalize(self, dispatched) -> Tuple[np.ndarray, np.ndarray]:
-    """Drains a dispatch into (base ids [n, L], qualities [n, L])."""
-    (out_a, out_b), n, events = dispatched
-    events += self._record_event()
-    out_a = out_a.cpu().numpy()
-    out_b = out_b.cpu().numpy()
-    if events:
-      self._pack_events.append(events + self._record_event())
-    self.d2h_bytes_per_pack = int(out_a.nbytes + out_b.nbytes)
-    out_a, out_b = out_a[:n], out_b[:n]
-    if self.device_epilogue:
-      return out_a, out_b
-    quality = output_plane.host_quality_reference(
-        out_b, self.options.dc_calibration_values,
-        self.options.max_base_quality)
-    return out_a, quality
+  def finalize(self, handle: _DispatchHandle) -> Tuple[np.ndarray, np.ndarray]:
+    """Resolves a dispatch into (base ids [n, L], qualities [n, L]),
+    waiting on that pack's own event only (ragged: [n_slots, slot_len]
+    planes)."""
+    t0 = time.perf_counter()
+    out_a, out_b = handle.drain()
+    if handle.events:
+      self._pack_events.append(handle.events)
+    if not self.device_epilogue:
+      out_b = output_plane.host_quality_reference(
+          out_b, self.options.dc_calibration_values,
+          self.options.max_base_quality)
+    self._t_last_finalize = time.perf_counter()
+    self.model_seconds += self._t_last_finalize - t0
+    return out_a, out_b
 
   def predict(self, rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """Synchronous dispatch + finalize, timed into model_seconds."""
-    t0 = time.perf_counter()
-    out = self.finalize(self.dispatch(rows))
-    self.model_seconds += time.perf_counter() - t0
-    return out
+    """Synchronous dispatch + finalize."""
+    return self.finalize(self.dispatch(rows))
 
-  def predict_ragged(self, rows: np.ndarray, lengths: np.ndarray
-                     ) -> Tuple[np.ndarray, np.ndarray]:
-    """Synchronous dispatch_ragged + finalize: (ids, quals) planes
-    [n_slots, slot_len], timed into model_seconds."""
-    t0 = time.perf_counter()
-    out = self.finalize(self.dispatch_ragged(rows, lengths))
-    self.model_seconds += time.perf_counter() - t0
-    return out
+  def device_seconds(self) -> Dict[str, Optional[float]]:
+    """The finalized packs' device time by CUDA events: H2D copies,
+    forwards (with the output plane, from the moment the compute stream
+    reached the pack) and D2H copies, their sum, the model stage's wall
+    time (first dispatch to last finalize, host clock) and the share of
+    it the card was not busy with packs; None off the card."""
+    keys = ('h2d_seconds', 'device_forward_seconds', 'd2h_seconds',
+            'model_device_seconds', 'model_stage_wall_seconds',
+            'model_idle_share')
+    if not self._cuda or not self._pack_events:
+      return dict.fromkeys(keys)
+    sums = [0.0, 0.0, 0.0]
+    for events in self._pack_events:
+      for i, (a, b) in enumerate(((0, 1), (2, 3), (3, 4))):
+        sums[i] += events[a].elapsed_time(events[b]) / 1e3
+    busy = sum(sums)
+    wall = self._t_last_finalize - self._t_first_dispatch
+    return dict(zip(keys, sums + [busy, wall, 1.0 - busy / wall]))
 
-
-def preprocess_zmw(zmw_input) -> Tuple[List[Dict[str, Any]],
-                                       collections.Counter]:
-  """One ZMW -> list of window feature dicts."""
-  subreads, name, layout, _split, window_widths = zmw_input
-  pileup = reads_to_pileup(subreads, name, layout, window_widths)
-  return list(pileup.iter_window_features()), pileup.counter
-
-
-def triage_windows(
-    feature_dicts: List[Dict[str, Any]],
-    options: InferenceOptions,
-    counter: collections.Counter,
-) -> Tuple[List[Dict[str, Any]], List[Dict[str, Any]]]:
-  """Splits windows into (model, skip) per overflow/quality rules
-  (reference: quick_inference.py:653-678)."""
-  to_model: List[Dict[str, Any]] = []
-  to_skip: List[Dict[str, Any]] = []
-  for fd in feature_dicts:
-    if fd['overflow']:
-      to_skip.append(fd)
-      counter['n_windows_overflow_skipped'] += 1
-      continue
-    if options.skip_windows_above:
-      avg_q = phred.avg_phred(fd['ccs_base_quality_scores'])
-      # Strictly above, matching the reference (quick_inference.py:671).
-      if avg_q > options.skip_windows_above:
-        to_skip.append(fd)
-        counter['n_windows_quality_skipped'] += 1
-        continue
-    to_model.append(fd)
-    counter['n_windows_to_model'] += 1
-  return to_model, to_skip
+  def dispatch_stats(self) -> Dict[str, Any]:
+    """Transfer counters for the sidecar. A transfer counts as
+    overlapped when the pack before it had not finished on the card
+    when its copy was queued."""
+    launches = self.n_transfer_overlapped + self.n_transfer_direct
+    return {
+        'n_transfer_overlapped': self.n_transfer_overlapped,
+        'n_transfer_direct': self.n_transfer_direct,
+        'transfer_overlap_fraction': (
+            round(self.n_transfer_overlapped / launches, 4)
+            if launches else 0.0),
+    }
 
 
-def ccs_quals_array(bq_scores, options: InferenceOptions) -> np.ndarray:
-  """CCS base qualities -> emitted phred uint8 (calibration, cap at
-  max_base_quality, floor at 0)."""
-  quals = np.asarray(bq_scores)
-  if options.ccs_calibration_values.enabled:
-    quals = calibration_lib.calibrate_quality_scores(
-        quals, options.ccs_calibration_values)
-  quals = np.minimum(quals, options.max_base_quality).astype(np.int32)
-  return np.maximum(quals, 0).astype(np.uint8)
+class _MolState:
+  """One molecule's windows accumulating toward stitch/emit. Model
+  windows are appended as placeholders and filled when their pack
+  finalizes."""
+
+  __slots__ = ('name', 'batch', 'meta', 'pos', 'ids', 'quals')
+
+  def __init__(self, name: str, batch: '_BatchState', meta: Tuple):
+    self.name = name
+    self.batch = batch
+    self.meta = meta  # (ec, np_num_passes, rq, rg)
+    self.pos: List[int] = []
+    self.ids: List[Optional[np.ndarray]] = []
+    self.quals: List[Optional[np.ndarray]] = []
+
+  def append_resolved(self, window_pos: int, ids: np.ndarray,
+                      quals: np.ndarray) -> None:
+    self.pos.append(window_pos)
+    self.ids.append(ids)
+    self.quals.append(quals)
+
+  def append_pending(self, window_pos: int) -> int:
+    idx = len(self.pos)
+    self.append_resolved(window_pos, None, None)
+    self.batch.pending += 1
+    return idx
+
+  def set_result(self, idx: int, ids: np.ndarray, quals: np.ndarray) -> None:
+    self.ids[idx] = ids
+    self.quals[idx] = quals
+    self.batch.pending -= 1
 
 
-def skipped_window_arrays(
-    feature_dict: Dict[str, Any], options: InferenceOptions
-) -> Tuple[np.ndarray, np.ndarray]:
-  """(vocab ids uint8 [L], phred uint8 [L]) adopted from the draft CCS."""
-  rows = feature_dict['subreads']
-  ccs_range = row_indices(options.max_passes, options.use_ccs_bq)[4]
-  ids = rows[ccs_range[0], :, 0].astype(np.uint8)
-  return ids, ccs_quals_array(
-      feature_dict['ccs_base_quality_scores'], options)
+class _BatchState:
+  """Completion tracker for one featurize batch flowing through the
+  packed model stage toward the emit thread."""
+
+  __slots__ = ('feat', 'mols', 'pending', 'featurized', 'n_windows')
+
+  def __init__(self, feat: Dict[str, Any]):
+    self.feat = feat
+    self.mols: Dict[str, _MolState] = {}
+    self.pending = 0
+    self.featurized = False
+    self.n_windows = 0
+
+  def mol(self, fd: Dict[str, Any]) -> _MolState:
+    name = (fd['name'] if isinstance(fd['name'], str)
+            else fd['name'].decode())
+    state = self.mols.get(name)
+    if state is None:
+      state = self.mols[name] = _MolState(
+          name, self, (fd['ec'], fd['np_num_passes'], fd['rq'], fd['rg']))
+    return state
+
+  @property
+  def complete(self) -> bool:
+    return self.featurized and self.pending == 0
 
 
-def _molecule_name(fd: Dict[str, Any]) -> str:
-  return fd['name'] if isinstance(fd['name'], str) else fd['name'].decode()
+def _open_sink(output: str, out_tmp: str, ccs_bam: str):
+  """(emit_read(name, seq, quals, meta), close) for FASTQ, or for BAM
+  when output ends in .bam: unaligned records with the ec/np/rq/RG/zm
+  tags under the CCS BAM's header (reference:
+  quick_inference.py:738-760, 894-897)."""
+  if not output.endswith('.bam'):
+    sink = open(out_tmp, 'wb')
 
+    def emit_fastq(name: str, seq: bytes, quals: np.ndarray, meta) -> None:
+      del meta
+      sink.write(stitch.format_fastq_bytes(name, seq, quals))
 
-def _polish_batch(windows: List[Dict[str, Any]], runner: ModelRunner,
-                  options: InferenceOptions, counter: collections.Counter,
-                  packer: Optional[engine_lib._RaggedPacker] = None
-                  ) -> Dict[str, Dict[str, list]]:
-  """Triage + model for one featurize batch: molecule name ->
-  {'pos', 'ids', 'quals'} window lists. The model windows group by
-  width, in featurize order within a width; with a packer they run
-  through ragged slots, else each width in its own packs of
-  batch_size."""
-  mols: Dict[str, Dict[str, list]] = {}
+    return emit_fastq, sink.close
+  from deepconsensus_tpu_torch.io.bam_writer import BamWriter
 
-  def add(fd, ids, quals):
-    mol = mols.setdefault(_molecule_name(fd),
-                          {'pos': [], 'ids': [], 'quals': []})
-    mol['pos'].append(fd['window_pos'])
-    mol['ids'].append(ids)
-    mol['quals'].append(quals)
+  header_text = '@HD\tVN:1.5\tSO:unknown\n'
+  with bam_lib.BamReader(ccs_bam) as ccs_reader:
+    if ccs_reader.header_text:
+      header_text = ccs_reader.header_text
+      if not header_text.endswith('\n'):
+        header_text += '\n'
+  writer = BamWriter(out_tmp, header_text=header_text)
 
-  to_model, to_skip = triage_windows(windows, options, counter)
-  for fd in to_skip:
-    add(fd, *skipped_window_arrays(fd, options))
-  by_width: Dict[int, List[Dict[str, Any]]] = {}
-  for fd in to_model:
-    by_width.setdefault(fd['subreads'].shape[1], []).append(fd)
-  for width in sorted(by_width):
-    group = by_width[width]
-    if packer is not None:
-      rows = data_lib.format_rows_batch(
-          np.stack([fd['subreads'] for fd in group]), runner.params,
-          window_buckets=runner.window_buckets)
-      packer.add(rows, [(add, fd) for fd in group])
-      continue
-    for start in range(0, len(group), options.batch_size):
-      chunk = group[start:start + options.batch_size]
-      rows = data_lib.format_rows_batch(
-          np.stack([fd['subreads'] for fd in chunk]), runner.params,
-          window_buckets=runner.window_buckets)
-      ids, quals = runner.predict(rows)
-      for fd, i, q in zip(chunk, ids, quals):
-        add(fd, i, q)
-  if packer is not None:
-    packer.flush()
-  return mols
+  def emit_bam(name: str, seq: bytes, quals: np.ndarray, meta) -> None:
+    ec, np_passes, rq, rg = meta
+    tags = {}
+    if ec is not None:
+      tags['ec'] = float(ec)
+    if np_passes is not None:
+      tags['np'] = int(np_passes)
+    if rq is not None:
+      tags['rq'] = float(rq)
+    if rg is not None:
+      tags['RG'] = str(rg)
+    # Names without the movie/zmw/type structure get no zm tag.
+    parts = name.split('/')
+    if len(parts) >= 2:
+      try:
+        tags['zm'] = int(parts[1])
+      except ValueError:
+        pass
+    writer.write(name, seq.decode('ascii'),
+                 np.asarray(quals, dtype=np.uint8), tags=tags)
+
+  return emit_bam, writer.close
 
 
 def run_inference(
@@ -474,17 +666,26 @@ def run_inference(
     output: str,
     runner: ModelRunner,
 ) -> Dict[str, Any]:
-  """Full serial pipeline with runner's model and options; writes
-  `output` (FASTQ) and `<output>.inference.json`, returns the
-  counters."""
+  """The three-stage pipeline with runner's model and options; writes
+  `output` (FASTQ, or BAM when it ends in .bam),
+  `<output>.inference.json` and `<output>.runtime.csv`, and returns
+  the counters.
+
+  Counter discipline: the producer thread owns the feeder's counter,
+  the model stage the window counts, the emit thread the outcome
+  counts; they merge after both threads have joined.
+  """
   options = runner.options
   params = runner.params
-  if output.endswith('.bam'):
-    raise NotImplementedError(
-        'BAM output is not ported yet (ROADMAP: tail modules)')
+  stage = options.end_after_stage
+  if stage not in STAGES:
+    raise ValueError(f'end_after_stage must be one of {STAGES}, '
+                     f'got {stage!r}')
   options.max_passes = params.max_passes
   options.max_length = params.max_length
   options.use_ccs_bq = params.use_ccs_bq
+  runner.reset_timing()
+  t_start = time.perf_counter()
   layout = FeatureLayout(
       max_passes=options.max_passes,
       max_length=options.max_length,
@@ -499,110 +700,288 @@ def run_inference(
       use_ccs_smart_windows=options.use_ccs_smart_windows,
       limit=options.limit,
   )
-  packer = None
-  if options.use_ragged_kernel:
-    packer = engine_lib._RaggedPacker(
-        runner, options, runner.window_buckets,
-        deliver=lambda ticket, ids, quals: ticket[0](ticket[1], ids, quals))
+  # Opening the BAMs inflates them (native) or reads their headers.
+  open_seconds = time.perf_counter() - t_start
+  model_mode = stage in ('run_model', 'full')
+  full_mode = stage == 'full'
   outcome = stitch.OutcomeCounter()
-  timings = collections.Counter()
+  window_counter: collections.Counter = collections.Counter()
   timing_rows: List[Dict[str, Any]] = []
-  stage = options.end_after_stage
+  # Seconds per stage, each entry written by one thread only.
+  clock = {'decode': open_seconds, 'featurize': 0.0, 'ingest': 0.0,
+           'stitch': 0.0}
+  pool = None
+  shm_prefix = f'dctorch_{os.getpid()}_{id(timing_rows)}_'
   out_tmp = output + '.tmp'
-  t_start = time.perf_counter()
+  emit_read, close_sink = _open_sink(output, out_tmp, ccs_bam)
+  feat_queue: queue_lib.Queue = queue_lib.Queue(maxsize=2)
+  stop = threading.Event()
+  states: collections.deque = collections.deque()
+  engine: Optional[engine_lib.ConsensusEngine] = None
+  if model_mode:
+    # Tickets are (molecule, index) slots; a delivered row resolves its
+    # molecule's pending window.
+    engine = engine_lib.ConsensusEngine(
+        runner, options,
+        deliver=lambda slot, ids, quals: slot[0].set_result(
+            slot[1], ids, quals),
+        timing_rows=timing_rows)
 
-  def flush(zmw_batch, sink) -> None:
+  def put(item) -> bool:
+    """Bounded put that gives up once the model stage has stopped."""
+    while not stop.is_set():
+      try:
+        feat_queue.put(item, timeout=0.5)
+        return True
+      except queue_lib.Full:
+        continue
+    return False
+
+  def featurize_batch(zmw_batch, seq: int) -> Dict[str, Any]:
     t0 = time.perf_counter()
-    n_subreads = sum(len(z[0]) - 1 for z in zmw_batch)
-    if stage == 'dc_input':
-      return
-    windows: List[Dict[str, Any]] = []
-    for zmw_input in zmw_batch:
-      features, zmw_counter = preprocess_zmw(zmw_input)
-      counter.update(zmw_counter)
-      windows.extend(features)
-    t1 = time.perf_counter()
-    timings['featurize_seconds'] += t1 - t0
-    timing_rows.append(dict(stage='preprocess', runtime=t1 - t0,
-                            n_zmws=len(zmw_batch),
-                            n_examples=len(windows), n_subreads=n_subreads))
-    if stage == 'tf_examples':
-      return
-    model_before = runner.model_seconds
-    mols = _polish_batch(windows, runner, options, counter, packer)
-    t2 = time.perf_counter()
-    model = runner.model_seconds - model_before
-    timings['model_seconds'] += model
-    timings['triage_format_seconds'] += t2 - t1 - model
-    if stage == 'run_model':
-      return
-    for name in sorted(mols):
-      mol = mols[name]
-      result = stitch.stitch_arrays(
-          name, np.asarray(mol['pos'], dtype=np.int64), mol['ids'],
-          mol['quals'], max_length=options.max_length,
-          min_quality=options.min_quality, min_length=options.min_length,
-          outcome_counter=outcome)
-      if result is not None:
-        sink.write(stitch.format_fastq_bytes(name, result[0], result[1]))
-    t3 = time.perf_counter()
-    timings['stitch_seconds'] += t3 - t2
-    timing_rows.append(dict(stage='stitch_and_write_fastq', runtime=t3 - t2,
-                            n_zmws=len(zmw_batch), n_examples=len(windows),
-                            n_subreads=n_subreads))
+    segments = []
+    if pool is not None:
+      pairs, segments = featurize_lib.featurize_with_pool(
+          pool, zmw_batch, f'{shm_prefix}b{seq}_')
+    else:
+      pairs = [(z, *preprocess_zmw(z)) for z in zmw_batch]
+    elapsed = time.perf_counter() - t0
+    clock['featurize'] += elapsed
+    return {
+        'windows': [w for _, features, _ in pairs for w in features],
+        'counters': [c for _, _, c in pairs],
+        'n_subreads': sum(len(z[0]) - 1 for z in zmw_batch),
+        'n_zmws': len(zmw_batch),
+        'preprocess_time': elapsed,
+        'shm_handles': segments,
+    }
 
-  with open(out_tmp, 'wb') as sink:
-    zmw_batch = []
-    zmws = feeder()
-    t_decode = time.perf_counter()
-    for zmw_input in zmws:
-      zmw_batch.append(zmw_input)
-      if options.batch_zmws and len(zmw_batch) >= options.batch_zmws:
-        timings['bam_decode_seconds'] += time.perf_counter() - t_decode
-        timing_rows.append(dict(
-            stage='dc_input', runtime=time.perf_counter() - t_decode,
-            n_zmws=len(zmw_batch), n_examples=0,
-            n_subreads=sum(len(z[0]) - 1 for z in zmw_batch)))
-        flush(zmw_batch, sink)
-        zmw_batch = []
-        t_decode = time.perf_counter()
-    timings['bam_decode_seconds'] += time.perf_counter() - t_decode
-    if zmw_batch:
-      timing_rows.append(dict(
-          stage='dc_input', runtime=time.perf_counter() - t_decode,
-          n_zmws=len(zmw_batch), n_examples=0,
-          n_subreads=sum(len(z[0]) - 1 for z in zmw_batch)))
-      flush(zmw_batch, sink)
+  def producer() -> None:
+    try:
+      zmws = feeder()
+      seq = 0
+      while True:
+        t0 = time.perf_counter()
+        zmw_batch = list(itertools.islice(zmws, options.batch_zmws or None))
+        decoded = time.perf_counter() - t0
+        clock['decode'] += decoded
+        if not zmw_batch:
+          break
+        if stage == 'dc_input':
+          timing_rows.append(dict(
+              stage='dc_input', runtime=decoded, n_zmws=len(zmw_batch),
+              n_examples=0,
+              n_subreads=sum(len(z[0]) - 1 for z in zmw_batch)))
+          continue
+        feat = featurize_batch(zmw_batch, seq)
+        seq += 1
+        if not put(('batch', feat)):
+          # The model stage stopped: nobody else owns these segments.
+          featurize_lib.release_segments(feat['shm_handles'])
+          return
+      put(('done', None))
+    except BaseException as e:  # surfaced on the model stage's thread
+      put(('error', e))
+
+  def ingest_batch(feat: Dict[str, Any]) -> None:
+    """Model stage: triage one featurize batch and submit its model
+    windows. The batch completes (and may go to the emit thread) once
+    every pack holding its windows has been finalized."""
+    for zmw_counter in feat['counters']:
+      window_counter.update(zmw_counter)
+    windows = feat['windows']
+    timing_rows.append(dict(
+        stage='preprocess', runtime=feat['preprocess_time'],
+        n_zmws=feat['n_zmws'], n_examples=len(windows),
+        n_subreads=feat['n_subreads']))
+    if not model_mode:
+      return
+    state = _BatchState(feat)
+    state.n_windows = len(windows)
+    to_model, to_skip = engine_lib.triage_windows(windows, options,
+                                                  window_counter)
+    for fd in to_skip:
+      state.mol(fd).append_resolved(
+          fd['window_pos'], *engine_lib.skipped_window_arrays(fd, options))
+    slots = []
+    for fd in to_model:
+      mol = state.mol(fd)
+      slots.append((mol, mol.append_pending(fd['window_pos'])))
+    if to_model:
+      # A list: widths may mix; the engine groups them per bucket in
+      # featurize order (and copies the rows out of any shm segment).
+      engine.submit([fd['subreads'] for fd in to_model], slots)
+      if not options.pack_across_batches:
+        engine.flush(drain=False)
+    feat['windows'] = None
+    state.featurized = True
+    states.append(state)
+
+  emit_queue: Optional[queue_lib.Queue] = None
+  emit_thread: Optional[threading.Thread] = None
+  emit_error: List[Optional[BaseException]] = [None]
+
+  def check_emit() -> None:
+    if emit_error[0] is not None:
+      raise emit_error[0]
+
+  def emit_batch_state(state: _BatchState) -> None:
+    """Emit thread: stitch, filter and write one featurize batch's
+    molecules, sorted by name."""
+    t0 = time.perf_counter()
+    for name in sorted(state.mols):
+      mol = state.mols[name]
+      result = stitch.stitch_arrays(
+          name, np.asarray(mol.pos, dtype=np.int64), mol.ids, mol.quals,
+          max_length=options.max_length, min_quality=options.min_quality,
+          min_length=options.min_length, outcome_counter=outcome)
+      if result is not None:
+        emit_read(name, result[0], result[1], mol.meta)
+    elapsed = time.perf_counter() - t0
+    clock['stitch'] += elapsed
+    feat = state.feat
+    timing_rows.append(dict(
+        stage='stitch_and_write_fastq', runtime=elapsed,
+        n_zmws=feat['n_zmws'], n_examples=state.n_windows,
+        n_subreads=feat['n_subreads']))
+
+  def emit_worker() -> None:
+    try:
+      while True:
+        state = emit_queue.get()
+        if state is None:
+          return
+        emit_batch_state(state)
+    except BaseException as e:  # surfaced by check_emit()
+      emit_error[0] = e
+
+  def emit_put(state) -> None:
+    """Bounded put that surfaces an emit-thread death instead of
+    blocking forever on its queue."""
+    while True:
+      check_emit()
+      try:
+        emit_queue.put(state, timeout=0.5)
+        return
+      except queue_lib.Full:
+        continue
+
+  def pop_ready() -> None:
+    """Hands completed batches to the emit thread in featurize order
+    (packs drain FIFO, so completion is monotone in that order)."""
+    while states and states[0].complete:
+      state = states.popleft()
+      if emit_thread is not None:
+        emit_put(state)
+
+  thread = threading.Thread(target=producer, daemon=True)
+  n_batches = 0
+  try:
+    if options.cpus and options.cpus > 1 and stage != 'dc_input':
+      pool = featurize_lib.make_pool(options.cpus)
+    if full_mode:
+      emit_queue = queue_lib.Queue(maxsize=max(1, options.emit_queue_depth))
+      emit_thread = threading.Thread(target=emit_worker, daemon=True)
+      emit_thread.start()
+    thread.start()
+    while True:
+      kind, payload = feat_queue.get()
+      if kind == 'done':
+        break
+      if kind == 'error':
+        raise payload
+      t0 = time.perf_counter()
+      try:
+        check_emit()
+        ingest_batch(payload)
+      finally:
+        featurize_lib.release_segments(payload['shm_handles'])
+        clock['ingest'] += time.perf_counter() - t0
+      pop_ready()
+      n_batches += 1
+    t0 = time.perf_counter()
+    if engine is not None:
+      engine.flush()  # end of input: cut the tail packs, drain all
+    clock['ingest'] += time.perf_counter() - t0
+    pop_ready()
+    if states:
+      raise RuntimeError(f'{len(states)} featurize batch(es) never '
+                         'completed the model stage')
+    if emit_thread is not None:
+      emit_put(None)
+      emit_thread.join()
+      check_emit()
+  finally:
+    stop.set()
+    if thread.ident is not None:
+      thread.join(timeout=30)
+    if emit_thread is not None and emit_thread.is_alive():
+      try:
+        emit_queue.put(None, timeout=30)
+      except queue_lib.Full:
+        pass  # the emit thread is stuck; it is a daemon
+      emit_thread.join(timeout=30)
+    if not thread.is_alive():
+      # Batches queued on an error path still own their segments.
+      while True:
+        try:
+          kind, payload = feat_queue.get_nowait()
+        except queue_lib.Empty:
+          break
+        if kind == 'batch':
+          featurize_lib.release_segments(payload['shm_handles'])
+    if pool is not None:
+      pool.terminate()
+      pool.join()
+    close_sink()
   os.replace(out_tmp, output)
-  counters: Dict[str, Any] = dict(counter)
-  counters.update(dataclasses.asdict(outcome))
+
   total = time.perf_counter() - t_start
-  for key in _STAGE_KEYS:
-    timings[key] += 0.0
+  counters: Dict[str, Any] = dict(counter)
+  counters.update(window_counter)
+  counters.update(dataclasses.asdict(outcome))
+  # Host stages; untimed_seconds is total_seconds minus their sum, and
+  # negative where stages on different threads overlap.
+  timings = {
+      'bam_decode_seconds': clock['decode'],
+      'featurize_seconds': clock['featurize'],
+      'triage_format_seconds': clock['ingest'] - runner.model_seconds,
+      'model_seconds': runner.model_seconds,
+      'stitch_seconds': clock['stitch'],
+  }
   counters.update({k: round(v, 6) for k, v in timings.items()})
-  counters['untimed_seconds'] = round(
-      total - sum(timings[k] for k in _STAGE_KEYS), 6)
-  counters['end_after_stage'] = stage
+  counters['untimed_seconds'] = round(total - sum(timings.values()), 6)
   counters.update(runner.device_seconds())
-  packs = runner if packer is None else packer
-  if packer is None:
-    by_bucket = (runner.n_windows_by_bucket, runner.n_packs_by_bucket,
-                 runner.n_pad_rows_by_bucket)
-  else:  # every ragged pack is one slot_len-wide shape
-    slot_len = runner.window_buckets[-1]
-    by_bucket = (packer.n_windows_by_bucket, {slot_len: packer.n_packs},
-                 {slot_len: packer.n_pad_rows})
+  counters.update(runner.dispatch_stats())
+  if engine is not None:
+    n_windows_by_bucket = engine.n_windows_by_bucket
+    packs = (engine.n_packs, engine.n_pack_rows, engine.n_pad_rows,
+             engine.n_packs_by_bucket, engine.n_pad_rows_by_bucket,
+             engine.n_starvation_flushes)
+  else:
+    n_windows_by_bucket = dict.fromkeys(runner.window_buckets, 0)
+    packs = (0, 0, 0, {}, {}, 0)
   counters.update(
       total_seconds=round(total, 6),
+      bam_open_seconds=round(open_seconds, 6),
+      end_after_stage=stage,
+      bam_decoder=feeder.bam_decoder,
+      output_format='bam' if output.endswith('.bam') else 'fastq',
+      n_featurize_batches=n_batches,
+      cpus=options.cpus,
+      dispatch_depth=options.dispatch_depth,
+      pack_across_batches=int(options.pack_across_batches),
+      emit_queue_depth=options.emit_queue_depth,
       window_buckets=list(runner.window_buckets),
-      use_ragged_kernel=int(packer is not None),
-      n_windows_by_bucket=dict(by_bucket[0]),
-      n_model_packs=packs.n_packs,
-      n_model_packs_by_bucket=dict(by_bucket[1]),
-      n_model_pack_rows=packs.n_pack_rows,
+      use_ragged_kernel=int(options.use_ragged_kernel),
+      n_windows_by_bucket=n_windows_by_bucket,
+      n_model_packs=packs[0],
+      n_model_pack_rows=packs[1],
       # Ragged packs count unused slot capacity in min-bucket units.
-      n_model_pad_rows=packs.n_pad_rows,
-      n_model_pad_rows_by_bucket=dict(by_bucket[2]),
+      n_model_pad_rows=packs[2],
+      n_model_packs_by_bucket=packs[3],
+      n_model_pad_rows_by_bucket=packs[4],
+      n_starvation_flushes=packs[5],
       device_epilogue=int(runner.device_epilogue),
       d2h_bytes_per_pack=runner.d2h_bytes_per_pack,
       device=str(runner.device),

@@ -4,11 +4,11 @@ The reference relies on pysam/htslib for all BAM I/O
 (reference: deepconsensus/preprocess/pre_lib.py:50-91,966-998). This
 module implements the BAM spec (SAMv1, section 4) directly so the
 framework needs no native htslib: BGZF files are concatenated gzip
-members, which Python's gzip module decompresses transparently; records
-are fixed-layout structs parsed with struct/numpy.
-
-This copy keeps only the pure-Python gzip path (the reference package's
-native BGZF decoder is not carried over).
+members; records are fixed-layout structs parsed with struct/numpy.
+The whole file inflates in parallel in the native library
+(deepconsensus_tpu_torch/native) when it builds and the file is modest;
+otherwise Python's gzip module streams the members. `BamReader.decoder`
+says which ran.
 
 Untrusted-input hardening: every length/count field read from the file
 (block_size, l_text, n_ref, l_name, l_read_name, n_cigar_op, l_seq, tag
@@ -25,6 +25,8 @@ is positioned at the next record when it raises, so callers (or
 from __future__ import annotations
 
 import gzip
+import io
+import os
 import struct
 import zlib
 from dataclasses import dataclass, field
@@ -346,10 +348,40 @@ def parse_record(data: bytes, references: List[str],
   )
 
 
+def bgzf_decompress_file_py(path: str,
+                            max_out: int = 0) -> bytes:
+  """Pure-Python BGZF/gzip whole-file decompression with a typed error
+  surface: corrupt or truncated streams raise CorruptInputError (never
+  a bare gzip/zlib error), and max_out > 0 bounds the decompressed
+  allocation. The Python counterpart of native.bgzf_decompress_file."""
+  chunks: List[bytes] = []
+  total = 0
+  try:
+    with gzip.open(path, 'rb') as f:
+      while True:
+        chunk = f.read(1 << 20)
+        if not chunk:
+          break
+        total += len(chunk)
+        if max_out and total > max_out:
+          raise CorruptInputError(
+              f'decompressed BGZF stream exceeds the {max_out}-byte cap',
+              path=path, offset=total)
+        chunks.append(chunk)
+  except _DECOMPRESS_ERRORS as e:
+    raise TruncatedBamError(
+        f'BGZF stream corrupt or truncated ({type(e).__name__}: {e})',
+        path=path, offset=total) from e
+  return b''.join(chunks)
+
+
 class BamReader:
   """Streams records from a BAM file in file order.
 
-  BGZF members stream through the gzip module.
+  When the native library is available and the file is modest, BGZF
+  blocks decompress in parallel in C++ (`decoder == 'native'`);
+  otherwise the gzip module streams the concatenated members
+  (`decoder == 'python'`).
 
   BamReader is its own iterator (``__iter__`` returns self): a
   recoverable CorruptInputError raised by ``next()`` leaves the stream
@@ -360,14 +392,39 @@ class BamReader:
   a non-recoverable CorruptInputError and ends the stream.
   """
 
-  def __init__(self, path: str,
+  NATIVE_MAX_BYTES = 4 << 30
+  # Decompressed-size cap handed to the native whole-file decode: BGZF
+  # tops out near 4x compression on genomic data, so a conforming file
+  # under NATIVE_MAX_BYTES stays well inside it; a zip bomb aborts in C
+  # (and falls back to the bounded streaming path) instead of
+  # exhausting the host.
+  NATIVE_MAX_OUT_BYTES = 16 << 30
+
+  def __init__(self, path: str, use_native: bool = True,
+               native_threads: int = 4,
                max_record_bytes: int = DEFAULT_MAX_RECORD_BYTES,
                skip_corrupt_records: bool = False):
     self.path = path
     self.max_record_bytes = int(max_record_bytes)
     self.skip_corrupt_records = skip_corrupt_records
     self.n_corrupt_records = 0
-    self._f = gzip.open(path, 'rb')
+    self._f = None
+    if use_native:
+      try:
+        from deepconsensus_tpu_torch import native
+
+        if os.path.getsize(path) <= self.NATIVE_MAX_BYTES:
+          data = native.bgzf_decompress_file(
+              path, native_threads, max_out=self.NATIVE_MAX_OUT_BYTES)
+          if data is not None:
+            self._f = io.BytesIO(data)
+      # The native decode is an accelerator: any failure of it falls
+      # back to the gzip path below, which raises typed errors.
+      except Exception:  # pragma: no cover - fallback path
+        self._f = None
+    self.decoder = 'python' if self._f is None else 'native'
+    if self._f is None:
+      self._f = gzip.open(path, 'rb')
     magic = self._read(4, 'BAM magic')
     if magic != b'BAM\x01':
       raise CorruptInputError(
@@ -510,8 +567,8 @@ class SubreadGrouper:
 
   def __init__(self, subreads_to_ccs: str,
                max_record_bytes: int = DEFAULT_MAX_RECORD_BYTES,
-               skip_corrupt_records: bool = False):
-    self.reader = BamReader(subreads_to_ccs,
+               skip_corrupt_records: bool = False, use_native: bool = True):
+    self.reader = BamReader(subreads_to_ccs, use_native=use_native,
                             max_record_bytes=max_record_bytes)
     self._skip_corrupt = skip_corrupt_records
     self._iter = iter(self.reader)

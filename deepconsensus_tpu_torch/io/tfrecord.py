@@ -1,8 +1,9 @@
-"""Pure-Python TFRecord reader/writer with optional gzip compression.
+"""TFRecord reader/writer with optional gzip compression.
 
-Copy of the reference package's io/tfrecord.py, trimmed to the
-pure-Python path: the native whole-shard decoder and the native crc32c
-are not carried over, so the reader always streams.
+Copy of the reference package's io/tfrecord.py: whole shards decode in
+the native library (deepconsensus_tpu_torch/native) when asked and it
+builds, crc32c runs there too, and the pure-Python streaming reader
+and table-driven CRC stay as the fallback.
 
 TFRecord framing per record: little-endian uint64 length, masked crc32c of
 the length bytes, payload, masked crc32c of the payload. The reference
@@ -50,12 +51,26 @@ def _build_table() -> None:
 _build_table()
 
 
-def crc32c(data: bytes, value: int = 0) -> int:
+def _crc32c_py(data: bytes, value: int = 0) -> int:
   crc = value ^ 0xFFFFFFFF
   table = _CRC_TABLE
   for b in data:
     crc = table[(crc ^ b) & 0xFF] ^ (crc >> 8)
   return crc ^ 0xFFFFFFFF
+
+
+def crc32c(data: bytes, value: int = 0) -> int:
+  try:
+    from deepconsensus_tpu_torch import native
+
+    result = native.crc32c(data, value)
+    if result is not None:
+      return result
+  # The native CRC is an accelerator: any failure of it falls back to
+  # the pure-Python CRC.
+  except Exception:  # pragma: no cover
+    pass
+  return _crc32c_py(data, value)
 
 
 def _masked_crc(data: bytes) -> int:
@@ -100,31 +115,132 @@ class TFRecordWriter:
     self.close()
 
 
-class TFRecordReader:
-  """Iterates serialized records from a TFRecord file, streaming.
+# Whole-shard native decode reads the full decompressed shard into
+# memory (transiently about twice: the C output buffer plus the Python
+# record list); skip it for shards that would be unreasonable on the
+# host (streaming handles any size). The compressed cap is a cheap
+# pre-check; the decompressed cap is the real bound, probed from BGZF
+# per-block ISIZE fields without inflating anything.
+_NATIVE_MAX_COMPRESSED_BYTES = 512 * 1024 * 1024
+_NATIVE_MAX_DECOMPRESSED_BYTES = 1024 * 1024 * 1024
 
-  Single-pass: a second iteration yields nothing. The length CRC is
-  always verified before the payload is allocated; the payload CRC
-  only with check_crc.
+
+def bgzf_decompressed_size(path: str) -> Optional[int]:
+  """Total decompressed size of a BGZF file by summing block ISIZEs.
+
+  Seeks block to block using the BSIZE extra subfield: two small reads
+  per 64 KiB block, no inflation. Returns None unless every member is
+  a standard BGZF block (a partial sum, or a gzip footer ISIZE taken
+  mod 2^32, would under-report), so non-conforming files report
+  unknown and the native decoder's in-C output cap enforces the
+  bound."""
+  try:
+    with open(path, 'rb') as f:
+      total = 0
+      while True:
+        start = f.tell()
+        hdr = f.read(12)
+        if not hdr:
+          return total
+        # gzip magic, deflate, FEXTRA set.
+        if len(hdr) < 12 or hdr[:4] != b'\x1f\x8b\x08\x04':
+          return None
+        xlen = int.from_bytes(hdr[10:12], 'little')
+        extra = f.read(xlen)
+        if len(extra) < xlen:
+          return None
+        # Walk the FEXTRA subfields (SI1, SI2, u16 SLEN, data) for the
+        # BGZF 'BC' field; other subfields may come in any order.
+        bsize = None
+        off = 0
+        while off + 4 <= xlen:
+          si, slen = extra[off:off + 2], int.from_bytes(
+              extra[off + 2:off + 4], 'little')
+          off += 4
+          if off + slen > xlen:
+            return None  # subfield overruns XLEN: malformed
+          if si == b'BC' and slen == 2:
+            bsize = int.from_bytes(extra[off:off + 2], 'little') + 1
+          off += slen
+        if bsize is None or off != xlen:
+          return None
+        f.seek(start + bsize - 4)
+        isize = f.read(4)
+        if len(isize) < 4:
+          return None  # truncated final block
+        total += int.from_bytes(isize, 'little')
+  except OSError:
+    return None
+
+
+class TFRecordReader:
+  """Iterates serialized records from a TFRecord file.
+
+  Single-pass on every path: a second iteration yields nothing. The
+  length CRC is always verified before the payload is allocated; the
+  payload CRC only with check_crc.
+
+  native_decode=True decodes the whole shard in one native call
+  (parallel BGZF inflate + C record framing, which checks both CRCs of
+  every frame's length). It holds the shard's records in memory, so
+  callers consume shards one at a time; the streaming path holds only
+  small buffers. check_crc or any native failure falls back to
+  streaming, which raises typed errors on corrupt input.
   """
 
   def __init__(self, path: str, compression: Optional[str] = None,
-               check_crc: bool = False,
+               check_crc: bool = False, native_decode: bool = False,
+               native_threads: int = 4,
                max_record_bytes: int = DEFAULT_MAX_RECORD_BYTES):
     if compression is None and path.endswith('.gz'):
       compression = 'GZIP'
     os.stat(path)  # fail fast on missing/unreadable paths (open is lazy)
     self._path = path
     self._compressed = compression in ('GZIP', 'BGZF')
-    self._f = None  # opened lazily on first use
+    self._native = native_decode and not check_crc
+    self._native_threads = native_threads
+    self._f = None  # streaming handle, opened lazily on first use
     self._consumed = False
     self._check_crc = check_crc
     self._max_record_bytes = int(max_record_bytes)
+    self.decoder: Optional[str] = None  # 'native' | 'python' once read
+
+  def _native_records(self) -> Optional[List[bytes]]:
+    try:
+      if os.path.getsize(self._path) > _NATIVE_MAX_COMPRESSED_BYTES:
+        return None
+      if self._compressed:
+        # Cheap pre-gate, exact for conforming BGZF; for other gzip the
+        # in-C max_out cap below is the enforcement point.
+        dsize = bgzf_decompressed_size(self._path)
+        if dsize is not None and dsize > _NATIVE_MAX_DECOMPRESSED_BYTES:
+          return None
+      from deepconsensus_tpu_torch import native
+
+      return native.read_tfrecord_records(
+          self._path, n_threads=self._native_threads,
+          compressed=self._compressed,
+          max_out=_NATIVE_MAX_DECOMPRESSED_BYTES)
+    # The native reader is an accelerator: None routes to the Python
+    # decode path, which raises real corruption as CorruptInputError.
+    except Exception:  # pragma: no cover - any native issue -> fallback
+      return None
 
   def __iter__(self) -> Iterator[bytes]:
     if self._consumed:
       return
+    if self._native:
+      records = self._native_records()
+      if records is not None:
+        self._consumed = True
+        self.decoder = 'native'
+        yield from records
+        return
+    # Marked consumed as soon as streaming begins, as the native path
+    # does, so a partly consumed reader yields nothing on re-iteration
+    # whichever path ran.
     self._consumed = True
+    self.decoder = 'python'
     if self._f is None:
       self._f = (gzip.open(self._path, 'rb') if self._compressed
                  else open(self._path, 'rb'))
@@ -154,7 +270,7 @@ class TFRecordReader:
             'truncated TFRecord length crc', path=self._path, offset=offset)
       # The length field is untrusted until its CRC verifies; check it
       # unconditionally (not just under check_crc) BEFORE allocating
-      # `length` bytes — a corrupt header must not OOM the host.
+      # `length` bytes: a corrupt header must not OOM the host.
       if struct.unpack('<I', len_crc)[0] != _masked_crc(header):
         raise CorruptInputError(
             'TFRecord length crc mismatch', path=self._path, offset=offset)
@@ -197,8 +313,12 @@ def glob_paths(patterns: Union[str, Iterable[str]]) -> List[str]:
 
 def read_tfrecords(patterns: Union[str, Iterable[str]],
                    check_crc: bool = False) -> Iterator[bytes]:
-  """Yields all serialized records matching the glob pattern(s), one
-  shard after another."""
+  """Yields all serialized records matching the glob pattern(s).
+
+  Shards are consumed one at a time, so the native whole-shard decode
+  is safe here (bounded by the largest single shard); the reader gates
+  it off when check_crc is set."""
   for path in glob_paths(patterns):
-    with TFRecordReader(path, check_crc=check_crc) as reader:
+    with TFRecordReader(path, check_crc=check_crc,
+                        native_decode=True) as reader:
       yield from reader

@@ -32,14 +32,17 @@ def create_proc_feeder(
     ins_trim: int = 0,
     use_ccs_smart_windows: bool = False,
     limit: int = 0,
+    use_native: bool = True,
 ):
   """Returns (generator_fn, counter) yielding per-ZMW inference work
   items. Fail-fast: a decode or expansion failure raises.
   use_ccs_smart_windows takes each ZMW's window widths from its CCS
-  record's `wl` tag (widths in unspaced CCS bases)."""
+  record's `wl` tag (widths in unspaced CCS bases). The BAMs open (and,
+  with the native decoder, inflate) here; generator_fn.bam_decoder is
+  'native' when both decoded natively, else 'python'."""
   main_counter: Counter = Counter()
-  grouper = bam.SubreadGrouper(subreads_to_ccs)
-  ccs_reader = bam.BamReader(ccs_bam)
+  grouper = bam.SubreadGrouper(subreads_to_ccs, use_native=use_native)
+  ccs_reader = bam.BamReader(ccs_bam, use_native=use_native)
 
   def proc_feeder() -> Iterator[ZmwInput]:
     ccs_iter = iter(ccs_reader)
@@ -67,6 +70,9 @@ def create_proc_feeder(
       if limit and main_counter['n_zmw_pass'] >= limit:
         break
 
+  proc_feeder.bam_decoder = (
+      'native' if grouper.reader.decoder == ccs_reader.decoder == 'native'
+      else 'python')
   return proc_feeder, main_counter
 
 

@@ -143,8 +143,10 @@ def test_run_inference_matches_jax(bams, model_pair, tmp_path,
 
 
 def test_port_imports_no_jax():
-  """A fresh interpreter imports every port module; neither jax nor
-  any deepconsensus_tpu module may load. A source scan backs it up."""
+  """A fresh interpreter imports every port module (the native library's
+  bindings and the featurization pool's module among them); neither jax
+  nor any deepconsensus_tpu module may load. A source scan backs it
+  up."""
   code = (
       'import pkgutil, sys, deepconsensus_tpu_torch as p\n'
       'import deepconsensus_tpu_torch.cli\n'
@@ -153,6 +155,9 @@ def test_port_imports_no_jax():
       'bad = [m for m in sys.modules if m.split(".")[0] in '
       '("jax", "jaxlib", "flax", "ml_collections", "orbax", '
       '"deepconsensus_tpu")]\n'
+      'bad += [m for m in ("deepconsensus_tpu_torch.native", '
+      '"deepconsensus_tpu_torch.inference.featurize") '
+      'if m not in sys.modules]\n'
       'print(bad)\n'
       'sys.exit(1 if bad else 0)\n')
   env = dict(os.environ, PYTHONPATH=REPO)
