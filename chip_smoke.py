@@ -122,8 +122,9 @@ Phases, in order; any failure exits non-zero (nothing is caught):
       once per --end_after_stage cut after a warm-up run.
    Every `run` prints its stage seconds (BAM decode, featurize,
    triage/format, model, stitch), the untimed remainder, the card's
-   H2D / forward / D2H time by CUDA events, the model stage's idle share
-   and which BAM decoder ran, and fails unless it was the native one.
+   H2D / forward / D2H time by CUDA events, the model stage's idle share,
+   the garbage collector's pauses during the run and which BAM decoder
+   ran, and fails unless it was the native one.
    Gates: each path's kernels launched (a: K1-K3, b: K4, K2, K3, c: K11
    once per step and eval batch, K12 once per step, no K5-K7; d: K7 and
    K6 once per layer and step, K5 once per layer and eval batch, K11
@@ -1702,6 +1703,7 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
     engine_lib._RaggedPacker.flush = recording_flush
   torch.cuda.reset_peak_memory_stats()
   reset_launches()
+  gc_clock = GcClock()
   t0 = time.perf_counter()
   try:
     if plain:
@@ -1728,10 +1730,12 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
     runner_lib.ModelRunner.finalize = finalize
     engine_lib._RaggedPacker.add = add
     engine_lib._RaggedPacker.flush = flush
+    gc_clock.stop()
   seconds = time.perf_counter() - t0
   launches = read_launches()
   with open(out + '.inference.json') as f:
     counters = json.load(f)
+  counters['gc'] = gc_clock.read()
   if counters['bam_decoder'] != 'native':
     raise AssertionError(f'{path} {dtype}{tag}: the BAMs were decoded by '
                          f'{counters["bam_decoder"]}, not natively')
@@ -1747,6 +1751,34 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
           lengths, seconds, torch.cuda.max_memory_allocated())
 
 
+class GcClock:
+  """Python's garbage collections while it runs: count and seconds by
+  generation (gc.callbacks), to tell collector pauses apart from the
+  stages' own work."""
+
+  def __init__(self):
+    import gc
+
+    self._gc = gc
+    self._t0 = 0.0
+    self.counts = [0, 0, 0]
+    self.seconds = [0.0, 0.0, 0.0]
+    gc.callbacks.append(self._tick)
+
+  def _tick(self, phase, info):
+    if phase == 'start':
+      self._t0 = time.perf_counter()
+    else:
+      self.counts[info['generation']] += 1
+      self.seconds[info['generation']] += time.perf_counter() - self._t0
+
+  def stop(self) -> None:
+    self._gc.callbacks.remove(self._tick)
+
+  def read(self) -> dict:
+    return {'collections': self.counts, 'seconds': self.seconds}
+
+
 def stage_fields(counters) -> dict:
   """A run's stage seconds, untimed remainder, decoder and the card's
   share of the model stage's wall time not busy with packs."""
@@ -1759,7 +1791,8 @@ def stage_fields(counters) -> dict:
           'model_idle_share': counters.get('model_idle_share'),
           'transfer_overlap_fraction': counters.get(
               'transfer_overlap_fraction'),
-          'n_featurize_batches': counters.get('n_featurize_batches')}
+          'n_featurize_batches': counters.get('n_featurize_batches'),
+          'gc': counters.get('gc')}
 
 
 STAGE_CUTS = ('dc_input', 'tf_examples', 'run_model', 'full')
@@ -1788,12 +1821,17 @@ def stage_split(bams, weights, dtype: str = 'bfloat16') -> dict:
             '--batch_size', str(BATCH), '--batch_zmws', str(N_ZMWS),
             '--min_quality', '0', '--skip_windows_above', '0',
             '--end_after_stage', 'full' if cut == 'warmup' else cut]
+    gc_clock = GcClock()
     t0 = time.perf_counter()
-    if cli.main(argv) != 0:
-      raise AssertionError(f'cli run --end_after_stage {cut} failed')
+    try:
+      if cli.main(argv) != 0:
+        raise AssertionError(f'cli run --end_after_stage {cut} failed')
+    finally:
+      gc_clock.stop()
     seconds = time.perf_counter() - t0
     with open(out + '.inference.json') as f:
       cuts[cut] = counters = json.load(f)
+    counters['gc'] = gc_clock.read()
     print(json.dumps({
         'phase': 'stage_split', 'cut': cut, 'dtype': dtype,
         'seconds': seconds,

@@ -71,6 +71,7 @@ from deepconsensus_tpu_torch.inference import engine as engine_lib
 from deepconsensus_tpu_torch.inference import featurize as featurize_lib
 from deepconsensus_tpu_torch.io import bam as bam_lib
 from deepconsensus_tpu_torch.models import config as config_lib
+from deepconsensus_tpu_torch.models import data as data_lib
 from deepconsensus_tpu_torch.models import model as model_lib
 from deepconsensus_tpu_torch.models import quantize as quantize_lib
 from deepconsensus_tpu_torch.ops import output_plane
@@ -78,6 +79,7 @@ from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
 from deepconsensus_tpu_torch.postprocess import stitch
 from deepconsensus_tpu_torch.preprocess.feeder import create_proc_feeder
 from deepconsensus_tpu_torch.preprocess.pileup import FeatureLayout, row_indices
+from deepconsensus_tpu_torch.utils import phred
 
 preprocess_zmw = featurize_lib.preprocess_zmw
 
@@ -551,6 +553,43 @@ class ModelRunner:
             round(self.n_transfer_overlapped / launches, 4)
             if launches else 0.0),
     }
+
+
+def run_model_on_windows(
+    feature_dicts: List[Dict[str, Any]],
+    runner: ModelRunner,
+    params,
+    options: InferenceOptions,
+) -> List[stitch.DCModelOutput]:
+  """Formats, batches and runs windows through the model, keeping up to
+  options.dispatch_depth packs in flight and draining them in order
+  (reference: quick_inference.py:341-415)."""
+  outputs: List[stitch.DCModelOutput] = []
+  pending: collections.deque = collections.deque()
+  depth = max(1, options.dispatch_depth)
+
+  def drain(chunk, handle) -> None:
+    pred_ids, quality = runner.finalize(handle)
+    for c, ids, quals in zip(chunk, pred_ids, quality):
+      outputs.append(stitch.DCModelOutput(
+          window_pos=c['window_pos'],
+          molecule_name=(c['name'] if isinstance(c['name'], str)
+                         else c['name'].decode()),
+          sequence=phred.encoded_sequence_to_string(ids),
+          quality_string=phred.quality_scores_to_string(quals),
+          ec=c['ec'], np_num_passes=c['np_num_passes'], rq=c['rq'],
+          rg=c['rg']))
+
+  for start in range(0, len(feature_dicts), options.batch_size):
+    chunk = feature_dicts[start:start + options.batch_size]
+    rows = data_lib.format_rows_batch(
+        np.stack([c['subreads'] for c in chunk]), params)
+    pending.append((chunk, runner.dispatch(rows)))
+    if len(pending) > depth:
+      drain(*pending.popleft())
+  while pending:
+    drain(*pending.popleft())
+  return outputs
 
 
 class _MolState:

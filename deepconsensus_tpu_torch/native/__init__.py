@@ -71,15 +71,21 @@ def get_lib() -> Optional[ctypes.CDLL]:
     if _build_failed:
       return None
     path = library_path()
-    if not path.exists() and not _build(path):
-      _build_failed = True
-      return None
-    try:
-      lib = ctypes.CDLL(str(path))
-    except OSError as e:
-      log.warning('native load failed (%s)', e)
-      _build_failed = True
-      return None
+    lib = None
+    if path.exists():
+      try:
+        lib = ctypes.CDLL(str(path))
+      except OSError as e:  # e.g. built on another machine: rebuild
+        log.warning('native load failed (%s); rebuilding', e)
+    if lib is None:
+      try:
+        if not _build(path):
+          raise OSError(f'could not build {path}')
+        lib = ctypes.CDLL(str(path))
+      except OSError as e:
+        log.warning('native library unavailable (%s)', e)
+        _build_failed = True
+        return None
     lib.dc_bgzf_decompress_file.restype = ctypes.c_int
     lib.dc_bgzf_decompress_file.argtypes = [
         ctypes.c_char_p,

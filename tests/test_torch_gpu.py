@@ -1329,3 +1329,59 @@ def test_k1_on_a_second_card_launches_there(cuda):
   assert results[1].device == torch.device('cuda:1')
   torch.testing.assert_close(results[1].cpu(), results[0].cpu(), rtol=0,
                              atol=0)
+
+
+def _as_window_rows(rows):
+  """[B, R, L] model rows -> the [B, R, L, 1] formatted rows a pack
+  carries (the SN rows constant across each window)."""
+  rows = rows.clone()
+  rows[:, -4:] = rows[:, -4:, :1]
+  return rows[..., None].numpy()
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_runner_pipeline_matches_synchronous_packs(cuda, dtype):
+  """ModelRunner on the card with two packs in flight a ring of two
+  pinned input and three output slots: seven packs dispatched before
+  any finalize (output slots reused before their pack's finalize are
+  drained first) give the same bits as the same packs run one at a
+  time, and every pack's copies and forward show in the CUDA-event
+  times."""
+  params = small_params(dtype)
+  state = seeded_model(params, 'cpu').state_dict()
+  run = runner.ModelRunner(
+      params, state, runner.InferenceOptions(batch_size=8,
+                                             dispatch_depth=2), cuda)
+  packs = [_as_window_rows(fake_rows(params, n, seed=n))
+           for n in (8, 3, 8, 1, 8, 5, 8)]
+  want = [run.predict(p) for p in packs]
+  run.reset_timing()
+  handles = [run.dispatch(p) for p in packs]
+  for (wid, wq), handle, pack in zip(want, handles, packs):
+    ids, quals = run.finalize(handle)
+    assert ids.shape == quals.shape == (len(pack), 100)
+    np.testing.assert_array_equal(ids, wid)
+    np.testing.assert_array_equal(quals, wq)
+  times = run.device_seconds()
+  assert times['h2d_seconds'] > 0 and times['device_forward_seconds'] > 0
+  assert 0 <= times['model_idle_share'] < 1
+  stats = run.dispatch_stats()
+  assert stats['n_transfer_overlapped'] + stats['n_transfer_direct'] == 7
+
+
+def test_ragged_window_bits_depend_only_on_its_offset(cuda):
+  """What the ragged packer's dummy windows rely on: a window's outputs
+  are the same bits at the same slot offset whatever shares its slot (a
+  neighbour, a zero dummy window, or nothing), in float32 and bfloat16."""
+  for dtype in ('float32', 'bfloat16'):
+    params = small_params(dtype, window_buckets=[100, 200])
+    model = seeded_model(params, cuda)
+    a, b = fake_rows(params, 2, seed=3)
+    zero = torch.zeros_like(a)
+    rows = torch.stack([torch.cat([a, b], 1), torch.cat([a, zero], 1),
+                        torch.cat([zero, b], 1)]).to(cuda)
+    lengths = torch.tensor([[100, 100], [100, 0], [100, 100]],
+                           dtype=torch.int32, device=cuda)
+    out = model(rows, window_lengths=lengths)
+    assert torch.equal(out[0, :100], out[1, :100])
+    assert torch.equal(out[0, 100:], out[2, 100:])

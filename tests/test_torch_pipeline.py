@@ -17,12 +17,14 @@ at sizes where packs span featurize batches (batch_zmws 2, batch_size
 * --end_after_stage writes the runtime rows the JAX package writes;
 * the pool leaves no shared-memory segment behind, on success and when
   the model stage fails;
-* the engine cuts the same per-bucket packs as the JAX package's, and
-  the runner's pinned-ring slots survive more packs in flight than
-  slots.
+* the engine cuts the same per-bucket packs as the JAX package's,
+  `run_model_on_windows` returns the JAX package's outputs, and the
+  runner's pinned-ring slots survive more packs in flight than slots;
+  the pipeline's output holds when its threads switch every 10 us.
 """
 import collections
 import csv
+import dataclasses
 import json
 import os
 import sys
@@ -45,6 +47,8 @@ from deepconsensus_tpu_torch.inference import runner as torch_runner
 from deepconsensus_tpu_torch.io import bam as torch_bam
 from deepconsensus_tpu_torch.models import config as torch_config
 from deepconsensus_tpu_torch.models import weights as weights_lib
+from deepconsensus_tpu_torch.preprocess import feeder as torch_feeder
+from deepconsensus_tpu_torch.preprocess.pileup import FeatureLayout
 from deepconsensus_tpu_torch.testing import synthetic
 
 SMALL = dict(dtype='float32', num_hidden_layers=2, filter_size=64)
@@ -398,6 +402,30 @@ def test_engine_packs_across_batches_like_jax():
   assert tdel.keys() == jdel.keys() == set(range(ticket))
   for t in jdel:
     np.testing.assert_array_equal(tdel[t], jdel[t])
+
+
+@pytest.mark.parametrize('depth', [1, 3])
+def test_run_model_on_windows_matches_jax(bams, model_pair, depth):
+  """The pipelined window helper over every model window of the BAMs,
+  in packs of 4 with `depth` packs in flight: the same outputs (names,
+  positions, tags, bases, quality strings) as the JAX package's."""
+  params, variables, tparams, state = model_pair
+  feed, _ = torch_feeder.create_proc_feeder(
+      bams[0], bams[1], layout=FeatureLayout(20, 100), ins_trim=5)
+  windows = [w for z in feed() for w in torch_runner.preprocess_zmw(z)[0]
+             if not w['overflow']]
+  jopts = jax_runner.InferenceOptions(batch_size=4, dispatch_depth=depth)
+  want = jax_runner.run_model_on_windows(
+      windows, jax_runner.ModelRunner(params, variables, jopts), params,
+      jopts)
+  topts = torch_runner.InferenceOptions(batch_size=4, dispatch_depth=depth)
+  got = torch_runner.run_model_on_windows(
+      windows, torch_runner.ModelRunner(torch_config.Params(tparams), state,
+                                        topts, device='cpu'),
+      tparams, topts)
+  assert len(got) == len(want) == len(windows) > 8
+  assert [dataclasses.asdict(o) for o in got] == [
+      dataclasses.asdict(o) for o in want]
 
 
 def test_runner_slots_survive_more_packs_in_flight(model_pair):
