@@ -223,7 +223,7 @@ class TFRecordReader:
           max_out=_NATIVE_MAX_DECOMPRESSED_BYTES)
     # The native reader is an accelerator: None routes to the Python
     # decode path, which raises real corruption as CorruptInputError.
-    except Exception:  # pragma: no cover - any native issue -> fallback
+    except Exception:  # pragma: no cover - any native failure -> fallback
       return None
 
   def __iter__(self) -> Iterator[bytes]:
