@@ -122,9 +122,8 @@ Phases, in order; any failure exits non-zero (nothing is caught):
       once per --end_after_stage cut after a warm-up run.
    Every `run` prints its stage seconds (BAM decode, featurize,
    triage/format, model, stitch), the untimed remainder, the card's
-   H2D / forward / D2H time by CUDA events, the model stage's idle share,
-   the garbage collector's pauses during the run and which BAM decoder
-   ran, and fails unless it was the native one.
+   H2D / forward / D2H time by CUDA events, the model stage's idle share
+   and which BAM decoder ran, and fails unless it was the native one.
    Gates: each path's kernels launched (a: K1-K3, b: K4, K2, K3, c: K11
    once per step and eval batch, K12 once per step, no K5-K7; d: K7 and
    K6 once per layer and step, K5 once per layer and eval batch, K11
@@ -206,10 +205,8 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    card line again, and the last line `{"ok": true, "device": {...}}`.
 
 `--kernels-only` stops after phase 2 and prints no result (a first
-check of newly written kernels); `--stage-split-only` builds the
-kernels and runs only the stage split of phase 3 (the L100 bfloat16
-`cli run` once per --end_after_stage cut). Without a CUDA device, or away from the repository, it exits 2 and
-prints no result.
+check of newly written kernels). Without a CUDA device, or away from
+the repository, it exits 2 and prints no result.
 """
 from __future__ import annotations
 
@@ -1703,7 +1700,6 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
     engine_lib._RaggedPacker.flush = recording_flush
   torch.cuda.reset_peak_memory_stats()
   reset_launches()
-  gc_clock = GcClock()
   t0 = time.perf_counter()
   try:
     if plain:
@@ -1730,12 +1726,10 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
     runner_lib.ModelRunner.finalize = finalize
     engine_lib._RaggedPacker.add = add
     engine_lib._RaggedPacker.flush = flush
-    gc_clock.stop()
   seconds = time.perf_counter() - t0
   launches = read_launches()
   with open(out + '.inference.json') as f:
     counters = json.load(f)
-  counters['gc'] = gc_clock.read()
   if counters['bam_decoder'] != 'native':
     raise AssertionError(f'{path} {dtype}{tag}: the BAMs were decoded by '
                          f'{counters["bam_decoder"]}, not natively')
@@ -1751,34 +1745,6 @@ def run_main_path(path: str, bams, weights, dtype: str, plain: bool = False,
           lengths, seconds, torch.cuda.max_memory_allocated())
 
 
-class GcClock:
-  """Python's garbage collections while it runs: count and seconds by
-  generation (gc.callbacks), to tell collector pauses apart from the
-  stages' own work."""
-
-  def __init__(self):
-    import gc
-
-    self._gc = gc
-    self._t0 = 0.0
-    self.counts = [0, 0, 0]
-    self.seconds = [0.0, 0.0, 0.0]
-    gc.callbacks.append(self._tick)
-
-  def _tick(self, phase, info):
-    if phase == 'start':
-      self._t0 = time.perf_counter()
-    else:
-      self.counts[info['generation']] += 1
-      self.seconds[info['generation']] += time.perf_counter() - self._t0
-
-  def stop(self) -> None:
-    self._gc.callbacks.remove(self._tick)
-
-  def read(self) -> dict:
-    return {'collections': self.counts, 'seconds': self.seconds}
-
-
 def stage_fields(counters) -> dict:
   """A run's stage seconds, untimed remainder, decoder and the card's
   share of the model stage's wall time not busy with packs."""
@@ -1791,8 +1757,7 @@ def stage_fields(counters) -> dict:
           'model_idle_share': counters.get('model_idle_share'),
           'transfer_overlap_fraction': counters.get(
               'transfer_overlap_fraction'),
-          'n_featurize_batches': counters.get('n_featurize_batches'),
-          'gc': counters.get('gc')}
+          'n_featurize_batches': counters.get('n_featurize_batches')}
 
 
 STAGE_CUTS = ('dc_input', 'tf_examples', 'run_model', 'full')
@@ -1821,17 +1786,12 @@ def stage_split(bams, weights, dtype: str = 'bfloat16') -> dict:
             '--batch_size', str(BATCH), '--batch_zmws', str(N_ZMWS),
             '--min_quality', '0', '--skip_windows_above', '0',
             '--end_after_stage', 'full' if cut == 'warmup' else cut]
-    gc_clock = GcClock()
     t0 = time.perf_counter()
-    try:
-      if cli.main(argv) != 0:
-        raise AssertionError(f'cli run --end_after_stage {cut} failed')
-    finally:
-      gc_clock.stop()
+    if cli.main(argv) != 0:
+      raise AssertionError(f'cli run --end_after_stage {cut} failed')
     seconds = time.perf_counter() - t0
     with open(out + '.inference.json') as f:
       cuts[cut] = counters = json.load(f)
-    counters['gc'] = gc_clock.read()
     print(json.dumps({
         'phase': 'stage_split', 'cut': cut, 'dtype': dtype,
         'seconds': seconds,
@@ -3005,11 +2965,6 @@ def main(argv) -> int:
           dtype: _kernels.embed_condense_smem_bytes(
               fwa.resolve_dtype(dtype), layout.entries, p.total_rows,
               cond_in) for dtype in ('bfloat16', 'float32')}}), flush=True)
-
-  if '--stage-split-only' in argv:
-    bams, weights = make_run_inputs()
-    stage_split(bams['L100'], weights)
-    return 0
 
   kernels = {}
   for dtype in ('float32', 'bfloat16'):

@@ -234,16 +234,20 @@ class _RaggedPacker:
   Packing is greedy largest-first against the bucket divisibility
   chain, so every window starts at a multiple of its own width.
 
+  The card's attention core sums a window's keys in tiles aligned to
+  the slot, so a window's outputs are the same bits only at the same
+  offset. With a chain of two buckets (a, b), every exactly filled slot
+  holds one b-wide window or b/a a-wide ones, so in a stream that was
+  never flushed the j-th a-wide window sits at offset a * (j mod b/a).
   After a partial pack (a flush before the end of input, as
   `pack_across_batches=False` makes at every featurize batch), a slot
-  that would start with a window of width w whose predecessors of that
-  width do not fill whole slots starts with zero-filled dummy windows
-  of width w instead, so the window lands at the offset it has in a
-  stream that was never flushed. The card's attention core sums a
-  window's keys in tiles aligned to the slot, so a window's outputs are
-  the same bits only at the same offset: with buckets (100, 200) this
-  keeps every window's output independent of where the stream was
-  flushed. Dummies count as padding and are never delivered.
+  that would start with an a-wide window at j mod b/a != 0 starts with
+  that many zero-filled dummy windows instead, so every window keeps
+  that offset and its output does not depend on where the stream was
+  flushed. Dummies count as padding and are never delivered. With three
+  or more buckets the offsets depend on how the widths mix, which no
+  count reproduces: no dummies are placed and the plan is the JAX
+  package's, whose flush points may then change a window's bits.
   """
 
   def __init__(self, runner, options, buckets: Sequence[int],
@@ -269,9 +273,11 @@ class _RaggedPacker:
     self._buffered = 0
     self._in_flight: collections.deque = collections.deque()
     # Windows placed per width, and whether a partial pack was cut: the
-    # dummy-window alignment (class docstring) applies from then on.
+    # dummy-window alignment (class docstring) applies from then on, on
+    # a chain of at most two buckets.
     self._placed: Dict[int, int] = {w: 0 for w in self._buckets}
     self._realign = False
+    self._can_realign = len(self._buckets) <= 2
     self.n_windows_by_bucket: Dict[int, int] = {w: 0 for w in self._buckets}
     self.n_packs = 0
     self.n_pack_rows = 0
@@ -337,7 +343,7 @@ class _RaggedPacker:
       self._dispatch(plan)
     while flush and self._buffered:
       self._dispatch(self._plan(allow_partial=True))
-      self._realign = True
+      self._realign = self._can_realign
 
   def _materialize(self, plan: List[Tuple[int, int, int, bool]]):
     """Pops the planned windows: (pack [n_slots, R, slot_len, 1] f32,

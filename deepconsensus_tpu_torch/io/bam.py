@@ -567,8 +567,8 @@ class SubreadGrouper:
 
   def __init__(self, subreads_to_ccs: str,
                max_record_bytes: int = DEFAULT_MAX_RECORD_BYTES,
-               skip_corrupt_records: bool = False, use_native: bool = True):
-    self.reader = BamReader(subreads_to_ccs, use_native=use_native,
+               skip_corrupt_records: bool = False):
+    self.reader = BamReader(subreads_to_ccs,
                             max_record_bytes=max_record_bytes)
     self._skip_corrupt = skip_corrupt_records
     self._iter = iter(self.reader)

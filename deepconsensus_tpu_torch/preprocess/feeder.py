@@ -32,7 +32,6 @@ def create_proc_feeder(
     ins_trim: int = 0,
     use_ccs_smart_windows: bool = False,
     limit: int = 0,
-    use_native: bool = True,
 ):
   """Returns (generator_fn, counter) yielding per-ZMW inference work
   items. Fail-fast: a decode or expansion failure raises.
@@ -41,8 +40,8 @@ def create_proc_feeder(
   with the native decoder, inflate) here; generator_fn.bam_decoder is
   'native' when both decoded natively, else 'python'."""
   main_counter: Counter = Counter()
-  grouper = bam.SubreadGrouper(subreads_to_ccs, use_native=use_native)
-  ccs_reader = bam.BamReader(ccs_bam, use_native=use_native)
+  grouper = bam.SubreadGrouper(subreads_to_ccs)
+  ccs_reader = bam.BamReader(ccs_bam)
 
   def proc_feeder() -> Iterator[ZmwInput]:
     ccs_iter = iter(ccs_reader)

@@ -1364,6 +1364,12 @@ def test_runner_pipeline_matches_synchronous_packs(cuda, dtype):
     np.testing.assert_array_equal(quals, wq)
   times = run.device_seconds()
   assert times['h2d_seconds'] > 0 and times['device_forward_seconds'] > 0
+  # Busy time is the union of the intervals: forwards share one stream,
+  # and an H2D copy that overlaps a forward counts once.
+  parts = (times['h2d_seconds'] + times['device_forward_seconds']
+           + times['d2h_seconds'])
+  assert (times['device_forward_seconds'] - 1e-5
+          <= times['model_device_seconds'] <= parts + 1e-5)
   assert 0 <= times['model_idle_share'] < 1
   stats = run.dispatch_stats()
   assert stats['n_transfer_overlapped'] + stats['n_transfer_direct'] == 7

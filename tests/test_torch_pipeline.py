@@ -27,6 +27,7 @@ import csv
 import dataclasses
 import json
 import os
+import platform
 import sys
 import types
 
@@ -462,3 +463,106 @@ def synthetic_rows(params, rng, width=100):
   rows[4 * mp] = rng.integers(0, 5, width)
   rows[4 * mp + 1:] = rng.integers(0, 501, (4, 1))
   return rows[..., None]
+
+
+class _OffsetRunner:
+  """A ragged runner stub that records each pack's lengths rows; every
+  output position's id is its offset in the slot, so a delivered
+  window's first id says where it was placed."""
+
+  def __init__(self, slot_len):
+    self.slot_len = slot_len
+    self.lengths = []
+
+  def dispatch_ragged(self, pack, lengths):
+    self.lengths.append(np.array(lengths))
+    return len(pack)
+
+  def finalize(self, n_slots):
+    ids = np.tile(np.arange(self.slot_len, dtype=np.int32), (n_slots, 1))
+    return ids, np.zeros_like(ids)
+
+
+def _ragged_offsets(lib, buckets, groups, flush_each):
+  """Each window's slot offset, by ticket, and the packs' lengths rows,
+  when `groups` of window widths go through one ragged packer, flushed
+  (without draining) after every group or only at the end."""
+  runner = _OffsetRunner(buckets[-1])
+  options = types.SimpleNamespace(batch_size=8, dispatch_depth=2)
+  offsets = {}
+
+  def deliver(ticket, ids, quals):
+    offsets[ticket] = int(ids[0])
+
+  if lib is torch_engine:
+    packer = lib._RaggedPacker(runner, options, buckets, deliver)
+  else:
+    packer = lib._RaggedPacker(runner, options, buckets, timing_rows=[],
+                               on_pack_failure=lib._raise_pack_failure,
+                               deliver=deliver)
+  ticket = 0
+  for widths in groups:
+    for width in widths:
+      packer.add(np.zeros((1, 2, width, 1), np.float32), [ticket])
+      ticket += 1
+    if flush_each:
+      packer.flush(drain=False)
+  packer.flush()
+  assert sorted(offsets) == list(range(ticket))
+  return offsets, runner.lengths
+
+
+def _width_groups(buckets, seed):
+  rng = np.random.default_rng(seed)
+  return [list(rng.choice(buckets, size=int(rng.integers(1, 8))))
+          for _ in range(30)]
+
+
+@pytest.mark.parametrize('buckets', [(100, 200), (50, 200), (25, 100)])
+def test_ragged_flush_points_keep_never_flushed_offsets(buckets):
+  """On a chain of two buckets, a ragged stream flushed after every
+  featurize batch (pack_across_batches=False) places every window at
+  the slot offset it has in a stream flushed only at the end of input,
+  so the card gives it the same bits."""
+  groups = _width_groups(buckets, seed=sum(buckets))
+  never, _ = _ragged_offsets(torch_engine, buckets, groups, False)
+  flushed, lengths = _ragged_offsets(torch_engine, buckets, groups, True)
+  assert flushed == never
+  # Dummy windows were needed: the JAX package's compat plan, which has
+  # none, places some window elsewhere.
+  jax_flushed, _ = _ragged_offsets(jax_engine, buckets, groups, True)
+  assert jax_flushed != never
+  assert sum(int(np.count_nonzero(x)) for x in lengths) > len(never)
+
+
+def test_ragged_plan_is_the_jax_compat_plan_beyond_two_buckets():
+  """With three buckets no count reproduces a never-flushed stream's
+  offsets, so the packer places no dummy windows: flushed after every
+  featurize batch, its packs are the JAX package's, slot for slot."""
+  buckets = (50, 100, 200)
+  groups = _width_groups(buckets, seed=7)
+  port, port_lengths = _ragged_offsets(torch_engine, buckets, groups, True)
+  jax_offsets, jax_lengths = _ragged_offsets(jax_engine, buckets, groups,
+                                             True)
+  assert port == jax_offsets
+  assert len(port_lengths) == len(jax_lengths) > 5
+  for a, b in zip(port_lengths, jax_lengths):
+    np.testing.assert_array_equal(a, b)
+
+
+def test_device_busy_time_counts_overlap_once():
+  """The model stage's busy time is the union of the packs' event
+  intervals: an H2D copy that overlaps a forward counts once."""
+  union = torch_runner._union_seconds
+  assert union([]) == 0.0
+  assert union([(0.0, 1.0), (0.5, 2.0), (3.0, 4.0)]) == 3.0
+  assert union([(0.0, 5.0), (1.0, 2.0)]) == 5.0
+  assert union([(2.0, 3.0), (0.0, 1.0)]) == 2.0
+
+
+def test_run_keeps_freed_heap_under_glibc():
+  """run_inference's allocator settings apply wherever the C library is
+  glibc, and are skipped quietly elsewhere."""
+  glibc = (sys.platform.startswith('linux')
+           and platform.libc_ver()[0] == 'glibc')
+  assert torch_runner._keep_freed_heap() is glibc
