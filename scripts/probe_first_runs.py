@@ -5,6 +5,7 @@ slower than its later ones.
 
   python3 scripts/probe_first_runs.py [--tree DIR] [--checks] [--runs N]
                                       [--decode] [--mallopt SPEC]
+                                      [--no-touch]
 
 Imports chip_smoke and deepconsensus_tpu_torch from DIR (default: this
 checkout; DIR may hold an older commit of the repo), builds the kernels
@@ -23,9 +24,11 @@ Each run prints one JSON line: its seconds since the process started,
 its wall and `.inference.json` stage seconds, and, over the run, the
 CPU seconds of the busiest threads of this process (/proc), of the
 busiest other processes, and of this process with its ended threads,
-user and system, with its page faults (getrusage). The `ready` line
-gives the seconds a GiB of fresh memory takes to fault in, at the
-start and after the set-up. Prints the card's name and power limit first; with no
+user and system, with its page faults (getrusage). Each run also gives the
+seconds of the model stage's host calls (`model_host_seconds`: ring
+slot handout, dispatch, launch, finalize). The `ready` line gives the
+seconds a GiB of fresh memory takes to fault in, at the start and after
+the set-up (--no-touch leaves that out). Prints the card's name and power limit first; with no
 CUDA device it exits 2.
 """
 import argparse
@@ -161,6 +164,34 @@ def decode_probes(bams) -> dict:
   return out
 
 
+def instrument(clock: dict) -> None:
+  """Adds the seconds spent in the model stage's host-ring slot
+  handout (which allocates the pinned buffers) and in the runner's
+  dispatch, launch and finalize to `clock`, where the tree has them."""
+  from deepconsensus_tpu_torch.inference import runner
+
+  def wrap(cls, name):
+    inner = getattr(cls, name)
+
+    def timed_call(*args, **kwargs):
+      t0 = time.perf_counter()
+      try:
+        return inner(*args, **kwargs)
+      finally:
+        key = f'{cls.__name__}.{name}'
+        clock[key] = clock.get(key, 0.0) + time.perf_counter() - t0
+    setattr(cls, name, timed_call)
+
+  targets = [(runner.ModelRunner, ('dispatch', 'dispatch_ragged', '_launch',
+                                   'finalize'))]
+  if hasattr(runner, '_HostRing'):
+    targets.append((runner._HostRing, ('take',)))
+  for cls, names in targets:
+    for name in names:
+      if hasattr(cls, name):
+        wrap(cls, name)
+
+
 def run_checks(cs) -> float:
   """chip_smoke's kernel checks, in chip_smoke's order; seconds."""
   t0 = time.perf_counter()
@@ -206,6 +237,8 @@ def main(argv) -> int:
   ap.add_argument('--runs', type=int, default=4)
   ap.add_argument('--decode', action='store_true')
   ap.add_argument('--mallopt', default='')
+  ap.add_argument('--touch', action=argparse.BooleanOptionalAction,
+                  default=True)
   args = ap.parse_args(argv)
   import torch
 
@@ -219,7 +252,7 @@ def main(argv) -> int:
   from deepconsensus_tpu_torch.ops import _build
 
   print(cs.card_line(), flush=True)
-  head_touch = touch_seconds_per_gib()
+  head_touch = touch_seconds_per_gib() if args.touch else None
   _build.build_all()
   head = {'tree': os.path.relpath(tree, REPO), 'checks': args.checks}
   ready = {}
@@ -231,8 +264,12 @@ def main(argv) -> int:
   bams, weights, params = make_inputs(cs)
   ready['inputs_cpu'] = cpu_delta(before, cpu_snapshot())
   head['mallopt'] = mallopt(args.mallopt)
+  clock = {}
+  instrument(clock)
   print(json.dumps({'phase': 'ready', **head, **ready,
-                    'touch_s_per_gib': [head_touch, touch_seconds_per_gib()],
+                    'touch_s_per_gib': [
+                        head_touch,
+                        touch_seconds_per_gib() if args.touch else None],
                     'malloc_env': {k: v for k, v in os.environ.items()
                                    if k.startswith(('MALLOC_', 'GLIBC_'))},
                     't': time.perf_counter() - T0}), flush=True)
@@ -247,9 +284,11 @@ def main(argv) -> int:
                 str(cs.N_ZMWS), '--min_quality', '0',
                 '--skip_windows_above', '0']
     before = cpu_snapshot()
+    clock.clear()
     line['t'] = time.perf_counter() - T0
     seconds = timed(lambda: cli.main(argv_run))
     line['cpu'] = cpu_delta(before, cpu_snapshot())
+    line['model_host_seconds'] = dict(clock)
     with open(out + '.inference.json') as f:
       counters = json.load(f)
     line['seconds'] = seconds
