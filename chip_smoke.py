@@ -119,7 +119,17 @@ Phases, in order; any failure exits non-zero (nothing is caught):
       with the serial settings (--dispatch_depth 1
       --no_cross_batch_packing), a's with --cpus 4 (the featurization
       pool) and with a .bam output; then `stage_split`: a's bfloat16 run
-      once per --end_after_stage cut after a warm-up run.
+      once per --end_after_stage cut after a warm-up run;
+   m. `faults` (after l): a's `cli run` in bfloat16 at --batch_zmws 16
+      with a fault injected, each against an unfaulted run of the same
+      process: a corrupt ZMW under --on_zmw_error skip, ccs-fallback and
+      fail; a poisoned window; an OOM at pack 2 under --on_device_error
+      degrade (bisected to K1-K3 at batch 512) and fail; a 6 s device
+      spin at pack 2 under --dispatch_timeout 2; a crash after two
+      batches and --resume, on a and on b; --shard 0/2 and 1/2; --cpus 4
+      --batch_timeout 30 with a worker killed; --trace and `cli trace`;
+      `cli validate` on the clean and a truncated BAM pair
+      (faults_gates says what each gate holds).
    Every `run` prints its stage seconds (BAM decode, featurize,
    triage/format, model, stitch), the untimed remainder, the card's
    H2D / forward / D2H time by CUDA events, the model stage's idle share
@@ -201,8 +211,10 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    summed), the idle share of the unprofiled step, and the kernels that
    take most of it.
 5. A `{"kernels": [...]}` line (K1-K14, K2_int8, the attention core and
-   the bf16-softmax variant of K1, K2, K2 int8, K4 and the core), the
-   card line again, and the last line `{"ok": true, "device": {...}}`.
+   the bf16-softmax variant of K1, K2, K2 int8, K4 and the core; each
+   row's launches_by_path includes `faults`, the OOM-bisected run, and
+   `faults_ragged_resume`), the card line again, and the last line
+   `{"ok": true, "device": {...}}`.
 
 `--kernels-only` stops after phase 2 and prints no result (a first
 check of newly written kernels). Without a CUDA device, or away from
@@ -2008,6 +2020,392 @@ def pipeline_gates(bams, weights) -> dict:
   return enforce('pipeline', gates, checks)
 
 
+FAULT_ZMW = 150  # the corrupted / poisoned / killed ZMW (batch 4 of 8)
+HANG_SECONDS, DISPATCH_TIMEOUT = 6, 2
+POOL_BATCH_TIMEOUT = 30
+TRACE_BUSY_GATE = 0.10
+
+
+def fastq_records(data: bytes) -> list:
+  """A FASTQ's records, each its four lines as bytes."""
+  lines = data.split(b'\n')
+  return [b'\n'.join(lines[i:i + 4]) + b'\n'
+          for i in range(0, len(lines) - 1, 4)]
+
+
+def record_name(record: bytes) -> str:
+  return record.split(b'\n', 1)[0][1:].decode()
+
+
+def fault_run(tag: str, bams, model, extra=(), env=None,
+              ragged: bool = False, expect=None,
+              record_halves=None) -> dict:
+  """One bfloat16 `cli run` of the faults path (model: the params.json
+  and weights paths) at --batch_zmws 16 with
+  fault-injection env vars set for its duration (the once-a-process
+  hooks re-armed first). expect: the exception type the run must raise
+  (the run is then a failing one). record_halves: a list that receives
+  (batch size, launches) for each pack OOM bisection re-runs. Returns
+  the counters (the sidecar, partial on a failed run), launches,
+  output bytes, dead letters, wall seconds and the output path."""
+  from deepconsensus_tpu_torch import cli
+  from deepconsensus_tpu_torch import faults
+  from deepconsensus_tpu_torch.inference import engine as engine_lib
+
+  out = os.path.join(WORK, f'out_faults_{tag}.fastq')
+  argv = ['run', '--subreads_to_ccs', bams[0], '--ccs_bam', bams[1],
+          '--weights', model[1], '--params', model[0],
+          '--output', out, '--batch_size', str(BATCH),
+          '--batch_zmws', str(PIPELINE_BATCH_ZMWS), '--min_quality', '0',
+          '--skip_windows_above', '0', *extra]
+  if ragged:
+    argv += RAGGED_FLAGS
+  saved = {k: os.environ.get(k) for k in (env or {})}
+  os.environ.update(env or {})
+  faults._fired.clear()
+  run_pack_at = engine_lib._WindowPacker._run_pack_at
+
+  def recording_run_pack_at(self, pack, tickets, seq, batch_size):
+    before = read_launches()
+    run_pack_at(self, pack, tickets, seq, batch_size)
+    after = read_launches()
+    record_halves.append((batch_size, {k: after[k] - before[k]
+                                       for k in ('K1', 'K2', 'K3')}))
+
+  if record_halves is not None:
+    engine_lib._WindowPacker._run_pack_at = recording_run_pack_at
+  reset_launches()
+  error = None
+  t0 = time.perf_counter()
+  try:
+    rc = cli.main(argv)
+  except Exception as e:  # the failing runs' gates read it
+    if expect is None or not isinstance(e, expect):
+      raise
+    error, rc = e, None
+  finally:
+    seconds = time.perf_counter() - t0
+    engine_lib._WindowPacker._run_pack_at = run_pack_at
+    for k, v in saved.items():
+      if v is None:
+        os.environ.pop(k, None)
+      else:
+        os.environ[k] = v
+  if expect is not None and error is None:
+    raise AssertionError(f'faults {tag}: the run did not raise {expect}')
+  if expect is None and rc != 0:
+    raise AssertionError(f'faults {tag}: cli run exited {rc}')
+  result = {'launches': read_launches(), 'seconds': seconds, 'out': out,
+            'error': error, 'letters': []}
+  with open(out + '.inference.json') as f:
+    result['counters'] = json.load(f)
+  if os.path.exists(out):
+    with open(out, 'rb') as f:
+      result['bytes'] = f.read()
+  if os.path.exists(out + '.failed.jsonl'):
+    result['letters'] = faults.read_dead_letters(out + '.failed.jsonl')
+  return result
+
+
+def clear_outputs(tag: str) -> None:
+  """Removes a faults run's output, sidecars, manifest and tmp file
+  from an earlier call of the script."""
+  out = os.path.join(WORK, f'out_faults_{tag}.fastq')
+  for suffix in ('', '.tmp', '.progress.json', '.failed.jsonl',
+                 '.inference.json', '.runtime.csv'):
+    if os.path.exists(out + suffix):
+      os.unlink(out + suffix)
+
+
+def faults_gates(bams, weights) -> dict:
+  """Phase 3m, the `faults` path: the L100 `cli run` in bfloat16 at
+  --batch_zmws 16 (8 featurize batches), each gate against an
+  unfaulted run of the same process (the ragged gate against an
+  unfaulted ragged run):
+
+  a. ZMW 150's subreads lose their pw tags (testing/faults.corrupt_zmw):
+     under --on_zmw_error skip the FASTQ is the reference's minus that
+     read, byte for byte, with one dead letter (featurize, permanent);
+     under ccs-fallback that read is its draft CCS read and qualities
+     and every other read the reference's; under fail the run raises.
+  b. DCTPU_FAULT_POISON_WINDOW names ZMW 150: only the molecules of the
+     one failed pack are dead-lettered (stage model), every other read
+     is the reference's.
+  c. An OOM at pack 2 under --on_device_error degrade: the FASTQ is the
+     reference's byte for byte, n_oom_bisections >= 1, and K1, K2 and K3
+     launch at the half batch (512) for both halves; under fail the run
+     raises DeviceOomError.
+  d. A hang at pack 2 (the device spin, 6 s) under --dispatch_timeout 2
+     and skip: the run finishes, the hung pack's molecules are
+     dead-lettered as DispatchTimeoutError, every other read is the
+     reference's; its wall clock is printed.
+  e. DCTPU_FAULT_CRASH_AFTER_BATCHES=2: the run raises, leaves no final
+     output, keeps the manifest and .tmp, and writes partial: true;
+     --resume then gives the reference's FASTQ byte for byte, with
+     n_zmw_resume_skipped the committed groups, and leaves no .tmp or
+     manifest. The same on the ragged path: the read set and ids equal
+     the ragged reference's, qualities within 1; the reads that differ
+     in any byte are counted.
+  f. --shard 0/2 and 1/2: their reads together, sorted, are the
+     reference's.
+  g. --cpus 4 --batch_timeout 30 with DCTPU_FAULT_KILL_ZMW on ZMW 150
+     (once, by a token file): the pool is re-spawned once, the FASTQ is
+     the reference's, and no /dev/shm segment of the run is left.
+  h. --trace: the FASTQ is the untraced reference's; `cli trace --json`
+     lists the six stages and device_gaps; the spans' card busy time
+     (union of h2d_transfer and device_compute) is within 10% of the
+     run's model_device_seconds; both runs' total_seconds printed.
+  i. `cli validate` passes the clean BAM pair (rc 0) and locates the
+     damage in a truncated subreads BAM (rc 1).
+
+  Prints one gates line and raises on a failed gate. Returns (gates,
+  {path label: launches})."""
+  import contextlib
+  import glob
+  import io
+
+  import numpy as np
+
+  from deepconsensus_tpu_torch import cli
+  from deepconsensus_tpu_torch import faults
+  from deepconsensus_tpu_torch.io import bam as bam_lib
+  from deepconsensus_tpu_torch.obs import summarize
+  from deepconsensus_tpu_torch.ops import device_spin
+  from deepconsensus_tpu_torch.testing import faults as fault_files
+
+  params_path = os.path.join(WORK, 'params_faults_bfloat16.json')
+  with open(params_path, 'w') as f:
+    json.dump(make_params('bfloat16').to_dict(), f)
+  model = (params_path, weights)
+  l100 = bams['L100']
+  layers = make_params('float32').num_hidden_layers
+  name = f'm00001_000000_000000/{FAULT_ZMW}/ccs'
+  gates, checks, seconds, launches = {}, [], {}, {}
+
+  def run(tag, *args, **kw):
+    clear_outputs(tag)
+    result = fault_run(tag, *args, **kw)
+    seconds[tag] = result['seconds']
+    return result
+
+  ref = run('reference', l100, model)
+  records = fastq_records(ref['bytes'])
+  others = [r for r in records if record_name(r) != name]
+  checks.append((len(records) == N_ZMWS, 'reference: not one read per ZMW'))
+
+  # a. A corrupt ZMW.
+  corrupt = os.path.join(WORK, 'bams_faults_corrupt')
+  os.makedirs(corrupt, exist_ok=True)
+  corrupt = (os.path.join(corrupt, 'subreads_to_ccs.bam'), l100[1])
+  fault_files.corrupt_zmw(l100[0], corrupt[0], FAULT_ZMW)
+  skip = run('corrupt_skip', corrupt, model, ('--on_zmw_error', 'skip'))
+  letters = [(e['zmw'], e['stage'], e['kind']) for e in skip['letters']]
+  gates['a_skip_letters'] = letters
+  checks += [
+      (skip['bytes'] == b''.join(others),
+       'a: skip is not the reference minus the corrupt read'),
+      (letters == [(name, 'featurize', 'permanent')],
+       'a: not one featurize dead letter for the corrupt ZMW')]
+  fallback = run('corrupt_fallback', corrupt, model,
+                 ('--on_zmw_error', 'ccs-fallback'))
+  with bam_lib.BamReader(l100[1]) as reader:
+    draft = next(r for r in reader if r.qname == name)
+  got = fastq_records(fallback['bytes'])
+  want = (f'@{name}\n{draft.seq}\n+\n'.encode()
+          + bytes((np.asarray(draft.quals) + 33).astype(np.uint8)) + b'\n')
+  checks += [
+      (want in got and [r for r in got if r != want] == others,
+       'a: ccs-fallback read is not the draft CCS read, or others differ'),
+      (fallback['counters']['n_fallback_emitted'] == 1,
+       'a: not one fallback read emitted')]
+  failed = run('corrupt_fail', corrupt, model, expect=Exception)
+  gates['a_fail_error'] = type(failed['error']).__name__
+  checks.append((failed['counters'].get('partial') is True,
+                 'a: the failed run is not marked partial'))
+
+  # b. A poisoned window.
+  poisoned = run('poison', l100, model, ('--on_zmw_error', 'skip'),
+                 env={faults.ENV_POISON_WINDOW: f'/{FAULT_ZMW}/'})
+  members = {e['zmw'] for e in poisoned['letters']}
+  gates['b_quarantined_zmws'] = len(members)
+  gates['b_pack_windows'] = sum(e['n_windows_in_pack']
+                                for e in poisoned['letters'])
+  checks += [
+      (name in members and {e['stage'] for e in poisoned['letters']}
+       == {'model'}
+       and len({e['model_pack'] for e in poisoned['letters']}) == 1
+       and gates['b_pack_windows'] <= BATCH,
+       'b: the dead letters are not one failed pack\'s molecules'),
+      (fastq_records(poisoned['bytes'])
+       == [r for r in records if record_name(r) not in members],
+       'b: a read outside the failed pack differs')]
+
+  # c. OOM at pack 2.
+  halves = []
+  oom = run('oom_degrade', l100, model, ('--on_device_error', 'degrade'),
+            env={faults.ENV_DEVICE_OOM_AT_PACK: '2'}, record_halves=halves)
+  launches['faults'] = oom['launches']
+  half = [k for b, k in halves if b == BATCH // 2]
+  gates['c_n_oom_bisections'] = oom['counters']['n_oom_bisections']
+  gates['c_half_batch_launches'] = half
+  checks += [
+      (oom['bytes'] == ref['bytes'],
+       'c: the bisected run differs from the reference'),
+      (gates['c_n_oom_bisections'] >= 1, 'c: no OOM bisection'),
+      (len(half) == 2 and all(k == {'K1': 1, 'K2': layers, 'K3': 1}
+                              for k in half),
+       'c: K1, K2 and K3 did not launch once a layer at the half batch')]
+  oom_fail = run('oom_fail', l100, model, expect=faults.DeviceOomError,
+                 env={faults.ENV_DEVICE_OOM_AT_PACK: '2'})
+  gates['c_fail_error'] = type(oom_fail['error']).__name__
+
+  # d. A hang at pack 2.
+  spins = device_spin.n_launches
+  hang = run('hang', l100, model,
+             ('--on_zmw_error', 'skip', '--dispatch_timeout',
+              str(DISPATCH_TIMEOUT)),
+             env={faults.ENV_DEVICE_HANG_AT_PACK: '2',
+                  faults.ENV_DEVICE_HANG_S: str(HANG_SECONDS)})
+  members = {e['zmw'] for e in hang['letters']}
+  gates['d_wall_seconds'] = hang['seconds']
+  gates['d_reference_wall_seconds'] = ref['seconds']
+  gates['d_dead_lettered_zmws'] = len(members)
+  checks += [
+      (device_spin.n_launches == spins + 1, 'd: the spin did not launch'),
+      (hang['counters']['n_dispatch_timeouts'] == 1,
+       'd: not one dispatch timeout'),
+      (members and all(e['error'].startswith('DispatchTimeoutError')
+                       for e in hang['letters']),
+       'd: the hung pack\'s molecules are not dead-lettered as '
+       'DispatchTimeoutError'),
+      (fastq_records(hang['bytes'])
+       == [r for r in records if record_name(r) not in members],
+       'd: a read outside the hung pack differs')]
+
+  # e. Crash and resume, L100 and ragged.
+  def crash_and_resume(tag, inputs, ragged):
+    clear_outputs(tag)
+    crashed = fault_run(tag, inputs, model, ragged=ragged,
+                        expect=RuntimeError,
+                        env={faults.ENV_CRASH_AFTER_BATCHES: '2'})
+    out = crashed['out']
+    with open(out + '.progress.json') as f:
+      committed = json.load(f)['groups_done']
+    checks.extend([
+        (not os.path.exists(out) and os.path.exists(out + '.tmp'),
+         f'e {tag}: a final output exists, or the .tmp does not'),
+        (crashed['counters'].get('partial') is True,
+         f'e {tag}: the crashed run is not marked partial')])
+    resumed = fault_run(tag, inputs, model, ('--resume',), ragged=ragged)
+    seconds[f'{tag}_crash'] = crashed['seconds']
+    seconds[f'{tag}_resume'] = resumed['seconds']
+    checks.extend([
+        (resumed['counters']['n_zmw_resume_skipped'] == committed,
+         f'e {tag}: n_zmw_resume_skipped is not the committed groups'),
+        (not os.path.exists(out + '.tmp')
+         and not os.path.exists(out + '.progress.json'),
+         f'e {tag}: a .tmp or manifest is left')])
+    gates[f'e_{tag}_committed_groups'] = committed
+    return resumed
+
+  resumed = crash_and_resume('resume_L100', l100, False)
+  checks.append((resumed['bytes'] == ref['bytes'],
+                 'e: the resumed L100 FASTQ differs from the reference'))
+  ragged_ref = run('ragged_reference', bams['ragged'], model, ragged=True)
+  resumed = crash_and_resume('resume_ragged', bams['ragged'], True)
+  launches['faults_ragged_resume'] = resumed['launches']
+  diff = fastq_diff(ragged_ref['bytes'], resumed['bytes'])
+  a, b = fastq_records(ragged_ref['bytes']), fastq_records(resumed['bytes'])
+  gates['e_ragged_diff'] = diff
+  gates['e_ragged_reads_differing'] = sum(x != y for x, y in zip(a, b))
+  checks.append(
+      ([record_name(r) for r in a] == [record_name(r) for r in b]
+       and diff['bases_differ'] == 0 and diff['max_qual_diff'] <= 1,
+       'e: the resumed ragged reads differ beyond qualities within 1'))
+
+  # f. Shards.
+  shard_reads = []
+  for i in range(2):
+    shard = run(f'shard{i}', l100, model, ('--shard', f'{i}/2'))
+    shard_reads += fastq_records(shard['bytes'])
+    gates[f'f_shard{i}_reads'] = shard['counters']['success']
+  checks.append((sorted(shard_reads) == sorted(records),
+                 'f: the shards together are not the reference\'s reads'))
+
+  # g. A worker killed in the pool.
+  token = os.path.join(WORK, 'faults_kill_token')
+  if os.path.exists(token):
+    os.unlink(token)
+  prefix = f'dctorch_{os.getpid()}_'
+  pool = run('pool', l100, model,
+             ('--cpus', '4', '--batch_timeout', str(POOL_BATCH_TIMEOUT),
+              '--on_zmw_error', 'skip'),
+             env={faults.ENV_KILL_ZMW: name, faults.ENV_KILL_TOKEN: token})
+  left = glob.glob(f'/dev/shm/{prefix}*')
+  gates['g_pool_respawns'] = pool['counters'].get('n_pool_respawns', 0)
+  gates['g_shm_segments_left'] = len(left)
+  checks += [
+      (os.path.exists(token), 'g: the worker was not killed'),
+      (gates['g_pool_respawns'] == 1, 'g: the pool was not re-spawned once'),
+      (pool['bytes'] == ref['bytes'], 'g: the pool run differs'),
+      (not left, 'g: /dev/shm segments of the run are left')]
+
+  # h. Tracing.
+  trace_path = os.path.join(WORK, 'faults_trace.jsonl')
+  if os.path.exists(trace_path):
+    os.unlink(trace_path)
+  traced = run('traced', l100, model, ('--trace', trace_path))
+  os.environ.pop('DCTPU_TRACE', None)
+  stdout = io.StringIO()
+  with contextlib.redirect_stdout(stdout):
+    rc = cli.main(['trace', trace_path, '--json'])
+  summary = json.loads(stdout.getvalue())
+  events = summarize.load_trace(trace_path)
+  busy = summarize._union_s([
+      (e['ts'], e['ts'] + e['dur']) for e in events
+      if e.get('name') in ('h2d_transfer', 'device_compute')])
+  device = traced['counters']['model_device_seconds']
+  gates['h_stages'] = summary['stage_counts']
+  gates['h_device_gaps'] = summary['device_gaps']
+  gates['h_trace_busy_seconds'] = busy
+  gates['h_model_device_seconds'] = device
+  gates['h_traced_total_seconds'] = traced['counters']['total_seconds']
+  gates['h_untraced_total_seconds'] = ref['counters']['total_seconds']
+  checks += [
+      (rc == 0 and set(summary['stage_counts']) == {
+          'featurize', 'pack_wait', 'h2d_transfer', 'device_compute',
+          'finalize_drain', 'stitch'} and 'device_gaps' in summary,
+       'h: the trace lacks a stage or device_gaps'),
+      (traced['bytes'] == ref['bytes'], 'h: the traced FASTQ differs'),
+      (device is not None and abs(busy - device) <= TRACE_BUSY_GATE * device,
+       'h: the trace\'s card busy time is not within 10% of '
+       'model_device_seconds')]
+
+  # i. cli validate.
+  truncated = os.path.join(WORK, 'bams_faults_truncated.bam')
+  shutil.copy(l100[0], truncated)
+  fault_files.truncate_file(truncated, fraction=0.5)
+  reports = []
+  for subreads in (l100[0], truncated):
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+      rc = cli.main(['validate', '--subreads_to_ccs', subreads,
+                     '--ccs_bam', l100[1]])
+    reports.append((rc, json.loads(stdout.getvalue())))
+  (rc_ok, clean), (rc_bad, damaged) = reports
+  errors = damaged['files'][0]['errors']
+  gates['i_validate'] = {
+      'clean_rc': rc_ok, 'truncated_rc': rc_bad,
+      'truncated_records_read': damaged['files'][0]['n_records'],
+      'truncated_error': errors[0] if errors else None}
+  checks += [
+      (rc_ok == 0 and clean['ok'], 'i: the clean pair does not validate'),
+      (rc_bad == 1 and errors and errors[0]['file'] == truncated,
+       'i: the truncated BAM is not reported with its file')]
+  gates['seconds'] = seconds
+  return enforce('faults', gates, checks), launches
+
+
 def enforce(path: str, gates: dict, checks) -> dict:
   """Prints a path's gate values, then raises on the first failed
   (ok, message) check."""
@@ -3011,6 +3409,7 @@ def main(argv) -> int:
     launches_by_path[path] = runs['bfloat16'][1]
   pipeline_gates(bams, weights)
   stage_split(bams['L100'], weights)
+  launches_by_path.update(faults_gates(bams, weights)[1])
   int8_runs = {}
   for dtype, plain in (('bfloat16', False), ('float32', False),
                        ('float32', True)):

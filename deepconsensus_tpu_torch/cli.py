@@ -1,5 +1,6 @@
-"""Command line of the port: `run` (BAMs -> polished FASTQ), `train` and
-`evaluate`.
+"""Command line of the port: `run` (BAMs -> polished FASTQ), `train`,
+`evaluate`, `validate` (preflight checks of the inputs) and `trace`
+(summary of a `run --trace` span file).
 
   python -m deepconsensus_tpu_torch.cli run \\
       --subreads_to_ccs subreads_to_ccs.bam --ccs_bam ccs.bam \\
@@ -29,9 +30,29 @@ channel (K2's int8 variant on the card).
 writes eval_out/inference.csv (loss, alignment_identity, ...); it also
 takes `run`'s --weights/--params pair in place of --checkpoint.
 
-Each runs on the card unless --device cpu is given; without a card the
-default raises. Weights are a `models/weights.save_npz` file (see the
-README for the one-liner that writes one from a JAX checkpoint).
+The fault surface of `run`: --on_zmw_error skip or ccs-fallback
+quarantines a failing ZMW to <output>.failed.jsonl instead of aborting;
+--resume continues an interrupted run from <output>.progress.json and
+<output>.tmp; --shard I/N keeps the ZMWs with zm % N == I;
+--on_device_error degrade bisects a pack that ran out of device memory;
+--dispatch_timeout bounds each pack's wait on the card; --batch_timeout
+and --batch_retries supervise the --cpus pool; --trace t.jsonl writes
+trace spans, which
+
+  python -m deepconsensus_tpu_torch.cli trace t.jsonl [--json]
+
+summarizes (exit 2 on a corrupt trace), and
+
+  python -m deepconsensus_tpu_torch.cli validate \\
+      --subreads_to_ccs subreads_to_ccs.bam --ccs_bam ccs.bam
+
+checks a BAM pair or TFRecord shards end to end (exit 1 on a failed
+check, the JSON report on stdout).
+
+`run`, `train` and `evaluate` run on the card unless --device cpu is
+given; without a card the default raises. Weights are a
+`models/weights.save_npz` file (see the README for the one-liner that
+writes one from a JAX checkpoint).
 """
 from __future__ import annotations
 
@@ -50,6 +71,19 @@ def _parse_window_buckets(text):
   if not buckets:
     raise argparse.ArgumentTypeError('--window_buckets is empty')
   return buckets
+
+
+def _parse_shard(value):
+  """argparse type: 'I/N' -> (i, n) with 0 <= i < n."""
+  try:
+    i_str, n_str = value.split('/')
+    i, n = int(i_str), int(n_str)
+  except ValueError:
+    raise argparse.ArgumentTypeError(
+        f'expected I/N (e.g. 3/500), got {value!r}')
+  if not 0 <= i < n:
+    raise argparse.ArgumentTypeError(f'need 0 <= I < N, got {value!r}')
+  return (i, n)
 
 
 def _coerce_override(raw: str, current):
@@ -251,9 +285,109 @@ def _add_run(sub) -> None:
                  help='Pad out each featurize batch\'s model tail '
                  'instead of packing windows across batches into full '
                  'packs.')
+  p.add_argument('--shard', default=None, metavar='I/N', type=_parse_shard,
+                 help='Process only ZMWs with zm %% N == I, e.g. 3/500.')
+  p.add_argument('--on_zmw_error', default='fail',
+                 choices=['fail', 'skip', 'ccs-fallback'],
+                 help='Per-ZMW fault policy: fail aborts the run; skip '
+                 'quarantines the ZMW to <output>.failed.jsonl; '
+                 'ccs-fallback also emits its draft CCS read with its '
+                 'base qualities.')
+  p.add_argument('--batch_timeout', type=float, default=0.0,
+                 help='Watchdog timeout (s) per featurization batch with '
+                 '--cpus > 1; a hung or killed worker re-spawns the pool '
+                 'and retries the batch (0 disables).')
+  p.add_argument('--batch_retries', type=int, default=2,
+                 help='Watchdog retries per featurization batch before the '
+                 'batch is quarantined.')
+  p.add_argument('--resume', action='store_true',
+                 help='Resume an interrupted run from '
+                 '<output>.progress.json and <output>.tmp, skipping the '
+                 'committed ZMWs.')
+  p.add_argument('--max_record_bytes', type=int, default=64 << 20,
+                 help='Per-record allocation cap of the BAM decoders: a '
+                 'record claiming more is corrupt (quarantined under '
+                 '--on_zmw_error skip), never allocated.')
+  p.add_argument('--on_device_error', default='fail',
+                 choices=['fail', 'degrade'],
+                 help='Device fault policy: fail hands a failed pack to '
+                 '--on_zmw_error; degrade retries a pack that ran out of '
+                 'device memory as halves at half the batch.')
+  p.add_argument('--dispatch_timeout', type=float, default=0.0,
+                 help='Bound each pack\'s wait on the card to this many '
+                 'seconds; a hung pack fails with DispatchTimeoutError '
+                 'instead of wedging the run (0 disables).')
+  p.add_argument('--trace', default=None, metavar='TRACE.jsonl',
+                 help='Append Chrome-trace-event spans to this file (the '
+                 'same as setting DCTPU_TRACE); summarize it with `trace`.')
   _add_quant_flags(p)
   p.add_argument('--device', default=None,
                  help='cuda (default) or cpu.')
+
+
+def _add_validate(sub) -> None:
+  p = sub.add_parser(
+      'validate', help='Preflight-check inputs before spending card time '
+      'on them.')
+  p.add_argument('--subreads_to_ccs', default=None,
+                 help='actc output BAM (subreads aligned to ccs).')
+  p.add_argument('--ccs_bam', default=None,
+                 help='ccs BAM; with --subreads_to_ccs also checks the '
+                 'pair\'s names and order.')
+  p.add_argument('--tfrecord', action='append', default=[], metavar='GLOB',
+                 help='TFRecord path or glob (repeatable); every matching '
+                 'shard is CRC-checked end to end.')
+  p.add_argument('--max_record_bytes', type=int, default=None,
+                 help='Per-record allocation cap (default 64 MiB).')
+  p.add_argument('--report', default=None,
+                 help='Also write the JSON report to this path.')
+
+
+def _validate(args) -> int:
+  from deepconsensus_tpu_torch.io import validate as validate_lib
+
+  if (args.subreads_to_ccs is None and args.ccs_bam is None
+      and not args.tfrecord):
+    raise ValueError('validate needs at least one of --subreads_to_ccs, '
+                     '--ccs_bam, --tfrecord')
+  report = validate_lib.validate_inputs(
+      subreads_to_ccs=args.subreads_to_ccs, ccs_bam=args.ccs_bam,
+      tfrecords=args.tfrecord, max_record_bytes=args.max_record_bytes)
+  text = json.dumps(report, indent=2)
+  print(text)
+  if args.report:
+    with open(args.report, 'w') as f:
+      f.write(text + '\n')
+  return 0 if report['ok'] else 1
+
+
+def _add_trace(sub) -> None:
+  p = sub.add_parser(
+      'trace', help='Summarize a --trace span file: per-stage breakdown, '
+      'critical path, straggler packs, transfer overlap, device gaps.')
+  p.add_argument('trace_file', metavar='TRACE.jsonl')
+  p.add_argument('--json', action='store_true', dest='trace_json',
+                 help='Print the summary as JSON.')
+  p.add_argument('--top', type=int, default=10,
+                 help='Max straggler packs listed (default 10).')
+
+
+def _trace(args) -> int:
+  from deepconsensus_tpu_torch import faults
+  from deepconsensus_tpu_torch.obs import summarize as summarize_lib
+
+  try:
+    summary = summarize_lib.summarize(
+        summarize_lib.load_trace(args.trace_file))
+  except faults.CorruptInputError as e:
+    print(f'deepconsensus_tpu_torch: {e}', file=sys.stderr)
+    return 2
+  summary['stragglers'] = summary['stragglers'][:max(args.top, 0)]
+  if args.trace_json:
+    print(json.dumps(summary, indent=2))
+  else:
+    print(summarize_lib.format_summary(summary))
+  return 0
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -262,11 +396,22 @@ def main(argv: Optional[List[str]] = None) -> int:
   _add_run(sub)
   _add_train(sub)
   _add_evaluate(sub)
+  _add_validate(sub)
+  _add_trace(sub)
   args = parser.parse_args(argv)
   if args.command == 'train':
     return _train(args)
   if args.command == 'evaluate':
     return _evaluate(args)
+  if args.command == 'validate':
+    return _validate(args)
+  if args.command == 'trace':
+    return _trace(args)
+  if args.trace:
+    # --trace is DCTPU_TRACE, which run_inference reads.
+    import os
+
+    os.environ['DCTPU_TRACE'] = args.trace
 
   from deepconsensus_tpu_torch.calibration import lib as calibration_lib
   from deepconsensus_tpu_torch.devices import resolve_device
@@ -298,6 +443,14 @@ def main(argv: Optional[List[str]] = None) -> int:
       dispatch_depth=args.dispatch_depth,
       emit_queue_depth=args.emit_queue_depth,
       pack_across_batches=not args.no_cross_batch_packing,
+      shard=args.shard,
+      on_zmw_error=args.on_zmw_error,
+      max_record_bytes=args.max_record_bytes,
+      batch_timeout=args.batch_timeout,
+      batch_retries=args.batch_retries,
+      on_device_error=args.on_device_error,
+      dispatch_timeout=args.dispatch_timeout,
+      resume=args.resume,
       dc_calibration_values=calibration_lib.parse_calibration_string(dc_cal),
       ccs_calibration_values=calibration_lib.parse_calibration_string(
           args.ccs_calibration),
@@ -312,7 +465,9 @@ def main(argv: Optional[List[str]] = None) -> int:
       'total_seconds') if k in counters}))
   if args.end_after_stage != 'full':
     return 0  # a truncated run writes no reads
-  return 0 if counters.get('success', 0) > 0 else 1
+  # ccs-fallback reads count as yield: the dead letters say what failed.
+  return 0 if (counters.get('success', 0) > 0
+               or counters.get('n_fallback_emitted', 0) > 0) else 1
 
 
 if __name__ == '__main__':

@@ -19,8 +19,15 @@ Port of deepconsensus_tpu/inference/engine.py, the model stage of `run`
   finalize) before the oldest is drained.
 * A pack that fails to dispatch or finalize routes its tickets to
   on_pack_failure(tickets, pack_seq, error); without the callback the
-  error propagates. The reference's fault policies (OOM bisection, mesh
-  degradation, poisoned windows) are not part of the port yet.
+  error propagates. The error is first classified into the DeviceFault
+  family (faults.classify_device_error). Under
+  options.on_device_error == 'degrade' an out-of-memory pack is retried
+  as halves at half the batch shape, recursively, down to one row
+  (_bisect); a dispatch timeout is never retried. On one card there is
+  no mesh to degrade, so a lost device goes to on_pack_failure, as the
+  reference's degrade_mesh does without a mesh.
+* poison_ticket() makes the pack holding a ticket fail at dispatch
+  (faults.ENV_POISON_WINDOW).
 
 The engine is not thread-safe: one thread drives it.
 """
@@ -32,6 +39,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from deepconsensus_tpu_torch import faults as faults_lib
+from deepconsensus_tpu_torch import obs as obs_lib
 from deepconsensus_tpu_torch.calibration import lib as calibration_lib
 from deepconsensus_tpu_torch.models import data as data_lib
 from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
@@ -108,6 +117,19 @@ def _raise_pack_failure(tickets, pack_seq: int, error: BaseException):
   raise error
 
 
+def _raise_if_poisoned(poisoned: set, tickets, seq: int, what: str) -> None:
+  """Fault injection: a pack holding a poisoned ticket fails at dispatch
+  with a bare RuntimeError, as a real dispatch error would."""
+  hit = [t for t in tickets if id(t) in poisoned]
+  if hit:
+    for t in hit:
+      poisoned.discard(id(t))
+    raise RuntimeError(
+        'injected poison window payload '
+        f'({faults_lib.ENV_POISON_WINDOW}; {len(hit)} window(s) '
+        f'in {what} {seq})')
+
+
 # ----------------------------------------------------------------------
 # Cross-batch window packer (one bucket width)
 
@@ -118,14 +140,18 @@ class _WindowPacker:
   forward runs padded only at the end-of-input tail (and at a
   starvation flush). Up to dispatch_depth packs stay in flight;
   draining the oldest hands its rows to deliver(), one call per
-  ticket."""
+  ticket. Under on_device_error == 'degrade' each in-flight pack keeps
+  its host rows, so an out-of-memory pack can be bisected (up to
+  dispatch_depth packs of extra host memory)."""
 
   def __init__(self, runner, options, timing_rows: List[Dict[str, Any]],
                on_pack_failure: PackFailureFn, deliver: DeliverFn,
+               poisoned: Optional[set] = None,
                pack_clock: Optional[List[int]] = None):
     self._runner = runner
     self._batch = options.batch_size
     self._depth = max(1, options.dispatch_depth)
+    self._degrade = getattr(options, 'on_device_error', 'fail') == 'degrade'
     self._timing_rows = timing_rows
     self._on_pack_failure = on_pack_failure
     self._deliver = deliver
@@ -133,22 +159,32 @@ class _WindowPacker:
     self._tickets: List[Ticket] = []
     self._buffered = 0
     self._in_flight: collections.deque = collections.deque()
-    # Shared across a bucketed engine's packers: every bucket's
-    # dispatches tick it, so the starvation rule can measure the packs
-    # the other buckets cut while this tail sat buffered.
+    # Shared across a bucketed engine's packers: one poison set (the
+    # caller does not know which bucket a ticket lands in) and one pack
+    # clock, which every bucket's dispatches tick, so the starvation
+    # rule can measure the packs the other buckets cut while this tail
+    # sat buffered.
+    self._poisoned: set = poisoned if poisoned is not None else set()
     self._pack_clock: List[int] = (
         pack_clock if pack_clock is not None else [0])
     self._starve_mark = 0
+    # When the buffered tail started waiting (the pack_wait span).
+    self._t_buf_start = 0.0
+    self._obs = getattr(runner, 'obs', None)
     self.n_packs = 0
     self.n_pack_rows = 0
     self.n_pad_rows = 0
     self.n_starvation_flushes = 0
+    self.n_oom_bisections = 0
+    self.n_device_faults = 0
+    self.n_dispatch_timeouts = 0
 
   def add(self, rows: np.ndarray, tickets: Sequence[Ticket]) -> None:
     """Buffers one submission's formatted rows ([k, R, L, 1], aligned
     with tickets) and dispatches every full pack now cuttable."""
     if not self._buffered:
       self._starve_mark = self._pack_clock[0]
+      self._t_buf_start = time.time()
     self._rows.append(rows)
     self._tickets.extend(tickets)
     self._buffered += len(rows)
@@ -180,25 +216,40 @@ class _WindowPacker:
     self.n_packs += 1
     self._pack_clock[0] += 1
     self._starve_mark = self._pack_clock[0]
+    t_cut = time.time()
+    obs_lib.record_stage(self._obs, obs_lib.trace.STAGE_PACK_WAIT,
+                         self._t_buf_start or t_cut, t_cut,
+                         bucket=int(pack.shape[2]), n_rows=len(pack))
+    # A leftover tail starts its wait at this cut.
+    self._t_buf_start = t_cut
     self.n_pack_rows += len(pack)
     self.n_pad_rows += self._batch - len(pack)
     try:
+      if self._poisoned:
+        _raise_if_poisoned(self._poisoned, tickets, seq, 'pack')
       handle = self._runner.dispatch(pack)
     except Exception as e:
-      self._on_pack_failure(tickets, seq, e)
+      self._handle_pack_fault(pack if self._degrade else None, tickets, seq,
+                              e)
       return
-    self._in_flight.append((handle, tickets, seq))
+    # Degrade mode keeps the host rows, so an OOM can bisect the pack.
+    self._in_flight.append(
+        (handle, tickets, seq, pack if self._degrade else None))
     while len(self._in_flight) > self._depth:
       self._drain_one()
 
   def _drain_one(self) -> None:
-    handle, tickets, seq = self._in_flight.popleft()
+    handle, tickets, seq, pack = self._in_flight.popleft()
     t0 = time.perf_counter()
     try:
       pred_ids, quality = self._runner.finalize(handle)
     except Exception as e:
-      self._on_pack_failure(tickets, seq, e)
+      self._handle_pack_fault(pack, tickets, seq, e)
       return
+    self._deliver_pack(tickets, pred_ids, quality, t0)
+
+  def _deliver_pack(self, tickets: List[Ticket], pred_ids: np.ndarray,
+                    quality: np.ndarray, t0: float) -> None:
     # uint8 transport into the stitch plane (values are 0..4 / 0..93).
     ids_u8 = pred_ids.astype(np.uint8)
     quals_u8 = quality.astype(np.uint8)
@@ -208,6 +259,53 @@ class _WindowPacker:
     self._timing_rows.append(dict(
         stage='run_model', runtime=elapsed, n_zmws=0,
         n_examples=len(tickets), n_subreads=0))
+
+  def _handle_pack_fault(self, pack: Optional[np.ndarray],
+                         tickets: List[Ticket], seq: int,
+                         error: BaseException,
+                         batch_size: Optional[int] = None) -> None:
+    """The device-fault policy for one failed pack: classify, count,
+    and under degrade (with the pack's host rows kept) bisect an
+    out-of-memory pack. Whatever is not recovered goes to
+    on_pack_failure with the classified error, so dead letters carry
+    the device fault's type."""
+    error = faults_lib.classify_device_error(error)
+    if isinstance(error, faults_lib.DeviceFault):
+      self.n_device_faults += 1
+      if isinstance(error, faults_lib.DispatchTimeoutError):
+        # The watchdog bounded the loss; a hung device would hang again.
+        self.n_dispatch_timeouts += 1
+      elif (self._degrade and pack is not None
+            and isinstance(error, faults_lib.DeviceOomError)
+            and self._bisect(pack, tickets, seq, batch_size or self._batch)):
+        return
+    self._on_pack_failure(tickets, seq, error)
+
+  def _bisect(self, pack: np.ndarray, tickets: List[Ticket], seq: int,
+              batch_size: int) -> bool:
+    """OOM bisection: the pack again as halves at half the batch shape;
+    False when no smaller shape exists (one row)."""
+    half = batch_size // 2
+    if half < 1:
+      return False
+    self.n_oom_bisections += 1
+    for lo in range(0, len(pack), half):
+      self._run_pack_at(pack[lo:lo + half], tickets[lo:lo + half], seq, half)
+    return True
+
+  def _run_pack_at(self, pack: np.ndarray, tickets: List[Ticket], seq: int,
+                   batch_size: int) -> None:
+    """A synchronous retry of one (bisected) pack at an explicit batch
+    shape; a further fault recurses through _handle_pack_fault, so a
+    half can bisect again."""
+    t0 = time.perf_counter()
+    try:
+      handle = self._runner.dispatch(pack, batch_size=batch_size)
+      pred_ids, quality = self._runner.finalize(handle)
+    except Exception as e:
+      self._handle_pack_fault(pack, tickets, seq, e, batch_size=batch_size)
+      return
+    self._deliver_pack(tickets, pred_ids, quality, t0)
 
   def flush(self, drain: bool = True) -> None:
     """Cuts the sub-batch tail as a final (padded) pack; with drain,
@@ -234,6 +332,10 @@ class _RaggedPacker:
   Packing is greedy largest-first against the bucket divisibility
   chain, so every window starts at a multiple of its own width.
 
+  Faults are classified and counted (dispatch timeouts among them),
+  then the whole pack goes to on_pack_failure: no bisection, as in the
+  reference (the single slot shape is the point of the path).
+
   The card's attention core sums a window's keys in tiles aligned to
   the slot, so a window's outputs are the same bits only at the same
   offset. With a chain of two buckets (a, b), every exactly filled slot
@@ -244,17 +346,23 @@ class _RaggedPacker:
   that would start with an a-wide window at j mod b/a != 0 starts with
   that many zero-filled dummy windows instead, so every window keeps
   that offset and its output does not depend on where the stream was
-  flushed. Dummies count as padding and are never delivered. With three
-  or more buckets the offsets depend on how the widths mix, which no
-  count reproduces: no dummies are placed and the plan is the JAX
-  package's, whose flush points may then change a window's bits.
+  flushed. Dummies count as padding and are never delivered. A stream
+  that resumes an interrupted run (`placed`: the windows of each width
+  the committed featurize batches held) starts aligned in the same way,
+  as if it had placed them, so its windows keep the uninterrupted
+  run's offsets. With three or more buckets the offsets depend on how
+  the widths mix, which no count reproduces: no dummies are placed and
+  the plan is the JAX package's, whose flush points may then change a
+  window's bits.
   """
 
   def __init__(self, runner, options, buckets: Sequence[int],
                deliver: DeliverFn,
                on_pack_failure: Optional[PackFailureFn] = None,
                timing_rows: Optional[List[Dict[str, Any]]] = None,
-               pack_clock: Optional[List[int]] = None):
+               poisoned: Optional[set] = None,
+               pack_clock: Optional[List[int]] = None,
+               placed: Optional[Dict[int, int]] = None):
     self._buckets = rwa.validate_ragged_buckets(buckets)
     self._runner = runner
     self._slot_len = self._buckets[-1]
@@ -264,24 +372,31 @@ class _RaggedPacker:
     self._deliver = deliver
     self._on_pack_failure = on_pack_failure or _raise_pack_failure
     self._timing_rows = timing_rows if timing_rows is not None else []
+    self._poisoned: set = poisoned if poisoned is not None else set()
     self._pack_clock: List[int] = (
         pack_clock if pack_clock is not None else [0])
+    self._t_buf_start = 0.0
+    self._obs = getattr(runner, 'obs', None)
     # Per-width FIFO queues of (rows [R, w, 1], ticket): within a
     # width, placement order is submission order.
     self._queues: Dict[int, collections.deque] = {
         w: collections.deque() for w in self._buckets}
     self._buffered = 0
     self._in_flight: collections.deque = collections.deque()
-    # Windows placed per width, and whether a partial pack was cut: the
-    # dummy-window alignment (class docstring) applies from then on, on
-    # a chain of at most two buckets.
-    self._placed: Dict[int, int] = {w: 0 for w in self._buckets}
-    self._realign = False
+    # Windows placed per width (a resumed stream counts the committed
+    # ones), and whether the dummy-window alignment (class docstring)
+    # applies: after a partial pack or on resuming, on a chain of at most
+    # two buckets.
+    self._placed: Dict[int, int] = {
+        w: int((placed or {}).get(w, 0)) for w in self._buckets}
     self._can_realign = len(self._buckets) <= 2
+    self._realign = self._can_realign and any(self._placed.values())
     self.n_windows_by_bucket: Dict[int, int] = {w: 0 for w in self._buckets}
     self.n_packs = 0
     self.n_pack_rows = 0
     self.n_pad_rows = 0
+    self.n_device_faults = 0
+    self.n_dispatch_timeouts = 0
 
   @property
   def slot_len(self) -> int:
@@ -296,6 +411,8 @@ class _RaggedPacker:
     if queue is None:
       raise ValueError(
           f'window width {width} not in window buckets {self._buckets}')
+    if not self._buffered:
+      self._t_buf_start = time.time()
     for row, ticket in zip(rows, tickets):
       queue.append((row, ticket))
     self._buffered += len(rows)
@@ -373,6 +490,11 @@ class _RaggedPacker:
     seq = self.n_packs
     self.n_packs += 1
     self._pack_clock[0] += 1
+    t_cut = time.time()
+    obs_lib.record_stage(self._obs, obs_lib.trace.STAGE_PACK_WAIT,
+                         self._t_buf_start or t_cut, t_cut,
+                         bucket=self._slot_len, n_rows=len(placements))
+    self._t_buf_start = t_cut
     self.n_pack_rows += len(placements)
     # Unused position capacity in min-bucket units: the windows a full
     # pack of the same shape could additionally have carried.
@@ -380,9 +502,12 @@ class _RaggedPacker:
     self.n_pad_rows += (
         self._n_slots * self._slot_len - used) // self._buckets[0]
     try:
+      if self._poisoned:
+        _raise_if_poisoned(self._poisoned, [p[0] for p in placements], seq,
+                           'ragged pack')
       handle = self._runner.dispatch_ragged(pack, lengths)
     except Exception as e:
-      self._on_pack_failure([p[0] for p in placements], seq, e)
+      self._handle_pack_fault(placements, seq, e)
       return
     self._in_flight.append((handle, placements, seq))
     while len(self._in_flight) > self._depth:
@@ -394,7 +519,7 @@ class _RaggedPacker:
     try:
       pred_ids, quality = self._runner.finalize(handle)
     except Exception as e:
-      self._on_pack_failure([p[0] for p in placements], seq, e)
+      self._handle_pack_fault(placements, seq, e)
       return
     ids_u8 = pred_ids.astype(np.uint8)
     quals_u8 = quality.astype(np.uint8)
@@ -405,6 +530,15 @@ class _RaggedPacker:
     self._timing_rows.append(dict(
         stage='run_model', runtime=elapsed, n_zmws=0,
         n_examples=len(placements), n_subreads=0))
+
+  def _handle_pack_fault(self, placements, seq: int,
+                         error: BaseException) -> None:
+    error = faults_lib.classify_device_error(error)
+    if isinstance(error, faults_lib.DeviceFault):
+      self.n_device_faults += 1
+      if isinstance(error, faults_lib.DispatchTimeoutError):
+        self.n_dispatch_timeouts += 1
+    self._on_pack_failure([p[0] for p in placements], seq, error)
 
   def flush(self, drain: bool = True) -> None:
     """Cuts the buffered tail as final (zero-length-padded) packs; with
@@ -431,8 +565,12 @@ class ConsensusEngine:
 
   def __init__(self, runner, options, deliver: DeliverFn,
                on_pack_failure: Optional[PackFailureFn] = None,
-               timing_rows: Optional[List[Dict[str, Any]]] = None):
+               timing_rows: Optional[List[Dict[str, Any]]] = None,
+               resume_placed: Optional[Dict[int, int]] = None):
     self.runner = runner
+    # Model windows of each width before a resumed stream's first (the
+    # ragged packer's alignment; _RaggedPacker's `placed`).
+    self._resume_placed = resume_placed
     self.options = options
     self.timing_rows = timing_rows if timing_rows is not None else []
     self._deliver_fn = deliver
@@ -440,6 +578,7 @@ class ConsensusEngine:
     self._buckets = tuple(int(b) for b in (
         getattr(options, 'window_buckets', None) or runner.window_buckets))
     self._packers: Dict[int, _WindowPacker] = {}
+    self._poisoned: set = set()
     self._pack_clock: List[int] = [0]
     self._n_windows_by_bucket: Dict[int, int] = {}
     self._ragged = bool(getattr(options, 'use_ragged_kernel', False))
@@ -454,13 +593,14 @@ class ConsensusEngine:
         self._ragged_packer = _RaggedPacker(
             self.runner, self.options, self._buckets, self._deliver_fn,
             on_pack_failure=self._on_pack_failure,
-            timing_rows=self.timing_rows, pack_clock=self._pack_clock)
+            timing_rows=self.timing_rows, poisoned=self._poisoned,
+            pack_clock=self._pack_clock, placed=self._resume_placed)
       return self._ragged_packer
     packer = self._packers.get(width)
     if packer is None:
       packer = self._packers[width] = _WindowPacker(
           self.runner, self.options, self.timing_rows,
-          self._on_pack_failure, self._deliver_fn,
+          self._on_pack_failure, self._deliver_fn, poisoned=self._poisoned,
           pack_clock=self._pack_clock)
     return packer
 
@@ -510,8 +650,13 @@ class ConsensusEngine:
       for packer in self._all_packers():
         packer.flush(drain=True)
 
+  def poison_ticket(self, ticket: Ticket) -> None:
+    """Fault injection: the pack that takes this ticket fails at
+    dispatch (one poison set for every bucket)."""
+    self._poisoned.add(id(ticket))
+
   def _agg(self, name: str):
-    return sum(getattr(p, name) for p in self._all_packers())
+    return sum(getattr(p, name, 0) for p in self._all_packers())
 
   @property
   def n_packs(self) -> int:
@@ -528,6 +673,18 @@ class ConsensusEngine:
   @property
   def n_starvation_flushes(self) -> int:
     return sum(p.n_starvation_flushes for p in self._packers.values())
+
+  @property
+  def n_oom_bisections(self) -> int:
+    return self._agg('n_oom_bisections')
+
+  @property
+  def n_device_faults(self) -> int:
+    return self._agg('n_device_faults')
+
+  @property
+  def n_dispatch_timeouts(self) -> int:
+    return self._agg('n_dispatch_timeouts')
 
   def _by_bucket(self, name: str) -> Dict[int, int]:
     if self._ragged:

@@ -6,7 +6,9 @@ Port of the reference runner's featurization pool
 and writes its window tensors into one POSIX shared-memory segment; the
 result pickle carries only names, offsets and small metadata, and the
 parent views the tensors in place and unlinks the segment once they
-are consumed.
+are consumed. The pool runs under inference.faults.PoolWatchdog: a
+batch that times out (a hung or killed worker) re-spawns the pool,
+reclaims the batch's segments by name prefix and retries.
 
 This module imports neither torch nor the runner, so a worker started
 by `make_pool` (a `spawn` context: the parent has initialised CUDA and
@@ -26,6 +28,8 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
+from deepconsensus_tpu_torch import faults
+from deepconsensus_tpu_torch.inference.faults import reclaim_shm_segments
 from deepconsensus_tpu_torch.preprocess.feeder import reads_to_pileup
 
 # Feature-dict fields shipped as pickled metadata by the shm transport
@@ -100,8 +104,10 @@ def preprocess_zmw_shm(zmw_input, shm_prefix: str):
 def _pool_worker(zmw_input, shm_prefix: str):
   """starmap payload: never raises, so the parent always receives every
   created segment's name (a raising task would make starmap discard
-  all results and orphan the other workers' segments)."""
+  all results and orphan the other workers' segments). Honors the
+  faults.ENV_KILL_ZMW injection."""
   try:
+    faults.maybe_kill_worker(zmw_input[1])
     return 'ok', preprocess_zmw_shm(zmw_input, shm_prefix)
   except Exception:
     return 'error', traceback.format_exc()
@@ -149,20 +155,24 @@ def make_pool(processes: int):
   return multiprocessing.get_context('spawn').Pool(processes)
 
 
-def featurize_with_pool(pool, zmws, shm_prefix: str):
-  """Featurizes `zmws` in the pool: [(zmw_input, features, counter)]
-  in input order, plus the attached segments the features view. On any
-  failure every segment the batch created is released before the error
-  propagates."""
-  raw = pool.starmap(_pool_worker, [(z, shm_prefix) for z in zmws],
-                     chunksize=4)
+def featurize_with_pool(watchdog, zmws, shm_prefix: str):
+  """Featurizes `zmws` in the watchdog's pool. Returns (pairs, failed,
+  attached): [(zmw_input, features, counter)] in input order, the
+  [(zmw_input, traceback text)] whose worker raised, and the attached
+  segments the features view. Raises inference.faults.WatchdogTimeout
+  when the batch exhausted its retries (its segments reclaimed). On any
+  other failure every segment the batch created is released before the
+  error propagates."""
+  raw = watchdog.run_batch(_pool_worker, [(z, shm_prefix) for z in zmws],
+                           chunksize=4, shm_prefix=shm_prefix)
   pairs = []
+  failed = []
   attached = []
   try:
     for zmw_input, (status, payload) in zip(zmws, raw):
       if status != 'ok':
-        raise RuntimeError(f'featurization worker failed for '
-                           f'{zmw_input[1]}:\n{payload}')
+        failed.append((zmw_input, payload))
+        continue
       features, counter, shm = features_from_shm(payload)
       pairs.append((zmw_input, features, counter))
       if shm is not None:
@@ -173,5 +183,6 @@ def featurize_with_pool(pool, zmws, shm_prefix: str):
     release_segments([payload[0] for status, payload in raw
                       if status == 'ok' and payload[0] is not None
                       and payload[0] not in names])
+    reclaim_shm_segments(shm_prefix)
     raise
-  return pairs, attached
+  return pairs, failed, attached

@@ -16,9 +16,25 @@ three-stage pipeline:
 
 `dispatch_depth=1, pack_across_batches=False, cpus=0` give the output
 of a serial run. A run makes glibc keep freed heap memory in the
-process (_keep_freed_heap), so the threads' batches reuse it. The reference's resume, sharding, tracing and fault
-quarantine are not part of the port yet (ROADMAP); a decode or model
-error fails the run.
+process (_keep_freed_heap), so the threads' batches reuse it.
+
+Faults (inference/faults.py, as in the reference): --on_zmw_error skip
+or ccs-fallback quarantines a ZMW that fails in decode, featurize, the
+model or stitch to <output>.failed.jsonl (ccs-fallback emits its draft
+CCS read instead) where `fail` aborts the run; the --cpus pool runs
+under a watchdog (--batch_timeout, --batch_retries); --on_device_error
+degrade bisects a pack that ran out of device memory; --dispatch_timeout
+bounds each pack's finalize by polling its last CUDA event, so a hung
+pack is dead-lettered while its pinned buffers stay retired until the
+card reaches the event. Output streams into <output>.tmp beside a
+progress manifest committed after each flushed featurize batch;
+--resume truncates the tmp file to the last commit and skips the
+committed ZMW groups, and only a finished run renames it into place.
+--shard i/n keeps the ZMWs with zm % n == i; `ccs_fasta` takes the CCS
+drafts from a FASTA. With DCTPU_TRACE (`cli run --trace`) a run writes
+trace spans (obs/): featurize, pack_wait, h2d_transfer, device_compute,
+finalize_drain, stitch; the card's spans come from each pack's CUDA
+events, placed on the host clock by one anchor event.
 
 The model stage ships each pack to the card compactly, as in the
 reference: uint8 rows (the ccs_bq row biased by +1 so its -1 gaps
@@ -67,15 +83,19 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from deepconsensus_tpu_torch import faults as faults_lib
+from deepconsensus_tpu_torch import obs as obs_lib
 from deepconsensus_tpu_torch.calibration import lib as calibration_lib
 from deepconsensus_tpu_torch.devices import resolve_device
 from deepconsensus_tpu_torch.inference import engine as engine_lib
+from deepconsensus_tpu_torch.inference import faults
 from deepconsensus_tpu_torch.inference import featurize as featurize_lib
 from deepconsensus_tpu_torch.io import bam as bam_lib
 from deepconsensus_tpu_torch.models import config as config_lib
 from deepconsensus_tpu_torch.models import data as data_lib
 from deepconsensus_tpu_torch.models import model as model_lib
 from deepconsensus_tpu_torch.models import quantize as quantize_lib
+from deepconsensus_tpu_torch.ops import device_spin
 from deepconsensus_tpu_torch.ops import output_plane
 from deepconsensus_tpu_torch.ops import ragged_window_attention as rwa
 from deepconsensus_tpu_torch.postprocess import stitch
@@ -121,6 +141,8 @@ class InferenceOptions:
   ins_trim: int = 5
   max_base_quality: int = 93
   limit: int = 0
+  # (i, n): keep only ZMWs with zm % n == i.
+  shard: Optional[Tuple[int, int]] = None
   # > 1: featurization worker processes (tensors travel through shared
   # memory). The reference's measured caveat holds: the IPC can eat
   # the gain on a fast host.
@@ -137,6 +159,28 @@ class InferenceOptions:
   # Debug stage truncation (reference DebugStage): dc_input stops after
   # BAM decode, tf_examples after featurize, run_model after the model.
   end_after_stage: str = 'full'  # dc_input | tf_examples | run_model | full
+  # Per-ZMW fault policy (inference/faults.py): 'fail' aborts the run,
+  # 'skip' drops the ZMW (dead-lettered), 'ccs-fallback' emits its
+  # draft CCS read instead.
+  on_zmw_error: str = 'fail'  # fail | skip | ccs-fallback
+  # Per-record allocation cap of the BAM decoders: a record claiming
+  # more is corrupt (quarantined under skip), never allocated.
+  max_record_bytes: int = 64 << 20
+  # > 0: per-batch timeout (s) of the featurization pool; a hung or
+  # killed worker re-spawns the pool and retries the batch up to
+  # batch_retries times before it is quarantined.
+  batch_timeout: float = 0.0
+  batch_retries: int = 2
+  # 'degrade' retries a pack that ran out of device memory as halves at
+  # half the batch shape; 'fail' hands every device fault to the
+  # per-ZMW policy.
+  on_device_error: str = 'fail'  # fail | degrade
+  # > 0: bound each pack's finalize to this many seconds; a hung pack
+  # fails with DispatchTimeoutError instead of wedging the model stage.
+  dispatch_timeout: float = 0.0
+  # Continue an interrupted run from <output>.progress.json and
+  # <output>.tmp.
+  resume: bool = False
   dc_calibration_values: calibration_lib.QualityCalibrationValues = (
       dataclasses.field(
           default_factory=lambda: calibration_lib.parse_calibration_string(
@@ -232,6 +276,10 @@ def _keep_freed_heap() -> bool:
     return False
 
 
+# How often the dispatch watchdog polls a pack's last event.
+_WATCHDOG_POLL_S = 0.0005
+
+
 def _union_seconds(spans: List[Tuple[float, float]]) -> float:
   """The length of the union of (start, end) intervals."""
   total, reach = 0.0, float('-inf')
@@ -242,12 +290,29 @@ def _union_seconds(spans: List[Tuple[float, float]]) -> float:
   return total
 
 
+class _HostDeadline:
+  """Stands in for a pack's last CUDA event on the CPU when a hang is
+  injected: reached once the host clock passes it."""
+
+  def __init__(self, seconds: float):
+    self._at = time.monotonic() + seconds
+
+  def query(self) -> bool:
+    return time.monotonic() >= self._at
+
+  def synchronize(self) -> None:
+    time.sleep(max(0.0, self._at - time.monotonic()))
+
+
 class _HostRing:
   """Host buffers of one pack shape, handed out round robin and
   allocated at first use (pinned on the card's host side). A slot is
   handed out again only after the event its last user left has
   completed (the H2D copy that read it), and an output slot whose pack
-  is not finalized yet is first drained into that pack's own arrays."""
+  is not finalized yet is first drained into that pack's own arrays. A
+  retired slot (a pack the watchdog gave up on) keeps its buffers
+  aside until the pack's last event completes, since a copy may still
+  be writing into them, and is handed out with fresh buffers."""
 
   def __init__(self, specs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]],
                n_slots: int, pin: bool):
@@ -256,9 +321,12 @@ class _HostRing:
     self._slots: List[Optional[Dict[str, torch.Tensor]]] = [None] * n_slots
     self._free_after: List[Any] = [None] * n_slots
     self.owners: List[Any] = [None] * n_slots
+    self.retired: List[Tuple[Dict[str, torch.Tensor], Any]] = []
     self._next = 0
 
   def take(self, owner=None) -> Tuple[int, Dict[str, torch.Tensor]]:
+    if self.retired:
+      self.retired = [(b, e) for b, e in self.retired if not e.query()]
     i = self._next
     self._next = (i + 1) % len(self._slots)
     if self._free_after[i] is not None:
@@ -276,25 +344,47 @@ class _HostRing:
   def free_after(self, i: int, event) -> None:
     self._free_after[i] = event
 
+  def pending(self, i: int):
+    """The event slot i waits on before it is handed out again."""
+    return self._free_after[i]
+
+  def retire(self, i: int, event) -> None:
+    """Sets slot i's buffers aside until `event` completes."""
+    if self._slots[i] is not None:
+      self.retired.append((self._slots[i], event))
+    self._slots[i] = None
+    self._free_after[i] = None
+    self.owners[i] = None
+
 
 class _DispatchHandle:
   """One in-flight pack: the runner's dispatch contract. Holds the
-  pack's pinned output slot and, on the card, its CUDA events (H2D
-  start and end on the copy stream; forward start, forward end and D2H
-  end on the compute stream). drain() waits on the last event only and
-  copies the delivered rows out of the slot."""
+  pack's pinned input and output slots and, on the card, its CUDA
+  events (H2D start and end on the copy stream; forward start, forward
+  end and D2H end on the compute stream; an injected hang's end). drain()
+  waits on the last event only and copies the delivered rows out of
+  the output slot. seq is the 1-based dispatch ordinal (the injection
+  hooks' and the trace's pack id); t_fwd the host stamps around the
+  forward's launch."""
 
   __slots__ = ('n', 'ragged', 'lengths', 'host_out', 'events', 'ring',
-               'slot', 'result')
+               'slot', 'result', 'seq', 'width', 'in_ring', 'in_slot',
+               't_fwd')
 
-  def __init__(self, n: int, ragged: bool, lengths: Optional[np.ndarray]):
+  def __init__(self, n: int, ragged: bool, lengths: Optional[np.ndarray],
+               width: int):
     self.n = n
     self.ragged = ragged
     self.lengths = lengths  # [n_slots, wps] for a ragged pack
+    self.width = width  # window width, or the ragged slot length
     self.host_out: Tuple[torch.Tensor, ...] = ()
     self.events: Tuple[Any, ...] = ()
     self.ring: Optional[_HostRing] = None
     self.slot = -1
+    self.in_ring: Optional[_HostRing] = None
+    self.in_slot = -1
+    self.seq = 0
+    self.t_fwd = (0.0, 0.0)
     self.result: Optional[Tuple[np.ndarray, np.ndarray]] = None
 
   @property
@@ -325,8 +415,10 @@ class ModelRunner:
   to state_dict here, before the weights go to the device.
 
   dispatch()/dispatch_ragged() return a _DispatchHandle while the card
-  may still be working; finalize() resolves one. One thread drives a
-  runner.
+  may still be working; finalize() resolves one, within
+  options.dispatch_timeout when that is set. One thread drives a
+  runner. `obs` receives the stage intervals of its runs
+  (obs.record_stage).
   """
 
   def __init__(self, params, state_dict: Dict[str, torch.Tensor],
@@ -353,9 +445,12 @@ class ModelRunner:
     self._cuda = self.device.type == 'cuda'
     self._copy_stream = (torch.cuda.Stream(self.device) if self._cuda
                          else None)
+    self._hang_stream = None  # injected hangs' spins (faults.py)
     self._rings: Dict[Tuple[Any, ...], _HostRing] = {}
     self._last: Optional[_DispatchHandle] = None
+    self._n_dispatched = 0
     self.d2h_bytes_per_pack = 0
+    self.obs = obs_lib.MetricsRegistry(tier='run')
     self.reset_timing()
 
   def reset_timing(self) -> None:
@@ -364,8 +459,22 @@ class ModelRunner:
     self._t_first_dispatch: Optional[float] = None
     self._t_last_finalize: Optional[float] = None
     self._pack_events: List[Tuple[Any, ...]] = []
+    self._trace_anchor: Optional[Tuple[Any, float]] = None
     self.n_transfer_overlapped = 0
     self.n_transfer_direct = 0
+
+  def start_trace_clock(self) -> None:
+    """Anchors the card's event clock to the host's: one event recorded
+    on an idle compute stream, stamped with the host time around it.
+    Called only when tracing, as it synchronizes the card."""
+    if not self._cuda:
+      return
+    torch.cuda.synchronize(self.device)
+    anchor = torch.cuda.Event(enable_timing=True)
+    t0 = time.time()
+    anchor.record(torch.cuda.current_stream(self.device))
+    anchor.synchronize()
+    self._trace_anchor = (anchor, (t0 + time.time()) / 2)
 
   def _configure_epilogue(self) -> None:
     """Builds the exact threshold table for the device output plane
@@ -407,13 +516,15 @@ class ModelRunner:
       self._t_first_dispatch = t0
     return t0
 
-  def dispatch(self, rows: np.ndarray) -> _DispatchHandle:
+  def dispatch(self, rows: np.ndarray,
+               batch_size: Optional[int] = None) -> _DispatchHandle:
     """Starts one pack: rows [n, R, L, 1] formatted windows (n <=
-    batch_size), padded to batch_size. The card may still be working
-    when this returns."""
+    batch_size), padded to batch_size (options.batch_size unless given:
+    OOM bisection's half packs, which take their own ring). The card may
+    still be working when this returns."""
     t0 = self._start()
     n, total_rows, width, _ = rows.shape
-    batch = self.options.batch_size
+    batch = batch_size or self.options.batch_size
     if n > batch:
       raise ValueError(f'{n} windows exceed batch_size {batch}')
     main_rows = total_rows - _SN_ROWS
@@ -432,10 +543,11 @@ class ModelRunner:
       return self.model(_assemble_rows(dev['main'], dev['sn'], self._bq_row),
                         plain=self.plain)
 
-    handle = self._launch(ring, slot, bufs, forward,
-                          _DispatchHandle(n, False, None))
-    self.model_seconds += time.perf_counter() - t0
-    return handle
+    try:
+      return self._launch(ring, slot, bufs, forward,
+                          _DispatchHandle(n, False, None, width))
+    finally:
+      self.model_seconds += time.perf_counter() - t0
 
   def dispatch_ragged(self, rows: np.ndarray,
                       lengths: np.ndarray) -> _DispatchHandle:
@@ -472,10 +584,11 @@ class ModelRunner:
       return self.model(rows_dev, plain=self.plain,
                         window_lengths=dev['lengths'])
 
-    handle = self._launch(ring, slot, bufs, forward,
-                          _DispatchHandle(n_slots, True, lengths))
-    self.model_seconds += time.perf_counter() - t0
-    return handle
+    try:
+      return self._launch(ring, slot, bufs, forward,
+                          _DispatchHandle(n_slots, True, lengths, slot_len))
+    finally:
+      self.model_seconds += time.perf_counter() - t0
 
   def _launch(self, ring: _HostRing, slot: int, bufs, forward,
               handle: _DispatchHandle) -> _DispatchHandle:
@@ -484,7 +597,13 @@ class ModelRunner:
     output slot. On the card the copy runs on the copy stream; the
     compute stream waits on its event, and the device inputs are
     recorded on the compute stream so their memory outlives the
-    forward."""
+    forward. The device-fault injection hooks fire here, where a real
+    launch fails."""
+    self._n_dispatched += 1
+    handle.seq = self._n_dispatched
+    handle.in_ring, handle.in_slot = ring, slot
+    faults_lib.injected_device_fault(handle.seq)
+    hang_s = faults_lib.injected_device_hang(handle.seq)
     events: Tuple[Any, ...] = ()
     if self._cuda:
       if self._last is not None and not self._last.done:
@@ -509,7 +628,9 @@ class ModelRunner:
     else:
       self.n_transfer_direct += 1
       dev = bufs
+    t_fwd = time.time()
     out = self._epilogue(forward(dev))
+    handle.t_fwd = (t_fwd, time.time())
     if self._cuda:
       fwd_end = torch.cuda.Event(enable_timing=True)
       fwd_end.record()
@@ -527,10 +648,31 @@ class ModelRunner:
       d2h_end = torch.cuda.Event(enable_timing=True)
       d2h_end.record()
       events += (d2h_end,)
+    if hang_s:
+      events += (self._hang(hang_s, events[-1] if events else None),)
     handle.events = events
     self.d2h_bytes_per_pack = int(sum(t.nbytes for t in handle.host_out))
     self._last = handle
     return handle
+
+  def _hang(self, seconds: float, after) -> Any:
+    """Fault injection (faults.ENV_DEVICE_HANG_AT_PACK): the pack's new
+    last event, reached `seconds` after `after`. On the card the spin
+    kernel (csrc/device_spin.cu) runs on a side stream behind the pack's
+    output copy, so the card really has not reached the event while
+    later packs go on on the compute stream (a spin there would hold
+    every later pack behind it too); on the CPU a host deadline stands
+    in, as the reference's hook sleeps on the host."""
+    if not self._cuda:
+      return _HostDeadline(seconds)
+    if self._hang_stream is None:
+      self._hang_stream = torch.cuda.Stream(self.device)
+    self._hang_stream.wait_event(after)
+    with torch.cuda.stream(self._hang_stream):
+      device_spin.spin(seconds, self.device)
+      end = torch.cuda.Event(enable_timing=True)
+      end.record()
+    return end
 
   def _epilogue(self, preds: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     if self._thresholds is not None:
@@ -543,18 +685,74 @@ class ModelRunner:
   def finalize(self, handle: _DispatchHandle) -> Tuple[np.ndarray, np.ndarray]:
     """Resolves a dispatch into (base ids [n, L], qualities [n, L]),
     waiting on that pack's own event only (ragged: [n_slots, slot_len]
-    planes)."""
+    planes). With options.dispatch_timeout the wait polls the pack's
+    last event and raises DispatchTimeoutError past the deadline; no
+    thread is left blocked on the card."""
     t0 = time.perf_counter()
-    out_a, out_b = handle.drain()
-    if handle.events:
-      self._pack_events.append(handle.events)
-    if not self.device_epilogue:
-      out_b = output_plane.host_quality_reference(
-          out_b, self.options.dc_calibration_values,
-          self.options.max_base_quality)
-    self._t_last_finalize = time.perf_counter()
-    self.model_seconds += self._t_last_finalize - t0
+    t_fin = time.time()
+    try:
+      timeout = self.options.dispatch_timeout
+      if timeout and timeout > 0:
+        self._await(handle, timeout)
+      out_a, out_b = handle.drain()
+      if handle.events:
+        self._pack_events.append(handle.events)
+      self._record_device_spans(handle)
+      if not self.device_epilogue:
+        out_b = output_plane.host_quality_reference(
+            out_b, self.options.dc_calibration_values,
+            self.options.max_base_quality)
+    finally:
+      obs_lib.record_stage(self.obs, obs_lib.trace.STAGE_FINALIZE, t_fin,
+                           time.time(), pack=handle.seq)
+      self._t_last_finalize = time.perf_counter()
+      self.model_seconds += self._t_last_finalize - t0
     return out_a, out_b
+
+  def _await(self, handle: _DispatchHandle, timeout: float) -> None:
+    """The dispatch watchdog: polls the pack's last event until the
+    deadline, then retires its slots and raises."""
+    deadline = time.monotonic() + timeout
+    while not handle.done:
+      if time.monotonic() >= deadline:
+        self._abandon(handle)
+        raise faults_lib.DispatchTimeoutError(
+            f'pack finalize produced no result within '
+            f'dispatch_timeout={timeout}s')
+      time.sleep(_WATCHDOG_POLL_S)
+
+  def _abandon(self, handle: _DispatchHandle) -> None:
+    """A pack the watchdog gave up on: its pinned input slot (if no
+    later pack took it after its copy completed) and its output slot
+    are retired until its last event completes, and never drained."""
+    last = handle.events[-1]
+    in_copy = handle.events[1] if len(handle.events) > 1 else None
+    if in_copy is not None and handle.in_ring.pending(handle.in_slot) is in_copy:
+      handle.in_ring.retire(handle.in_slot, last)
+    if handle.ring is not None and handle.ring.owners[handle.slot] is handle:
+      handle.ring.retire(handle.slot, last)
+    handle.host_out = ()
+
+  def _record_device_spans(self, handle: _DispatchHandle) -> None:
+    """The pack's h2d_transfer and device_compute (forward, output
+    plane and D2H copy) spans. On the card they come from the pack's
+    CUDA events through the trace clock's anchor, so they show when the
+    card worked; on the CPU the forward's host stamps (no copy)."""
+    if not obs_lib.trace.enabled():
+      return
+    if self._cuda:
+      if self._trace_anchor is None:
+        return
+      anchor, t_anchor = self._trace_anchor
+      at = [t_anchor + anchor.elapsed_time(e) / 1e3
+            for e in handle.events[:5]]
+      h2d, compute = (at[0], at[1]), (at[2], at[4])
+    else:
+      h2d, compute = (handle.t_fwd[0],) * 2, handle.t_fwd
+    args = dict(pack=handle.seq, bucket=handle.width, n_rows=handle.n)
+    obs_lib.record_stage(self.obs, obs_lib.trace.STAGE_H2D, *h2d, **args)
+    obs_lib.record_stage(self.obs, obs_lib.trace.STAGE_DEVICE_COMPUTE,
+                         *compute, **args)
 
   def predict(self, rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Synchronous dispatch + finalize."""
@@ -640,9 +838,11 @@ def run_model_on_windows(
 class _MolState:
   """One molecule's windows accumulating toward stitch/emit. Model
   windows are appended as placeholders and filled when their pack
-  finalizes."""
+  finalizes; model_entries keeps each one's draft-CCS copy, so a failed
+  pack can adopt the CCS after the feature tensors are released."""
 
-  __slots__ = ('name', 'batch', 'meta', 'pos', 'ids', 'quals')
+  __slots__ = ('name', 'batch', 'meta', 'pos', 'ids', 'quals',
+               'model_entries', 'status')
 
   def __init__(self, name: str, batch: '_BatchState', meta: Tuple):
     self.name = name
@@ -651,6 +851,8 @@ class _MolState:
     self.pos: List[int] = []
     self.ids: List[Optional[np.ndarray]] = []
     self.quals: List[Optional[np.ndarray]] = []
+    self.model_entries: List[Tuple[int, np.ndarray, np.ndarray]] = []
+    self.status = 'ok'  # ok | adopted (ccs-fallback) | dropped
 
   def append_resolved(self, window_pos: int, ids: np.ndarray,
                       quals: np.ndarray) -> None:
@@ -658,16 +860,32 @@ class _MolState:
     self.ids.append(ids)
     self.quals.append(quals)
 
-  def append_pending(self, window_pos: int) -> int:
+  def append_pending(self, window_pos: int, ccs_ids: np.ndarray,
+                     ccs_bq: np.ndarray) -> int:
     idx = len(self.pos)
     self.append_resolved(window_pos, None, None)
+    self.model_entries.append((idx, ccs_ids, ccs_bq))
     self.batch.pending += 1
     return idx
 
-  def set_result(self, idx: int, ids: np.ndarray, quals: np.ndarray) -> None:
-    self.ids[idx] = ids
-    self.quals[idx] = quals
+  def set_result(self, idx: int, ids: Optional[np.ndarray],
+                 quals: Optional[np.ndarray]) -> None:
+    """Resolves one model slot (ids None: its pack failed). Always
+    counts the slot done, also for a molecule an earlier failed pack
+    already quarantined."""
+    if self.status == 'ok' and ids is not None:
+      self.ids[idx] = ids
+      self.quals[idx] = quals
     self.batch.pending -= 1
+
+  def adopt_ccs(self, options: InferenceOptions) -> bool:
+    """ccs-fallback for a model-stage fault: every model window of the
+    molecule, resolved or not, adopts its draft CCS, so the molecule
+    degrades as a whole."""
+    for idx, ccs_ids, ccs_bq in self.model_entries:
+      self.ids[idx] = ccs_ids
+      self.quals[idx] = engine_lib.ccs_quals_array(ccs_bq, options)
+    return True
 
 
 class _BatchState:
@@ -697,30 +915,36 @@ class _BatchState:
     return self.featurized and self.pending == 0
 
 
-def _open_sink(output: str, out_tmp: str, ccs_bam: str):
-  """(emit_read(name, seq, quals, meta), close) for FASTQ, or for BAM
-  when output ends in .bam: unaligned records with the ec/np/rq/RG/zm
-  tags under the CCS BAM's header (reference:
-  quick_inference.py:738-760, 894-897)."""
-  if not output.endswith('.bam'):
-    sink = open(out_tmp, 'wb')
+class _Sink:
+  """The output in <output>.tmp: FASTQ, or BAM when output ends in
+  .bam (unaligned records with the ec/np/rq/RG/zm tags under the CCS
+  BAM's header, a bare @HD line without one; reference:
+  quick_inference.py:738-760, 894-897). append continues a resumed
+  run's file after its truncation to the committed size."""
 
-    def emit_fastq(name: str, seq: bytes, quals: np.ndarray, meta) -> None:
-      del meta
-      sink.write(stitch.format_fastq_bytes(name, seq, quals))
+  def __init__(self, output: str, out_tmp: str, ccs_bam: Optional[str],
+               append: bool, max_record_bytes: int):
+    self._bam = None
+    self._fastq = None
+    if not output.endswith('.bam'):
+      self._fastq = open(out_tmp, 'ab' if append else 'wb')
+      return
+    from deepconsensus_tpu_torch.io.bam_writer import BamWriter
 
-    return emit_fastq, sink.close
-  from deepconsensus_tpu_torch.io.bam_writer import BamWriter
+    header_text = '@HD\tVN:1.5\tSO:unknown\n'
+    if ccs_bam:
+      with bam_lib.BamReader(ccs_bam,
+                             max_record_bytes=max_record_bytes) as reader:
+        if reader.header_text:
+          header_text = reader.header_text
+          if not header_text.endswith('\n'):
+            header_text += '\n'
+    self._bam = BamWriter(out_tmp, header_text=header_text, append=append)
 
-  header_text = '@HD\tVN:1.5\tSO:unknown\n'
-  with bam_lib.BamReader(ccs_bam) as ccs_reader:
-    if ccs_reader.header_text:
-      header_text = ccs_reader.header_text
-      if not header_text.endswith('\n'):
-        header_text += '\n'
-  writer = BamWriter(out_tmp, header_text=header_text)
-
-  def emit_bam(name: str, seq: bytes, quals: np.ndarray, meta) -> None:
+  def emit(self, name: str, seq: bytes, quals: np.ndarray, meta) -> None:
+    if self._fastq is not None:
+      self._fastq.write(stitch.format_fastq_bytes(name, seq, quals))
+      return
     ec, np_passes, rq, rg = meta
     tags = {}
     if ec is not None:
@@ -738,39 +962,128 @@ def _open_sink(output: str, out_tmp: str, ccs_bam: str):
         tags['zm'] = int(parts[1])
       except ValueError:
         pass
-    writer.write(name, seq.decode('ascii'),
-                 np.asarray(quals, dtype=np.uint8), tags=tags)
+    self._bam.write(name, seq.decode('ascii'),
+                    np.asarray(quals, dtype=np.uint8), tags=tags)
 
-  return emit_bam, writer.close
+  def _out(self):
+    return self._fastq if self._fastq is not None else self._bam
+
+  def flush(self) -> None:
+    self._out().flush()
+
+  def tell(self) -> int:
+    return self._out().tell()
+
+  def close(self) -> None:
+    self._out().close()
+
+
+def _write_sidecars(output: str, counters: Dict[str, Any],
+                    timing_rows: List[Dict[str, Any]]) -> None:
+  with open(output + '.runtime.csv', 'w', newline='') as f:
+    writer = csv.DictWriter(f, fieldnames=['stage', 'runtime', 'n_zmws',
+                                           'n_examples', 'n_subreads'])
+    writer.writeheader()
+    writer.writerows(timing_rows)
+  with open(output + '.inference.json', 'w') as f:
+    json.dump(counters, f, indent=2, sort_keys=True)
 
 
 def run_inference(
     subreads_to_ccs: str,
-    ccs_bam: str,
+    ccs_bam: Optional[str],
     output: str,
     runner: ModelRunner,
+    ccs_fasta: Optional[str] = None,
 ) -> Dict[str, Any]:
   """The three-stage pipeline with runner's model and options; writes
-  `output` (FASTQ, or BAM when it ends in .bam),
-  `<output>.inference.json` and `<output>.runtime.csv`, and returns
-  the counters.
+  `output` (FASTQ, or BAM when it ends in .bam; the CCS drafts from
+  ccs_bam, or from the FASTA ccs_fasta), `<output>.inference.json` and
+  `<output>.runtime.csv`, and returns the counters. A run that dies
+  still writes the sidecars, with `partial: true`.
+
+  Tracing: DCTPU_TRACE names a trace file unless a writer is already
+  configured (one opened here is closed at the end); every span and
+  dead letter of the run's threads carries one minted trace id, unbound
+  from the calling thread when the run returns.
+  """
+  stage = runner.options.end_after_stage
+  if stage not in STAGES:
+    raise ValueError(f'end_after_stage must be one of {STAGES}, '
+                     f'got {stage!r}')
+  own_trace = (not obs_lib.trace.enabled()
+               and obs_lib.trace.configure_from_env(tier='run') is not None)
+  try:
+    return _run_pipeline(subreads_to_ccs, ccs_bam, ccs_fasta, output, runner)
+  finally:
+    obs_lib.trace.set_trace_id(None)
+    if own_trace:
+      obs_lib.trace.configure(None)
+
+
+def _run_pipeline(subreads_to_ccs: str, ccs_bam: Optional[str],
+                  ccs_fasta: Optional[str], output: str,
+                  runner: ModelRunner) -> Dict[str, Any]:
+  """run_inference's body.
 
   Counter discipline: the producer thread owns the feeder's counter,
-  the model stage the window counts, the emit thread the outcome
-  counts; they merge after both threads have joined.
+  the model stage the window counts, the emit thread the outcome and
+  fallback counts; they merge after the threads have joined.
   """
   options = runner.options
   params = runner.params
   stage = options.end_after_stage
-  if stage not in STAGES:
-    raise ValueError(f'end_after_stage must be one of {STAGES}, '
-                     f'got {stage!r}')
   options.max_passes = params.max_passes
   options.max_length = params.max_length
   options.use_ccs_bq = params.use_ccs_bq
   runner.reset_timing()
   _keep_freed_heap()
   t_start = time.perf_counter()
+  if obs_lib.trace.enabled():
+    runner.start_trace_clock()
+  run_trace_id = obs_lib.trace.mint_trace_id()
+  obs_lib.trace.set_trace_id(run_trace_id)
+
+  # Atomic, resumable output: reads stream into <output>.tmp; after each
+  # flushed featurize batch the manifest records (feeder groups done,
+  # tmp size), and the tmp file is renamed into place only when the run
+  # completes. --resume truncates it to the last committed byte and
+  # skips the committed groups.
+  manifest = faults.ProgressManifest(output + '.progress.json')
+  source = {
+      'subreads_to_ccs': subreads_to_ccs,
+      'ccs_bam': ccs_bam,
+      'ccs_fasta': ccs_fasta,
+      'output': output,
+      'shard': list(options.shard) if options.shard else None,
+  }
+  out_tmp = output + '.tmp'
+  resume_skip_groups = 0
+  resuming = False
+  # Model windows of each width in the committed batches: the manifest
+  # carries them so a resumed ragged stream keeps the uninterrupted
+  # run's slot offsets (engine._RaggedPacker).
+  committed_windows: collections.Counter = collections.Counter()
+  if options.resume and stage == 'full':
+    state = manifest.load()
+    if state is not None:
+      faults.validate_resume_source(state, source)
+      committed = int(state['tmp_size'])
+      if os.path.exists(out_tmp) and os.path.getsize(out_tmp) >= committed:
+        with open(out_tmp, 'r+b') as f:
+          f.truncate(committed)
+        resume_skip_groups = int(state['groups_done'])
+        committed_windows.update({
+            int(w): int(n) for w, n in state.get(
+                'model_windows_by_width', {}).items()})
+        resuming = True
+  dead_letter: Optional[faults_lib.DeadLetterWriter] = None
+  quarantine: Optional[faults.Quarantine] = None
+  if options.on_zmw_error != faults.OnZmwError.FAIL:
+    dead_letter = faults_lib.DeadLetterWriter(output + '.failed.jsonl',
+                                              append=resuming)
+    quarantine = faults.Quarantine(options.on_zmw_error, dead_letter)
+
   layout = FeatureLayout(
       max_passes=options.max_passes,
       max_length=options.max_length,
@@ -780,10 +1093,15 @@ def run_inference(
   feeder, counter = create_proc_feeder(
       subreads_to_ccs=subreads_to_ccs,
       ccs_bam=ccs_bam,
+      ccs_fasta=ccs_fasta,
       layout=layout,
       ins_trim=options.ins_trim,
       use_ccs_smart_windows=options.use_ccs_smart_windows,
       limit=options.limit,
+      shard=options.shard,
+      quarantine=quarantine,
+      resume_skip_groups=resume_skip_groups,
+      max_record_bytes=options.max_record_bytes,
   )
   # Opening the BAMs inflates them (native) or reads their headers.
   open_seconds = time.perf_counter() - t_start
@@ -791,18 +1109,45 @@ def run_inference(
   full_mode = stage == 'full'
   outcome = stitch.OutcomeCounter()
   window_counter: collections.Counter = collections.Counter()
+  fallback_counter: collections.Counter = collections.Counter()
   timing_rows: List[Dict[str, Any]] = []
   # Seconds per stage, each entry written by one thread only.
   clock = {'decode': open_seconds, 'featurize': 0.0, 'ingest': 0.0,
            'stitch': 0.0}
-  pool = None
+  watchdog: Optional[faults.PoolWatchdog] = None
+  # Segments of featurize batch k are named <shm_prefix>b<k>_..., so a
+  # killed worker's orphans are reclaimed by prefix.
   shm_prefix = f'dctorch_{os.getpid()}_{id(timing_rows)}_'
-  out_tmp = output + '.tmp'
-  emit_read, close_sink = _open_sink(output, out_tmp, ccs_bam)
+  crash_after = faults_lib.injected_crash_after_batches()
+  poison = os.environ.get(faults_lib.ENV_POISON_WINDOW)
+  poisoned = [False]
+  ccs_row = row_indices(options.max_passes, options.use_ccs_bq)[4][0]
+  sink = _Sink(output, out_tmp, ccs_bam, resuming, options.max_record_bytes)
   feat_queue: queue_lib.Queue = queue_lib.Queue(maxsize=2)
   stop = threading.Event()
   states: collections.deque = collections.deque()
   engine: Optional[engine_lib.ConsensusEngine] = None
+
+  def on_pack_failure(slots, pack_seq: int, error) -> None:
+    """A failed pack's molecules: each is quarantined once (adopting its
+    draft CCS under ccs-fallback, dropped under skip), the pack id and
+    its window count in the dead letter."""
+    for mol, idx in slots:
+      mol.set_result(idx, None, None)
+    if quarantine is None:
+      raise error
+    members: Dict[_MolState, int] = {}
+    for mol, _ in slots:
+      members[mol] = members.get(mol, 0) + 1
+    for mol, n_in_pack in members.items():
+      if mol.status != 'ok':
+        continue  # quarantined by an earlier failed pack
+      adopted = quarantine.handle(
+          mol.name, faults.FaultStage.MODEL, error,
+          fallback=lambda m=mol: m.adopt_ccs(options),
+          extra={'model_pack': pack_seq, 'n_windows_in_pack': n_in_pack})
+      mol.status = 'adopted' if adopted else 'dropped'
+
   if model_mode:
     # Tickets are (molecule, index) slots; a delivered row resolves its
     # molecule's pending window.
@@ -810,7 +1155,8 @@ def run_inference(
         runner, options,
         deliver=lambda slot, ids, quals: slot[0].set_result(
             slot[1], ids, quals),
-        timing_rows=timing_rows)
+        on_pack_failure=on_pack_failure, timing_rows=timing_rows,
+        resume_placed=dict(committed_windows))
 
   def put(item) -> bool:
     """Bounded put that gives up once the model stage has stopped."""
@@ -823,25 +1169,71 @@ def run_inference(
     return False
 
   def featurize_batch(zmw_batch, seq: int) -> Dict[str, Any]:
+    """Producer thread: one batch's ZMWs -> windows. Draft-CCS items the
+    feeder quarantined pass through as fallbacks; a ZMW that fails here
+    is quarantined (or raises under `fail`)."""
     t0 = time.perf_counter()
+    t_wall = time.time()
+    fallbacks = [z for z in zmw_batch if isinstance(z, faults.CcsFallback)]
+    zmws = [z for z in zmw_batch if not isinstance(z, faults.CcsFallback)]
     segments = []
-    if pool is not None:
-      pairs, segments = featurize_lib.featurize_with_pool(
-          pool, zmw_batch, f'{shm_prefix}b{seq}_')
+    pairs = []
+
+    def quarantine_featurize(zmw_input, error) -> None:
+      ccs_read = zmw_input[0][-1]
+      item = quarantine.handle(
+          zmw_input[1], faults.FaultStage.FEATURIZE, error,
+          fallback=lambda r=ccs_read: faults.fallback_from_ccs_read(r))
+      if item is not None:
+        fallbacks.append(item)
+
+    if watchdog is not None:
+      failed = []
+      try:
+        pairs, failed, segments = featurize_lib.featurize_with_pool(
+            watchdog, zmws, f'{shm_prefix}b{seq}_')
+      except faults.WatchdogTimeout as e:
+        if quarantine is None:
+          raise
+        # The whole batch exhausted the watchdog (the pool is re-spawned
+        # and the batch's segments reclaimed): quarantine every ZMW.
+        for z in zmws:
+          quarantine_featurize(z, e)
+      for zmw_input, payload in failed:
+        text = f'featurization worker failed:\n{payload}'
+        if quarantine is None:
+          featurize_lib.release_segments(segments)
+          raise faults.ZmwFault(zmw_input[1], faults.FaultStage.FEATURIZE,
+                                faults_lib.classify_error(payload), text)
+        quarantine_featurize(zmw_input, text)
     else:
-      pairs = [(z, *preprocess_zmw(z)) for z in zmw_batch]
+      for z in zmws:
+        try:
+          features, zmw_counter = preprocess_zmw(z)
+        except Exception as e:
+          if quarantine is None:
+            raise
+          quarantine_featurize(z, e)
+          continue
+        pairs.append((z, features, zmw_counter))
     elapsed = time.perf_counter() - t0
     clock['featurize'] += elapsed
+    windows = [w for _, features, _ in pairs for w in features]
+    obs_lib.record_stage(runner.obs, obs_lib.trace.STAGE_FEATURIZE, t_wall,
+                         time.time(), n_zmws=len(zmw_batch),
+                         n_windows=len(windows))
     return {
-        'windows': [w for _, features, _ in pairs for w in features],
+        'windows': windows,
         'counters': [c for _, _, c in pairs],
-        'n_subreads': sum(len(z[0]) - 1 for z in zmw_batch),
+        'n_subreads': sum(len(z[0]) - 1 for z, _, _ in pairs),
         'n_zmws': len(zmw_batch),
         'preprocess_time': elapsed,
         'shm_handles': segments,
+        'fallbacks': fallbacks,
     }
 
   def producer() -> None:
+    obs_lib.trace.set_trace_id(run_trace_id)
     try:
       zmws = feeder()
       seq = 0
@@ -856,10 +1248,19 @@ def run_inference(
           timing_rows.append(dict(
               stage='dc_input', runtime=decoded, n_zmws=len(zmw_batch),
               n_examples=0,
-              n_subreads=sum(len(z[0]) - 1 for z in zmw_batch)))
+              n_subreads=sum(len(z[0]) - 1 for z in zmw_batch
+                             if not isinstance(z, faults.CcsFallback))))
           continue
         feat = featurize_batch(zmw_batch, seq)
         seq += 1
+        # Resume bookkeeping: how far the feeder had advanced when this
+        # batch was cut (sharded-out and skipped groups included, which
+        # a resumed feed skips the same way).
+        feat['groups_end'] = counter['n_zmw_processed']
+        last = zmw_batch[-1]
+        feat['last_zmw'] = (last.molecule_name
+                            if isinstance(last, faults.CcsFallback)
+                            else last[1])
         if not put(('batch', feat)):
           # The model stage stopped: nobody else owns these segments.
           featurize_lib.release_segments(feat['shm_handles'])
@@ -889,9 +1290,21 @@ def run_inference(
       state.mol(fd).append_resolved(
           fd['window_pos'], *engine_lib.skipped_window_arrays(fd, options))
     slots = []
+    committed_windows.update(int(fd['subreads'].shape[-2]) for fd in to_model)
+    feat['model_windows_by_width'] = dict(committed_windows)
     for fd in to_model:
       mol = state.mol(fd)
-      slots.append((mol, mol.append_pending(fd['window_pos'])))
+      # Copies: the window tensors may live in a segment released as
+      # soon as this batch is ingested.
+      ccs_ids = fd['subreads'][ccs_row, :, 0].astype(np.uint8)
+      ccs_bq = np.array(fd['ccs_base_quality_scores'])
+      slots.append((mol, mol.append_pending(fd['window_pos'], ccs_ids,
+                                            ccs_bq)))
+    if poison and not poisoned[0]:
+      hit = next((slot for slot in slots if poison in slot[0].name), None)
+      if hit is not None:
+        engine.poison_ticket(hit)
+        poisoned[0] = True
     if to_model:
       # A list: widths may mix; the engine groups them per bucket in
       # featurize order (and copies the rows out of any shm segment).
@@ -910,33 +1323,71 @@ def run_inference(
     if emit_error[0] is not None:
       raise emit_error[0]
 
+  def emit_fallback(fb: faults.CcsFallback) -> None:
+    """Emits a quarantined ZMW's draft CCS read (ccs-fallback)."""
+    result = stitch.fallback_to_arrays(
+        fb.molecule_name, fb.sequence, fb.quality_scores,
+        min_quality=options.min_quality, min_length=options.min_length,
+        max_base_quality=options.max_base_quality, counter=fallback_counter)
+    if result is not None:
+      sink.emit(fb.molecule_name, result[0], result[1],
+                (fb.ec, fb.np_num_passes, fb.rq, fb.rg))
+
   def emit_batch_state(state: _BatchState) -> None:
     """Emit thread: stitch, filter and write one featurize batch's
-    molecules, sorted by name."""
+    molecules, sorted by name, then its ccs-fallback reads; then flush
+    and commit the progress manifest."""
     t0 = time.perf_counter()
+    t_wall = time.time()
+    feat = state.feat
     for name in sorted(state.mols):
       mol = state.mols[name]
-      result = stitch.stitch_arrays(
-          name, np.asarray(mol.pos, dtype=np.int64), mol.ids, mol.quals,
-          max_length=options.max_length, min_quality=options.min_quality,
-          min_length=options.min_length, outcome_counter=outcome)
-      if result is not None:
-        emit_read(name, result[0], result[1], mol.meta)
+      if mol.status == 'dropped':
+        continue
+      try:
+        result = stitch.stitch_arrays(
+            name, np.asarray(mol.pos, dtype=np.int64), mol.ids, mol.quals,
+            max_length=options.max_length, min_quality=options.min_quality,
+            min_length=options.min_length, outcome_counter=outcome)
+        if result is not None:
+          sink.emit(name, result[0], result[1], mol.meta)
+      except Exception as e:
+        if quarantine is None:
+          raise
+        # No draft CCS survives to this stage: a stitch fault skips.
+        quarantine.handle(name, faults.FaultStage.STITCH, e, fallback=None)
+    for fb in feat['fallbacks']:
+      emit_fallback(fb)
     elapsed = time.perf_counter() - t0
     clock['stitch'] += elapsed
-    feat = state.feat
+    obs_lib.record_stage(runner.obs, obs_lib.trace.STAGE_STITCH, t_wall,
+                         time.time(), n_zmws=feat['n_zmws'],
+                         n_windows=state.n_windows)
     timing_rows.append(dict(
         stage='stitch_and_write_fastq', runtime=elapsed,
         n_zmws=feat['n_zmws'], n_examples=state.n_windows,
         n_subreads=feat['n_subreads']))
+    # Durability point: the manifest's (groups_done, tmp_size) names an
+    # output prefix that --resume can truncate back to.
+    sink.flush()
+    manifest.commit(
+        groups_done=feat['groups_end'], tmp_size=sink.tell(), source=source,
+        last_zmw=feat['last_zmw'],
+        extra={'model_windows_by_width': feat['model_windows_by_width']})
 
   def emit_worker() -> None:
+    obs_lib.trace.set_trace_id(run_trace_id)
+    emitted = 0
     try:
       while True:
         state = emit_queue.get()
         if state is None:
           return
         emit_batch_state(state)
+        emitted += 1
+        if crash_after and emitted >= crash_after:
+          raise RuntimeError(f'injected crash after {emitted} batch(es) '
+                             f'({faults_lib.ENV_CRASH_AFTER_BATCHES})')
     except BaseException as e:  # surfaced by check_emit()
       emit_error[0] = e
 
@@ -961,69 +1412,101 @@ def run_inference(
 
   thread = threading.Thread(target=producer, daemon=True)
   n_batches = 0
+  partial = True
   try:
-    if options.cpus and options.cpus > 1 and stage != 'dc_input':
-      pool = featurize_lib.make_pool(options.cpus)
-    if full_mode:
-      emit_queue = queue_lib.Queue(maxsize=max(1, options.emit_queue_depth))
-      emit_thread = threading.Thread(target=emit_worker, daemon=True)
-      emit_thread.start()
-    thread.start()
-    while True:
-      kind, payload = feat_queue.get()
-      if kind == 'done':
-        break
-      if kind == 'error':
-        raise payload
-      t0 = time.perf_counter()
-      try:
-        check_emit()
-        ingest_batch(payload)
-      finally:
-        featurize_lib.release_segments(payload['shm_handles'])
-        clock['ingest'] += time.perf_counter() - t0
-      pop_ready()
-      n_batches += 1
-    t0 = time.perf_counter()
-    if engine is not None:
-      engine.flush()  # end of input: cut the tail packs, drain all
-    clock['ingest'] += time.perf_counter() - t0
-    pop_ready()
-    if states:
-      raise RuntimeError(f'{len(states)} featurize batch(es) never '
-                         'completed the model stage')
-    if emit_thread is not None:
-      emit_put(None)
-      emit_thread.join()
-      check_emit()
-  finally:
-    stop.set()
-    if thread.ident is not None:
-      thread.join(timeout=30)
-    if emit_thread is not None and emit_thread.is_alive():
-      try:
-        emit_queue.put(None, timeout=30)
-      except queue_lib.Full:
-        pass  # the emit thread is stuck; it is a daemon
-      emit_thread.join(timeout=30)
-    if not thread.is_alive():
-      # Batches queued on an error path still own their segments.
+    try:
+      if options.cpus and options.cpus > 1 and stage != 'dc_input':
+        watchdog = faults.PoolWatchdog(
+            lambda: featurize_lib.make_pool(options.cpus),
+            timeout=options.batch_timeout, retries=options.batch_retries,
+            quarantine=quarantine)
+      if full_mode:
+        emit_queue = queue_lib.Queue(maxsize=max(1, options.emit_queue_depth))
+        emit_thread = threading.Thread(target=emit_worker, daemon=True)
+        emit_thread.start()
+      thread.start()
       while True:
-        try:
-          kind, payload = feat_queue.get_nowait()
-        except queue_lib.Empty:
+        kind, payload = feat_queue.get()
+        if kind == 'done':
           break
-        if kind == 'batch':
+        if kind == 'error':
+          raise payload
+        t0 = time.perf_counter()
+        try:
+          check_emit()
+          ingest_batch(payload)
+        finally:
           featurize_lib.release_segments(payload['shm_handles'])
-    if pool is not None:
-      pool.terminate()
-      pool.join()
-    close_sink()
-  os.replace(out_tmp, output)
+          clock['ingest'] += time.perf_counter() - t0
+        pop_ready()
+        n_batches += 1
+        if crash_after and emit_thread is None and n_batches >= crash_after:
+          # Without an emit stage the model stage is the whole consumer.
+          raise RuntimeError(f'injected crash after {n_batches} batch(es) '
+                             f'({faults_lib.ENV_CRASH_AFTER_BATCHES})')
+      t0 = time.perf_counter()
+      if engine is not None:
+        engine.flush()  # end of input: cut the tail packs, drain all
+      clock['ingest'] += time.perf_counter() - t0
+      pop_ready()
+      if states:
+        raise RuntimeError(f'{len(states)} featurize batch(es) never '
+                           'completed the model stage')
+      if emit_thread is not None:
+        emit_put(None)
+        emit_thread.join()
+        check_emit()
+    finally:
+      stop.set()
+      if thread.ident is not None:
+        thread.join(timeout=30)
+      if emit_thread is not None and emit_thread.is_alive():
+        try:
+          emit_queue.put(None, timeout=30)
+        except queue_lib.Full:
+          pass  # the emit thread is stuck; it is a daemon
+        emit_thread.join(timeout=30)
+      if not thread.is_alive():
+        # Batches queued on an error path still own their segments.
+        while True:
+          try:
+            kind, payload = feat_queue.get_nowait()
+          except queue_lib.Empty:
+            break
+          if kind == 'batch':
+            featurize_lib.release_segments(payload['shm_handles'])
+      if watchdog is not None:
+        watchdog.close()
+      sink.close()
+    os.replace(out_tmp, output)
+    manifest.delete()
+    partial = False
+  finally:
+    if dead_letter is not None:
+      dead_letter.close()
+    counters = _run_counters(
+        runner, engine, feeder, counter, window_counter, fallback_counter,
+        quarantine, outcome, clock, output, n_batches,
+        time.perf_counter() - t_start, open_seconds)
+    if partial:
+      counters['partial'] = True
+    _write_sidecars(output, counters, timing_rows)
+  return counters
 
-  total = time.perf_counter() - t_start
+
+def _run_counters(runner: ModelRunner, engine, feeder, counter,
+                  window_counter, fallback_counter, quarantine, outcome,
+                  clock, output: str, n_batches: int, total: float,
+                  open_seconds: float) -> Dict[str, Any]:
+  """The sidecar's counters: the feeder's, the model stage's, the emit
+  thread's and the quarantine's counts, each stage's seconds, the
+  card's time by CUDA events, and the run's settings."""
+  options = runner.options
   counters: Dict[str, Any] = dict(counter)
   counters.update(window_counter)
+  counters.update(fallback_counter)
+  if quarantine is not None:
+    counters.update(quarantine.counters)
   counters.update(dataclasses.asdict(outcome))
   # Host stages; untimed_seconds is total_seconds minus their sum, and
   # negative where stages on different threads overlap.
@@ -1043,13 +1526,16 @@ def run_inference(
     packs = (engine.n_packs, engine.n_pack_rows, engine.n_pad_rows,
              engine.n_packs_by_bucket, engine.n_pad_rows_by_bucket,
              engine.n_starvation_flushes)
+    faulted = (engine.n_oom_bisections, engine.n_device_faults,
+               engine.n_dispatch_timeouts)
   else:
     n_windows_by_bucket = dict.fromkeys(runner.window_buckets, 0)
     packs = (0, 0, 0, {}, {}, 0)
+    faulted = (0, 0, 0)
   counters.update(
       total_seconds=round(total, 6),
       bam_open_seconds=round(open_seconds, 6),
-      end_after_stage=stage,
+      end_after_stage=options.end_after_stage,
       bam_decoder=feeder.bam_decoder,
       output_format='bam' if output.endswith('.bam') else 'fastq',
       n_featurize_batches=n_batches,
@@ -1067,6 +1553,11 @@ def run_inference(
       n_model_packs_by_bucket=packs[3],
       n_model_pad_rows_by_bucket=packs[4],
       n_starvation_flushes=packs[5],
+      n_oom_bisections=faulted[0],
+      n_device_faults=faulted[1],
+      n_dispatch_timeouts=faulted[2],
+      on_zmw_error=options.on_zmw_error,
+      on_device_error=options.on_device_error,
       device_epilogue=int(runner.device_epilogue),
       d2h_bytes_per_pack=runner.d2h_bytes_per_pack,
       device=str(runner.device),
@@ -1074,11 +1565,4 @@ def run_inference(
       inference_dtype=runner.inference_dtype,
       n_quantized_matmuls=runner.n_quantized_matmuls,
   )
-  with open(output + '.runtime.csv', 'w', newline='') as f:
-    writer = csv.DictWriter(f, fieldnames=['stage', 'runtime', 'n_zmws',
-                                           'n_examples', 'n_subreads'])
-    writer.writeheader()
-    writer.writerows(timing_rows)
-  with open(output + '.inference.json', 'w') as f:
-    json.dump(counters, f, indent=2, sort_keys=True)
   return counters

@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
 SOURCES = ('gemm', 'ffn', 'embed_condense', 'ragged_attention',
            'phred_epilogue', 'wavefront', 'banded_attention',
-           'flash_band_attention')
+           'flash_band_attention', 'device_spin')
 NVCC_FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
@@ -76,6 +76,7 @@ SIGNATURES = {
         'dc_flash_band_dkdv': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _P),
     },
+    'device_spin': {'dc_device_spin': (ctypes.c_double, _P)},
 }
 
 _lock = threading.Lock()

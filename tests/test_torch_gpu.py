@@ -13,17 +13,24 @@ K1/K2, K8's logsumexp rtol = atol = 1e-4 in both types (float32 from
 the same inputs); the attention core 1e-4 with a float32 softmax and
 2e-2 with the attn_softmax_dtype=bfloat16 variant, whose model-level
 test takes the reference's bar for the lever (probabilities within
-2e-2, calls agreeing on > 99.9%).
+2e-2, calls agreeing on > 99.9%). The fault surface of `run`: the
+dispatch watchdog against a pack held back by the device spin, the
+half-batch packs of OOM bisection bit for bit, and a real
+torch.cuda.OutOfMemoryError classified as DeviceOomError.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
 
+from deepconsensus_tpu_torch import faults
 from deepconsensus_tpu_torch.calibration import lib as calibration_lib
 from deepconsensus_tpu_torch.inference import runner
 from deepconsensus_tpu_torch.models import config
 from deepconsensus_tpu_torch.models import model as model_lib
 from deepconsensus_tpu_torch.ops import banded_attention as ba
+from deepconsensus_tpu_torch.ops import device_spin
 from deepconsensus_tpu_torch.ops import flash_band_attention as fba
 from deepconsensus_tpu_torch.ops import fused_encoder_block as feb
 from deepconsensus_tpu_torch.ops import fused_window_attention as fwa
@@ -1391,3 +1398,88 @@ def test_ragged_window_bits_depend_only_on_its_offset(cuda):
     out = model(rows, window_lengths=lengths)
     assert torch.equal(out[0, :100], out[1, :100])
     assert torch.equal(out[0, 100:], out[2, 100:])
+
+
+def test_watchdog_gives_up_on_a_spun_pack_and_retires_its_slots(
+    cuda, monkeypatch):
+  """A hang injected at pack 1 spins the card 3 s behind that pack's
+  output copy: finalize raises DispatchTimeoutError after the 0.5 s
+  timeout while the card has not reached the pack's event; the pack's
+  pinned input and output buffers are set aside and no later pack gets
+  them until the event completes; later packs keep running beside the
+  spin and give the bits they give without it."""
+  params = small_params()
+  state = seeded_model(params, 'cpu').state_dict()
+  packs = [_as_window_rows(fake_rows(params, 8, seed=n)) for n in range(7)]
+  want = [runner.ModelRunner(
+      params, state, runner.InferenceOptions(batch_size=8),
+      cuda).predict(p) for p in packs]
+  monkeypatch.setenv(faults.ENV_DEVICE_HANG_AT_PACK, '1')
+  monkeypatch.setenv(faults.ENV_DEVICE_HANG_S, '3')
+  faults._fired.clear()
+  run = runner.ModelRunner(
+      params, state, runner.InferenceOptions(
+          batch_size=8, dispatch_depth=2, dispatch_timeout=0.5), cuda)
+  spins = device_spin.n_launches
+  hung = run.dispatch(packs[0])
+  assert device_spin.n_launches == spins + 1
+  t0 = time.monotonic()
+  with pytest.raises(faults.DispatchTimeoutError, match='watchdog'):
+    run.finalize(hung)
+  assert time.monotonic() - t0 < 2
+  assert not hung.events[-1].query()
+  retired = {t.data_ptr() for ring in (hung.in_ring, hung.ring)
+             for bufs, _ in ring.retired for t in bufs.values()}
+  assert len(retired) == 4  # main, sn; ids, quals
+  for pack, (wid, wq) in zip(packs[1:], want[1:]):
+    handle = run.dispatch(pack)
+    taken = [t.data_ptr() for t in handle.in_ring._slots[
+        handle.in_slot].values()] + [t.data_ptr() for t in handle.host_out]
+    if not hung.events[-1].query():
+      assert not retired & set(taken)
+    ids, quals = run.finalize(handle)
+    np.testing.assert_array_equal(ids, wid)
+    np.testing.assert_array_equal(quals, wq)
+  faults._fired.clear()
+  hung.events[-1].synchronize()
+  run.finalize(run.dispatch(packs[0]))
+  assert not hung.in_ring.retired and not hung.ring.retired
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_half_batch_packs_give_the_full_packs_bits(cuda, dtype):
+  """OOM bisection's halves: the same rows at batch 8 instead of 16 go
+  through K1, K2 and K3 again and give the same ids and qualities, and
+  K1 and K2 the same encodings, bit for bit."""
+  params = small_params(dtype)
+  state = seeded_model(params, 'cpu').state_dict()
+  run = runner.ModelRunner(params, state,
+                           runner.InferenceOptions(batch_size=16), cuda)
+  rows = _as_window_rows(fake_rows(params, 16, seed=9))
+  full_ids, full_quals = run.predict(rows)
+  before = (fwa.n_launches, feb.n_launches, output_plane.n_launches)
+  halves = [run.finalize(run.dispatch(rows[lo:lo + 8], batch_size=8))
+            for lo in (0, 8)]
+  assert (fwa.n_launches - before[0], feb.n_launches - before[1],
+          output_plane.n_launches - before[2]) == (
+              2, 2 * params.num_hidden_layers, 2)
+  np.testing.assert_array_equal(
+      np.concatenate([h[0] for h in halves]), full_ids)
+  np.testing.assert_array_equal(
+      np.concatenate([h[1] for h in halves]), full_quals)
+  # K1 and K2 (the model's encode) give each window the same bits at
+  # either batch.
+  model_rows = fake_rows(params, 16, seed=9).to(cuda)
+  with torch.no_grad():
+    full = run.model.encode(model_rows)
+    halves = torch.cat([run.model.encode(model_rows[:8]),
+                        run.model.encode(model_rows[8:])])
+  assert torch.equal(halves, full)
+
+
+def test_cuda_out_of_memory_is_a_device_oom_error(cuda):
+  with pytest.raises(torch.cuda.OutOfMemoryError) as info:
+    torch.empty(1 << 48, dtype=torch.uint8, device=cuda)
+  error = faults.classify_device_error(info.value)
+  assert isinstance(error, faults.DeviceOomError)
+  assert error.__cause__ is info.value and error.kind == 'transient'

@@ -144,7 +144,9 @@ def test_run_inference_matches_jax(bams, model_pair, tmp_path,
 
 def test_port_imports_no_jax():
   """A fresh interpreter imports every port module (the native library's
-  bindings and the featurization pool's module among them); neither jax
+  bindings, the featurization pool's module and the fault surface's
+  modules among them: inference/faults.py, obs/, io/fastx.py,
+  io/validate.py, testing/faults.py, ops/device_spin.py); neither jax
   nor any deepconsensus_tpu module may load. A source scan backs it
   up."""
   code = (
@@ -156,7 +158,15 @@ def test_port_imports_no_jax():
       '("jax", "jaxlib", "flax", "ml_collections", "orbax", '
       '"deepconsensus_tpu")]\n'
       'bad += [m for m in ("deepconsensus_tpu_torch.native", '
-      '"deepconsensus_tpu_torch.inference.featurize") '
+      '"deepconsensus_tpu_torch.inference.featurize", '
+      '"deepconsensus_tpu_torch.inference.faults", '
+      '"deepconsensus_tpu_torch.obs", "deepconsensus_tpu_torch.obs.metrics", '
+      '"deepconsensus_tpu_torch.obs.trace", '
+      '"deepconsensus_tpu_torch.obs.summarize", '
+      '"deepconsensus_tpu_torch.io.fastx", '
+      '"deepconsensus_tpu_torch.io.validate", '
+      '"deepconsensus_tpu_torch.testing.faults", '
+      '"deepconsensus_tpu_torch.ops.device_spin") '
       'if m not in sys.modules]\n'
       'print(bad)\n'
       'sys.exit(1 if bad else 0)\n')
