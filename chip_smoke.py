@@ -120,6 +120,25 @@ Phases, in order; any failure exits non-zero (nothing is caught):
       --no_cross_batch_packing), a's with --cpus 4 (the featurization
       pool) and with a .bam output; then `stage_split`: a's bfloat16 run
       once per --end_after_stage cut after a warm-up run;
+   n. `train_data` (after g): the data half of `cli train` on b's BAMs
+      and their synthetic truth (testing/synthetic.py): `cli preprocess
+      --use_ccs_smart_windows` at --cpus 0 and --cpus 2 (gated
+      byte-identical, every split with examples), then at
+      --example_width 200 and with fixed 100-wide windows (training mode
+      drops windows wider than --example_width, as the reference does);
+      the streaming loader alone (two workers: first batch, examples/s);
+      one epoch of `cli train --window_buckets 100,200` over the 100-
+      and 200-wide examples with --set streaming=true loader_workers=2
+      augment=true use_pallas_attention=true attention_dropout=0, batch
+      256, 6 steps, in bfloat16 and float32 (gates: K5, K6, K8 with lse,
+      K9, K10, K11 and K12 launched, K7 never, n_train_forward_shapes
+      2, finite losses and gradient norms); one f32 step on a fixed
+      batch of each bucket through the kernels against the plain route
+      (module attention, plain DP): losses 1e-4, gradient norms 1e-3,
+      parameters 1e-5; three f32 steps with --set remat=true against
+      three without, serial stream: parameters within 1e-5, losses 1e-5,
+      peak memory no higher. Prints the per-bucket step ms, peak bytes,
+      loader examples/s and preprocess ZMWs/s.
    m. `faults` (after l): a's `cli run` in bfloat16 at --batch_zmws 16
       with a fault injected, each against an unfaulted run of the same
       process: a corrupt ZMW under --on_zmw_error skip, ccs-fallback and
@@ -212,8 +231,9 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    take most of it.
 5. A `{"kernels": [...]}` line (K1-K14, K2_int8, the attention core and
    the bf16-softmax variant of K1, K2, K2 int8, K4 and the core; each
-   row's launches_by_path includes `faults`, the OOM-bisected run, and
-   `faults_ragged_resume`), the card line again, and the last line
+   row's launches_by_path includes `faults`, the OOM-bisected run,
+   `faults_ragged_resume` and `train_data`), the card line again, and
+   the last line
    `{"ok": true, "device": {...}}`.
 
 `--kernels-only` stops after phase 2 and prints no result (a first
@@ -3267,6 +3287,317 @@ def train_step_breakdown(dtype: str, steps: int = 5, attn: bool = False,
   }
 
 
+# train_data: the data half of `cli train`. Training-mode preprocess
+# keeps the reference's single-width rule (a window wider than
+# --example_width is dropped), so the 200 bucket's examples come from a
+# second preprocess at --example_width 200 over the smart windows, and
+# the 100 bucket's from fixed 100-wide windows (the reference's default
+# geometry; smart windows of <= 100 are ~30% of this cell's).
+TRAIN_DATA_EXAMPLES = 1536  # n_examples_train: 6 steps of TRAIN_BATCH
+TRAIN_DATA_BUFFER = 1024    # the reservoir (the presets' 1e6 never fills)
+TRAIN_DATA_WORKERS = 2
+TRAIN_DATA_SET = {'streaming': True, 'loader_workers': TRAIN_DATA_WORKERS,
+                  'n_examples_train': TRAIN_DATA_EXAMPLES,
+                  'buffer_size': TRAIN_DATA_BUFFER, 'augment': True,
+                  'use_pallas_attention': True, 'attention_dropout': 0.0,
+                  'log_every_n_steps': 1}
+
+
+def run_preprocess_path(bams, truth, tag: str, cpus: int, width: int,
+                        smart: bool) -> dict:
+  """One `cli preprocess` (training mode) into WORK/<tag>; returns its
+  seconds, ZMWs a second, summary and output directory."""
+  from deepconsensus_tpu_torch import cli
+
+  out = os.path.join(WORK, tag)
+  shutil.rmtree(out, ignore_errors=True)
+  t0 = time.perf_counter()
+  if cli.main([
+      'preprocess', '--subreads_to_ccs', bams[0], '--ccs_bam', bams[1],
+      '--truth_to_ccs', truth[0], '--truth_bed', truth[1], '--truth_split',
+      truth[2], '--output', os.path.join(out, '@split', '@split.tfrecord.gz'),
+      '--cpus', str(cpus), '--example_width', str(width),
+      *(('--use_ccs_smart_windows',) if smart else ())]) != 0:
+    raise AssertionError(f'cli preprocess failed ({tag})')
+  seconds = time.perf_counter() - t0
+  with open(os.path.join(out, 'summary', 'summary.summary.training.json')
+            ) as f:
+    summary = json.load(f)
+  return {'out': out, 'seconds': seconds, 'summary': summary,
+          'zmws_per_s': summary['n_zmw_processed'] / seconds}
+
+
+def tree_bytes(root: str) -> dict:
+  out = {}
+  for dirpath, _, files in os.walk(root):
+    for name in files:
+      with open(os.path.join(dirpath, name), 'rb') as f:
+        out[os.path.relpath(os.path.join(dirpath, name), root)] = f.read()
+  return out
+
+
+def run_train_data(train_paths, eval_paths, dtype: str, tag: str,
+                   overrides: dict, buckets=BUCKETS) -> dict:
+  """One `cli train --window_buckets 100,200` epoch (buckets=None: no
+  --window_buckets); returns its launches, per-step losses, widths,
+  times and gradient norms, eval metrics, summary and `faults`
+  counters."""
+  from deepconsensus_tpu_torch import cli
+
+  out = os.path.join(WORK, f'train_data_{tag}')
+  shutil.rmtree(out, ignore_errors=True)
+  reset_launches()
+  t0 = time.perf_counter()
+  if cli.main([
+      'train', '--config', TRAIN_CONFIG, '--out_dir', out, '--train_path',
+      *train_paths, '--eval_path', *eval_paths, '--num_epochs', '1',
+      '--batch_size', str(TRAIN_BATCH),
+      *(('--window_buckets', ','.join(map(str, buckets))) if buckets
+        else ()),
+      *(a for k, v in {'dtype': dtype, **overrides}.items()
+        for a in ('--set', f'{k}={str(v).lower()}'))]) != 0:
+    raise AssertionError(f'cli train failed ({tag})')
+  seconds = time.perf_counter() - t0
+  launches = read_launches()
+  with open(os.path.join(out, 'metrics.jsonl')) as f:
+    entries = [json.loads(line) for line in f]
+  train = [e for e in entries if e['split'] == 'train']
+  return {
+      'out': out, 'launches': launches, 'seconds': seconds,
+      'losses': [e['loss'] for e in train],
+      'widths': [e['window_width'] for e in train],
+      'step_seconds': [e['step_seconds'] for e in train],
+      'grad_norms': [e['grad_norm'] for e in train],
+      'eval': [e for e in entries if e['split'] == 'eval'][-1],
+      'summary': [e for e in entries if e['split'] == 'summary'][-1],
+      'faults': [e for e in entries if e['split'] == 'faults'][-1],
+  }
+
+
+def loader_rate(train_paths, batches: int = 8) -> dict:
+  """The streaming loader alone at the path's settings (bucketed, two
+  workers, batch TRAIN_BATCH): seconds to the first batch (worker
+  start-up and the reservoir fill) and examples a second over the next
+  `batches` (host clock)."""
+  from deepconsensus_tpu_torch.models import data as data_lib
+
+  params = make_params('float32')
+  params.window_buckets = BUCKETS
+  ds = data_lib.StreamingDataset(
+      train_paths, params, batch_size=TRAIN_BATCH,
+      buffer_size=TRAIN_DATA_BUFFER, seed=SEED, workers=TRAIN_DATA_WORKERS)
+  it = iter(ds)
+  try:
+    t0 = time.perf_counter()
+    next(it)
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(batches):
+      next(it)
+    rate = batches * TRAIN_BATCH / (time.perf_counter() - t0)
+  finally:
+    it.close()
+  return {'first_batch_s': first, 'examples_per_s': rate,
+          'parsed_by_worker': {k: v for k, v in ds.counters.items()
+                               if k.startswith('n_parsed_worker_')}}
+
+
+def train_data_step_gates(train_paths, device: str = 'cuda') -> dict:
+  """One f32 step on a fixed batch of each bucket (100, then 200, one
+  parameter set and one LAMB state; seeded weights, non-zero ReZero
+  alphas, no dropout): the kernel route (K5/K6 at 100, K8 with lse, K9,
+  K10 at 200, K11/K12 at both) against the plain route (the module
+  route's attention and the plain DP, plain=True). Gates, the train
+  paths' tolerances: each step's loss within 1e-4 relative, its
+  gradient norm within 1e-3, the parameters after both steps within
+  1e-5; the kernels launched per layer and step on the kernel route,
+  none on the plain one."""
+  import torch
+
+  from deepconsensus_tpu_torch.models import data as data_lib
+  from deepconsensus_tpu_torch.models import model as model_lib
+  from deepconsensus_tpu_torch.models import train as train_lib
+
+  dev = torch.device(device)
+  params = make_params('float32')
+  params.update(attention_dropout=0.0, relu_dropout=0.0,
+                layer_postprocess_dropout=0.0, window_buckets=BUCKETS)
+  fixed = {}
+  for batch in data_lib.DatasetIterator(train_paths, params, TRAIN_BATCH,
+                                        shuffle=False).epoch():
+    fixed.setdefault(batch['rows'].shape[2], batch)
+  runs = {}
+  for route in ('kernels', 'plain'):
+    params.use_pallas_attention = route == 'kernels'
+    model = model_lib.DeepConsensusModel(params, device=dev)
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    model.requires_grad_(True)
+    lamb = train_lib.Lamb(model.named_parameters(), params, 10)
+    loss_fn = train_lib.make_loss(params, plain=route == 'plain')
+    reset_launches()
+    steps = [train_lib.train_step(
+        model, lamb, loss_fn, train_lib.batch_to_device(fixed[w], dev),
+        torch.Generator(device=dev)) for w in BUCKETS]
+    torch.cuda.synchronize()
+    runs[route] = ([float(m['loss']) for m in steps],
+                   [float(m['grad_norm']) for m in steps],
+                   {n: p.detach().clone()
+                    for n, p in model.named_parameters()}, read_launches())
+  (k_loss, k_norm, k_params, launches), (p_loss, p_norm, p_params,
+                                         plain_launches) = (
+                                             runs['kernels'], runs['plain'])
+  layers = params.num_hidden_layers
+  want = {'K5': layers, 'K6': layers, 'K7': 0, 'K8': 0, 'K8_lse': layers,
+          'K9': layers, 'K10': layers, 'K11': 2, 'K12': 2}
+  gates = {
+      'widths': list(BUCKETS),
+      'loss_rel_diff': [abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss)],
+      'grad_norm_rel_diff': [abs(a - b) / abs(b)
+                             for a, b in zip(k_norm, p_norm)],
+      'max_param_diff': max(float((k_params[n] - p).abs().max())
+                            for n, p in p_params.items()),
+      'launches': {n: launches[n] for n in want},
+  }
+  return enforce('train_data_step', gates, [
+      (gates['launches'] == want, f'the kernels did not launch as {want}'),
+      (not any(plain_launches[n] for n in want),
+       'the plain route launched a kernel'),
+      (max(gates['loss_rel_diff']) <= 1e-4, 'a loss differs by > 1e-4'),
+      (max(gates['grad_norm_rel_diff']) <= 1e-3,
+       'a gradient norm differs by > 1e-3'),
+      (gates['max_param_diff'] <= 1e-5,
+       'the parameters differ by > 1e-5 after the two steps'),
+  ])
+
+
+def train_data_gates(bams, device: str = 'cuda') -> dict:
+  """The train_data path on the ragged cell's BAMs and their synthetic
+  truth: `cli preprocess --use_ccs_smart_windows` at --cpus 0 and 2
+  (gated byte-identical, every split with examples), the 200-wide and
+  the fixed 100-wide examples, then one epoch of `cli train
+  --window_buckets 100,200` streamed through two loader workers with
+  augmentation, use_pallas_attention and attention dropout 0, in
+  bfloat16 and float32 (gates: K5, K6, K8 with lse, K9, K10, K11, K12
+  launched, no K7; two step geometries; finite losses), the fixed-batch
+  step gate, and three f32 steps with remat against three without
+  (serial stream: the same batches; parameters and losses within 1e-5,
+  peak memory no higher). Returns the bfloat16 run's launches."""
+  import numpy as np
+
+  from deepconsensus_tpu_torch.testing import synthetic
+
+  t_path = time.perf_counter()
+  truth = synthetic.write_synthetic_truth(bams[1],
+                                          os.path.join(WORK, 'truth'))
+  pre = {
+      'smart_100_cpus0': run_preprocess_path(bams, truth, 'ex_smart100_c0',
+                                             0, 100, True),
+      'smart_100_cpus2': run_preprocess_path(bams, truth, 'ex_smart100_c2',
+                                             2, 100, True),
+      'smart_200_cpus2': run_preprocess_path(bams, truth, 'ex_smart200',
+                                             2, 200, True),
+      'fixed_100_cpus2': run_preprocess_path(bams, truth, 'ex_fixed100',
+                                             2, 100, False),
+  }
+  for tag, r in pre.items():
+    print(json.dumps({'phase': 'main_path', 'path': 'train_data',
+                      'run': f'preprocess_{tag}', 'seconds': r['seconds'],
+                      'zmws_per_s': r['zmws_per_s'], **{
+                          k: v for k, v in r['summary'].items()
+                          if k.startswith(('n_zmw', 'n_examples'))}}),
+          flush=True)
+  same = (tree_bytes(pre['smart_100_cpus0']['out'])
+          == tree_bytes(pre['smart_100_cpus2']['out']))
+  split_examples = {tag: {s: r['summary'].get(f'n_examples_{s}', 0)
+                          for s in ('train', 'eval', 'test')}
+                    for tag, r in pre.items()}
+  enforce('train_data_preprocess', {
+      'cpus0_cpus2_byte_identical': same, 'split_examples': split_examples,
+  }, [(same, '--cpus 0 and --cpus 2 shards differ'),
+      (all(n > 0 for v in split_examples.values() for n in v.values()),
+       'a split has no examples')])
+  train_paths = [os.path.join(pre[t]['out'], 'train', '*')
+                 for t in ('fixed_100_cpus2', 'smart_200_cpus2')]
+  # Eval over the eval and test splits: one batch of each width.
+  eval_paths = [os.path.join(pre[t]['out'], split, '*')
+                for t in ('fixed_100_cpus2', 'smart_200_cpus2')
+                for split in ('eval', 'test')]
+  rate = loader_rate(train_paths)
+  print(json.dumps({'phase': 'main_path', 'path': 'train_data',
+                    'run': 'loader', **rate}), flush=True)
+  runs = {dtype: run_train_data(train_paths, eval_paths, dtype, dtype,
+                                TRAIN_DATA_SET)
+          for dtype in ('bfloat16', 'float32')}
+  for dtype, r in runs.items():
+    print(json.dumps({
+        'phase': 'main_path', 'path': 'train_data', 'run': dtype,
+        'launches': r['launches'], 'seconds': r['seconds'],
+        'losses': r['losses'], 'widths': r['widths'],
+        'step_ms': [1e3 * t for t in r['step_seconds']],
+        'grad_norms': r['grad_norms'], 'eval_loss': r['eval'].get(
+            'eval/loss'),
+        'step_p50_ms_by_width': {
+            w: 1e3 * r['summary'][f'train_step_p50_s_width_{w}']
+            for w in BUCKETS
+            if f'train_step_p50_s_width_{w}' in r['summary']},
+        'peak_bytes': r['summary']['peak_bytes'], 'faults': r['faults']}),
+          flush=True)
+  steps = TRAIN_DATA_EXAMPLES // TRAIN_BATCH
+  want = ('K5', 'K6', 'K8_lse', 'K9', 'K10', 'K11', 'K12')
+  gates = {
+      'launches': {k: {n: r['launches'][n] for n in want + ('K7',)}
+                   for k, r in runs.items()},
+      'forward_shapes': {k: r['faults']['n_train_forward_shapes']
+                         for k, r in runs.items()},
+      'steps': {k: len(r['losses']) for k, r in runs.items()},
+      'batches_by_bucket': {k: {w: r['faults'].get(
+          f'n_train_batches_by_bucket_{w}', 0) for w in BUCKETS}
+                            for k, r in runs.items()},
+  }
+  checks = [
+      (all(all(v[n] > 0 for n in want) and v['K7'] == 0
+           for v in gates['launches'].values()),
+       f'a kernel of {want} never launched (or K7 did)'),
+      (all(v == 2 for v in gates['forward_shapes'].values()),
+       'n_train_forward_shapes != 2'),
+      (all(v == steps for v in gates['steps'].values()),
+       f'a run did not take {steps} steps'),
+      (all(math.isfinite(x) for r in runs.values()
+           for x in r['losses'] + r['grad_norms']
+           + [r['eval'].get('eval/loss', math.nan)]),
+       'a loss, gradient norm or the eval loss is not finite'),
+  ]
+  enforce('train_data', gates, checks)
+  train_data_step_gates(train_paths, device)
+  # Three steps (the first pays remat's one-time set-up), in a serial
+  # stream: the same batches in both runs.
+  remat_set = {**TRAIN_DATA_SET, 'loader_workers': 0,
+               'n_examples_train': 3 * TRAIN_BATCH}
+  remat = {on: run_train_data(train_paths, eval_paths, 'float32',
+                              f'remat_{on}', {**remat_set, 'remat': on})
+           for on in (False, True)}
+  weights = [np.load(os.path.join(remat[on]['out'], 'weights.npz'))
+             for on in (False, True)]
+  diff = max(float(np.abs(weights[0][k] - weights[1][k]).max())
+             for k in weights[0].files)
+  peaks = {str(on): remat[on]['summary']['peak_bytes'] for on in remat}
+  loss_rel = [abs(a - b) / abs(b) for a, b in zip(remat[True]['losses'],
+                                                  remat[False]['losses'])]
+  enforce('train_data_remat', {
+      'max_param_diff': diff, 'peak_bytes': peaks,
+      'loss_rel_diff': loss_rel,
+      'step_ms': {str(on): [1e3 * t for t in remat[on]['step_seconds']]
+                  for on in remat},
+      'widths': {str(on): remat[on]['widths'] for on in remat},
+      'losses': {str(on): remat[on]['losses'] for on in remat},
+      'path_seconds': time.perf_counter() - t_path,
+  }, [(diff <= 1e-5, 'remat moved a parameter by > 1e-5 after 3 steps'),
+      (len(loss_rel) == 3 and max(loss_rel) <= 1e-5,
+       'a remat step loss differs by > 1e-5 relative'),
+      (peaks['True'] <= peaks['False'], 'remat raised the peak memory')])
+  return runs['bfloat16']['launches']
+
+
 def make_run_inputs():
   """The `run` paths' synthetic BAMs ({'L100': ..., 'ragged': ...}) and
   the seeded full-width weights (.npz), under WORK."""
@@ -3640,6 +3971,7 @@ def main(argv) -> int:
   train_flash_gates(flash_runs, module_f32)
   train_attn_step_gates(flash=True)
   launches_by_path['train_flash'] = flash_runs['bfloat16']['launches']
+  launches_by_path['train_data'] = train_data_gates(bams['ragged'])
   long_window_gates()
   for dtype, route in (('bfloat16', 'train'), ('float32', 'train'),
                        ('bfloat16', 'train_attn'), ('bfloat16', 'train_band'),

@@ -1,6 +1,16 @@
-"""Command line of the port: `run` (BAMs -> polished FASTQ), `train`,
-`evaluate`, `validate` (preflight checks of the inputs) and `trace`
-(summary of a `run --trace` span file).
+"""Command line of the port: `preprocess` (BAMs -> TFRecord examples),
+`run` (BAMs -> polished FASTQ), `train`, `evaluate`, `validate`
+(preflight checks of the inputs) and `trace` (summary of a `run
+--trace` span file).
+
+  python -m deepconsensus_tpu_torch.cli preprocess \\
+      --subreads_to_ccs subreads_to_ccs.bam --ccs_bam ccs.bam \\
+      --truth_to_ccs truth_to_ccs.bam --truth_bed truth.bed \\
+      --truth_split truth_split.tsv \\
+      --output 'examples/@split/@split.tfrecord.gz' --cpus 4
+
+writes examples/{train,eval,test}/ and examples/summary/ (without the
+truth flags: unlabelled examples for inference).
 
   python -m deepconsensus_tpu_torch.cli run \\
       --subreads_to_ccs subreads_to_ccs.bam --ccs_bam ccs.bam \\
@@ -15,7 +25,12 @@ Mixed-width windows from the CCS `wl` tag: add --use_ccs_smart_windows
       --train_path 'train/*.tfrecord.gz' --eval_path 'eval/*.tfrecord.gz'
 
 writes model_out/params.json, checkpoints and weights.npz, which `run`
-takes as --params and --weights.
+takes as --params and --weights. --window_buckets 100,200 trains on
+windows of both widths (width-pure batches, one step each); --set
+streaming=true --set n_examples_train=N streams the shards (--set
+loader_workers=2 decodes them in two processes; --on_shard_error skip
+reads past a bad shard); --set augment=true augments training batches;
+--set remat=true recomputes each encoder sublayer in the backward pass.
 
 Inference levers, on `run` and `evaluate`: --inference_dtype bfloat16
 casts the weights once at load and runs the model in bfloat16;
@@ -49,8 +64,9 @@ summarizes (exit 2 on a corrupt trace), and
 checks a BAM pair or TFRecord shards end to end (exit 1 on a failed
 check, the JSON report on stdout).
 
-`run`, `train` and `evaluate` run on the card unless --device cpu is
-given; without a card the default raises. Weights are a
+`run`, `train`, `evaluate` and `preprocess` run on the card unless
+--device cpu is given; without a card the default raises (`preprocess`
+does no work on the card, and still asks for it, as the others do). Weights are a
 `models/weights.save_npz` file (see the README for the one-liner that
 writes one from a JAX checkpoint).
 """
@@ -129,6 +145,59 @@ def _apply_overrides(params, overrides: List[str]) -> None:
     params[key] = _coerce_override(raw, params.get(key))
 
 
+def _add_preprocess(sub) -> None:
+  p = sub.add_parser('preprocess', help='Generate examples from BAMs.')
+  p.add_argument('--subreads_to_ccs', required=True)
+  p.add_argument('--ccs_bam', required=True)
+  p.add_argument('--output', required=True,
+                 help="Output path; '@split' expands per split.")
+  p.add_argument('--max_passes', type=int, default=20)
+  p.add_argument('--example_width', type=int, default=100)
+  p.add_argument('--use_ccs_bq', action='store_true')
+  p.add_argument('--ins_trim', type=int, default=5)
+  p.add_argument('--use_ccs_smart_windows', action='store_true')
+  p.add_argument('--truth_bed')
+  p.add_argument('--truth_to_ccs')
+  p.add_argument('--truth_split')
+  p.add_argument('--limit', type=int, default=0)
+  p.add_argument('--cpus', type=int, default=0)
+  p.add_argument('--shard', default=None, metavar='I/N',
+                 type=_parse_shard,
+                 help='Process only ZMWs with zm %% N == I (shard the '
+                 'output paths too).')
+  p.add_argument('--compression', choices=['bgzf', 'gzip'], default='bgzf',
+                 help='.gz shard framing: bgzf (default; valid gzip, '
+                 'parallel-decodable blocks) or single-member gzip.')
+  p.add_argument('--device', default=None, help='cuda (default) or cpu.')
+
+
+def _preprocess(args) -> int:
+  from deepconsensus_tpu_torch.devices import resolve_device
+  from deepconsensus_tpu_torch.preprocess.driver import run_preprocess
+
+  resolve_device(args.device)
+  summary = run_preprocess(
+      subreads_to_ccs=args.subreads_to_ccs,
+      ccs_bam=args.ccs_bam,
+      output=args.output,
+      max_passes=args.max_passes,
+      example_width=args.example_width,
+      use_ccs_bq=args.use_ccs_bq,
+      ins_trim=args.ins_trim,
+      use_ccs_smart_windows=args.use_ccs_smart_windows,
+      truth_bed=args.truth_bed,
+      truth_to_ccs=args.truth_to_ccs,
+      truth_split=args.truth_split,
+      limit=args.limit,
+      cpus=args.cpus,
+      shard=args.shard,
+      compression=args.compression.upper(),
+  )
+  print(json.dumps({k: v for k, v in summary.items()
+                    if k.startswith(('n_zmw', 'n_examples'))}))
+  return 0
+
+
 def _add_train(sub) -> None:
   p = sub.add_parser('train', help='Train a model on TFRecord shards.')
   p.add_argument('--config', default='transformer_learn_values+custom',
@@ -142,6 +211,18 @@ def _add_train(sub) -> None:
                  dest='overrides',
                  help='Config override, repeatable (e.g. --set '
                  'loss_reg=0.5 --set dtype=float32).')
+  p.add_argument('--on_shard_error', choices=('fail', 'skip'),
+                 help='Streaming-loader policy for an undecodable shard: '
+                 'fail (default) aborts, skip counts and logs the shard '
+                 'and keeps training.')
+  p.add_argument('--window_buckets', default=None,
+                 type=_parse_window_buckets, metavar='L1,L2,...',
+                 help='Bucketed training, e.g. 100,200: each window pads '
+                 'to the smallest bucket that fits, batches hold one '
+                 'width, and each takes its own step over the one set '
+                 'of parameters (n_train_forward_shapes == number of '
+                 'buckets). The smallest bucket must equal max_length. '
+                 'Default: one width, max_length.')
   p.add_argument('--device', default=None, help='cuda (default) or cpu.')
 
 
@@ -156,6 +237,10 @@ def _train(args) -> int:
   config_lib.finalize_params(params)
   if args.batch_size:
     params.batch_size = args.batch_size
+  if args.on_shard_error:
+    params.on_shard_error = args.on_shard_error
+  if args.window_buckets:
+    params.window_buckets = args.window_buckets
   metrics = train_lib.run_training(
       params, args.out_dir, train_patterns=args.train_path,
       eval_patterns=args.eval_path, num_epochs=args.num_epochs,
@@ -393,12 +478,15 @@ def _trace(args) -> int:
 def main(argv: Optional[List[str]] = None) -> int:
   parser = argparse.ArgumentParser(prog='deepconsensus_tpu_torch')
   sub = parser.add_subparsers(dest='command', required=True)
+  _add_preprocess(sub)
   _add_run(sub)
   _add_train(sub)
   _add_evaluate(sub)
   _add_validate(sub)
   _add_trace(sub)
   args = parser.parse_args(argv)
+  if args.command == 'preprocess':
+    return _preprocess(args)
   if args.command == 'train':
     return _train(args)
   if args.command == 'evaluate':

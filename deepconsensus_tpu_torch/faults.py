@@ -241,7 +241,9 @@ def read_dead_letters(path: str) -> List[Dict[str, Any]]:
 # RESOURCE_EXHAUSTED inside the pack's dispatch, LOST_AT_PACK a
 # halted-device error, HANG_AT_PACK holds the pack's last event back
 # ENV_DEVICE_HANG_S seconds (default 30) so the dispatch watchdog must
-# fire.
+# fire. ENV_KILL_SHARD_READER SIGKILLs the streaming loader's worker
+# process that is about to read a shard whose path contains the value
+# (once, with ENV_KILL_TOKEN set).
 
 ENV_KILL_ZMW = 'DCTPU_FAULT_KILL_ZMW'
 ENV_KILL_TOKEN = 'DCTPU_FAULT_KILL_TOKEN'
@@ -251,6 +253,7 @@ ENV_DEVICE_OOM_AT_PACK = 'DCTPU_FAULT_DEVICE_OOM_AT_PACK'
 ENV_DEVICE_LOST_AT_PACK = 'DCTPU_FAULT_DEVICE_LOST_AT_PACK'
 ENV_DEVICE_HANG_AT_PACK = 'DCTPU_FAULT_DEVICE_HANG_AT_PACK'
 ENV_DEVICE_HANG_S = 'DCTPU_FAULT_DEVICE_HANG_S'
+ENV_KILL_SHARD_READER = 'DCTPU_FAULT_KILL_SHARD_READER'
 
 # Hooks that already fired in this process (consume-once semantics).
 _fired: set = set()
@@ -290,6 +293,20 @@ def maybe_kill_worker(zmw_name: str) -> None:
   ZMW (once, with ENV_KILL_TOKEN set)."""
   target = os.environ.get(ENV_KILL_ZMW)
   if not target or target != zmw_name:
+    return
+  if not _claim_token():
+    return
+  import signal
+
+  os.kill(os.getpid(), signal.SIGKILL)
+
+
+def maybe_kill_shard_reader(shard_path: str) -> None:
+  """SIGKILLs the current (shard-reader worker) process when
+  ENV_KILL_SHARD_READER is a substring of the shard path about to be
+  read (once, with ENV_KILL_TOKEN set)."""
+  target = os.environ.get(ENV_KILL_SHARD_READER)
+  if not target or target not in shard_path:
     return
   if not _claim_token():
     return

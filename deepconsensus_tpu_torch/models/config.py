@@ -133,6 +133,7 @@ def _set_base_transformer_hparams(params: Params) -> None:
   params.batch_size = 256
   params.num_epochs = 9
   params.num_epochs_for_decay = 9
+  params.buffer_size = 1_000_000
   params.initial_learning_rate = 3.6246e-3
   params.end_learning_rate = 2.86594e-5
   params.warmup_steps = 35536
@@ -213,6 +214,33 @@ def get_config(config_name: Optional[str] = None) -> Params:
   params.band_width = None
   params.eval_every_n_steps = 3000
   params.log_every_n_steps = 100
+  # Window length buckets (None: one bucket, max_length). Training with
+  # several (e.g. (100, 200)) triages each example into the smallest
+  # bucket that fits and takes one step per width-pure batch; the
+  # smallest bucket must equal max_length.
+  params.window_buckets = None
+  # The StreamingDataset (models/data.py) in place of the in-memory
+  # DatasetIterator; n_examples_train (>= one batch) sizes an epoch's
+  # steps. loader_workers > 0 decodes shards in that many spawned
+  # processes; buffer_size is the shuffle reservoir (the presets' 1e6).
+  params.streaming = False
+  params.loader_workers = 0
+  params.n_examples_train = 0
+  # A shard the streaming loader cannot decode: 'fail' aborts, 'skip'
+  # counts it (n_shard_errors) and reads on (--on_shard_error).
+  params.on_shard_error = 'fail'
+  # Training-time window augmentation (models/data.py::augment_batch),
+  # each transform per example with its probability; training batches
+  # only.
+  params.augment = False
+  params.augment_perm_prob = 0.5     # shuffle subread order
+  params.augment_drop_prob = 0.3     # downsample subreads (keep >= half)
+  params.augment_rc_prob = 0.5       # reverse-complement the window
+  params.augment_jitter_prob = 0.3   # +/-1 jitter on nonzero PW/IP
+  # Recompute each encoder sublayer in the backward pass instead of
+  # keeping its activations (torch.utils.checkpoint): less device
+  # memory for more time.
+  params.remat = False
   if config_name is None:
     return params
 

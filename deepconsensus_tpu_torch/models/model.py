@@ -24,8 +24,12 @@ Training (`forward_train`) takes the module route on any device, as the
 reference's training path does, with dropout where Flax puts it: on the
 input (input_dropout), on the attention weights, after the FFN's ReLU
 and on each sublayer's output inside its ReZero wrapper. Masks are
-drawn from an explicit torch.Generator on the rows' device.
-BandedSelfAttention routes as the reference's does, in this order:
+drawn from an explicit torch.Generator on the rows' device. With
+params.remat each encoder sublayer (attention or FFN with its ReZero
+wrapper) runs under torch.utils.checkpoint, as the reference's
+nn.remat of each block: its activations are recomputed in the backward
+pass, with the generator set back so the recompute draws the same
+masks. BandedSelfAttention routes as the reference's does, in this order:
 
 * windows of RING_ATTENTION_MIN_LEN (256) and longer without attention
   dropout take the blockwise ring scan (parallel/ring_attention.py),
@@ -333,6 +337,38 @@ class ResidualWrapper(nn.Module):
     return x + self.alpha.to(y.dtype) * y
 
 
+def _checkpointed(fn, x: torch.Tensor, drop: Optional[Dropout]
+                  ) -> torch.Tensor:
+  """fn(x) under torch.utils.checkpoint (non-reentrant). Its
+  preserve_rng_state covers the default generators only, and the masks
+  come from drop's explicit generator: the generator's state before the
+  first call is set again for the recompute, and its state at that
+  point restored after it, so the recompute draws the same masks and
+  the stream goes on as if it had not run."""
+  from torch.utils import checkpoint
+
+  generator = None if drop is None else drop.generator
+  if generator is None:
+    return checkpoint.checkpoint(fn, x, use_reentrant=False,
+                                 preserve_rng_state=False)
+  before = generator.get_state()
+  calls = []
+
+  def run(inp):
+    if not calls:
+      calls.append(1)
+      return fn(inp)
+    after = generator.get_state()
+    generator.set_state(before)
+    try:
+      return fn(inp)
+    finally:
+      generator.set_state(after)
+
+  return checkpoint.checkpoint(run, x, use_reentrant=False,
+                               preserve_rng_state=False)
+
+
 class LayerNorm(nn.Module):
   """Flax LayerNorm (float32 statistics, E[x^2] - E[x]^2 variance)."""
 
@@ -358,6 +394,7 @@ class EncoderStack(nn.Module):
   def __init__(self, params, device):
     super().__init__()
     self.num_layers = params.num_hidden_layers
+    self.remat = bool(params.get('remat', False))
     quantized = params.get('quantize_matmuls') == 'int8'
     softmax_dtype = fwa.resolve_softmax_dtype(
         params.get('attn_softmax_dtype'))
@@ -381,13 +418,23 @@ class EncoderStack(nn.Module):
               ragged_buckets: Tuple[int, ...] = (),
               drop: Optional[Dropout] = None,
               plain: bool = False) -> torch.Tensor:
+    """remat (a training lever, never on ragged slots) recomputes each
+    sublayer in the backward pass."""
+    remat = (self.remat and ragged_widths is None
+             and torch.is_grad_enabled())
     for n in range(self.num_layers):
-      x = self.layer('attention_wrapper', n)(
-          x, self.layer('self_attention', n)(x, dtype, ragged_widths,
-                                             ragged_buckets, drop, plain),
-          drop)
-      x = self.layer('ffn_wrapper', n)(
-          x, self.layer('ffn', n)(x, dtype, drop), drop)
+      def attention(x, n=n):
+        return self.layer('attention_wrapper', n)(
+            x, self.layer('self_attention', n)(x, dtype, ragged_widths,
+                                               ragged_buckets, drop, plain),
+            drop)
+
+      def ffn(x, n=n):
+        return self.layer('ffn_wrapper', n)(
+            x, self.layer('ffn', n)(x, dtype, drop), drop)
+
+      for sublayer in (attention, ffn):
+        x = _checkpointed(sublayer, x, drop) if remat else sublayer(x)
     return self.output_normalization(x)
 
   def kernel_blocks(self) -> Tuple[feb.EncoderBlockWeights, ...]:

@@ -2,18 +2,32 @@
 eval with checkpoints, crash resume.
 
 A trimmed port of deepconsensus_tpu/models/train.py for one device. The
-step is the reference's: training forward with dropout, AlignmentLoss
+step is the reference's: training forward with dropout (each encoder
+sublayer recomputed in the backward pass with params.remat), AlignmentLoss
 (K11 with rows, then K12 in the backward on the card; K13/K14 with
 band_width), autograd through the costs and the model, then LAMB
 written out per parameter leaf as optax.lamb composes it. Metrics keep
-the reference's keys, minus the identity metrics. Not ported (ROADMAP:
-training features): streaming loader and workers, augmentation,
-bucketed training, the NaN sentinel and rollback, multi-GPU and
-elastic training, preemption, TensorBoard and the metrics registry,
-warm start.
+the reference's keys, minus the identity metrics.
+
+Input: the in-memory DatasetIterator, or with params.streaming the
+StreamingDataset (loader_workers processes, epochs of n_examples_train
+// batch_size steps, reseeded by the resume step); with several
+params.window_buckets each batch holds one width and takes its own
+step over the one parameter set and LAMB state (the K5-K7 route at 100,
+K8-K10 past 128 with use_pallas_attention, K11/K12 at each width);
+params.augment applies data.augment_batch to training batches. Two
+prefetch layers as in the reference: data.prefetch_iterator runs the
+host loader on a thread, and TrainBatchPrefetcher copies batch i + 1
+to the card on a copy stream while step i runs.
+
+Not ported (ROADMAP: training features, slice 19): checkpoint
+manifests and quarantine, the NaN sentinel and rollback, preemption,
+retries, warm start, best-checkpoint selection, TensorBoard and the
+metrics registry; multi-GPU and elastic training.
 
 Outputs under out_dir: params.json, metrics.jsonl (one JSON object per
-logged step, eval and the final summary), checkpoint_metrics.tsv (eval
+logged step, eval, the final summary and a 'faults' split with the
+loader's and the prefetcher's counters), checkpoint_metrics.tsv (eval
 metrics per checkpoint), checkpoints/checkpoint-<step>.pt (model,
 optimizer, step and dropout generator; a restart resumes from the
 newest) and, at the end, weights.npz for `cli run --weights`.
@@ -22,8 +36,10 @@ from __future__ import annotations
 
 import json
 import os
+import queue as queue_lib
 import re
 import statistics
+import threading
 import time
 from typing import Callable, Dict, Iterator, Optional
 
@@ -32,6 +48,7 @@ import torch
 
 from deepconsensus_tpu_torch import constants
 from deepconsensus_tpu_torch.devices import resolve_device
+from deepconsensus_tpu_torch.faults import WindowBucketError
 from deepconsensus_tpu_torch.models import config as config_lib
 from deepconsensus_tpu_torch.models import data as data_lib
 from deepconsensus_tpu_torch.models import losses as losses_lib
@@ -150,6 +167,113 @@ def batch_to_device(batch: Dict[str, np.ndarray], device
           device),
       'label': torch.from_numpy(batch['label']).to(device).long(),
   }
+
+
+class TrainBatchPrefetcher:
+  """Double-buffered batch transfer, the reference's TrainBatchPrefetcher
+  on one card: a thread takes host batches, pins them and copies them
+  to the card on a copy stream, recording an event, while the card runs
+  the step before; the consumer makes the compute stream wait on the
+  event. A queue of one ready batch plus the one in use: depth two. On
+  the CPU the thread just converts.
+
+  stats(): n_batch_launches, n_batches_prefetched (launches after the
+  first, each made while the step before was in flight) and
+  train_transfer_overlap_fraction (their ratio; (N - 1) / N on a clean
+  N-step run). An error of the host side re-raises at the consumer;
+  close() stops the thread and closes the host iterator.
+  """
+
+  def __init__(self, batches, device: torch.device):
+    self._cuda = device.type == 'cuda'
+    if self._cuda and device.index is None:
+      # The thread makes the device current, which takes an index.
+      device = torch.device('cuda', torch.cuda.current_device())
+    self._batches = batches
+    self._device = device
+    self._copy_stream = (torch.cuda.Stream(device) if self._cuda else None)
+    self._lock = threading.Lock()
+    self._n_launched = 0  # guarded by: self._lock
+    self._stop = threading.Event()
+    self._queue: queue_lib.Queue = queue_lib.Queue(maxsize=1)
+    self._thread = threading.Thread(target=self._produce, daemon=True,
+                                    name='train-batch-prefetch')
+    self._thread.start()
+
+  def _launch(self, host: Dict[str, np.ndarray]):
+    arrays = {'rows': np.ascontiguousarray(host['rows'], np.float32),
+              'label': np.asarray(host['label'], np.int64)}
+    with self._lock:
+      self._n_launched += 1
+    if not self._cuda:
+      return {k: torch.from_numpy(v) for k, v in arrays.items()}, None
+    with torch.cuda.stream(self._copy_stream):
+      out = {k: torch.from_numpy(v).pin_memory().to(
+          self._device, non_blocking=True) for k, v in arrays.items()}
+      event = torch.cuda.Event()
+      event.record(self._copy_stream)
+    return out, event
+
+  def _put(self, item) -> bool:
+    while not self._stop.is_set():
+      try:
+        self._queue.put(item, timeout=0.1)
+        return True
+      except queue_lib.Full:
+        continue
+    return False
+
+  def _produce(self):
+    try:
+      if self._cuda:
+        torch.cuda.set_device(self._device)
+      for host in self._batches:
+        if self._stop.is_set() or not self._put(('batch',
+                                                 self._launch(host))):
+          return
+      self._put(('end', None))
+    except BaseException as e:  # noqa: BLE001 - re-raised at the consumer
+      self._put(('error', e))
+
+  def __iter__(self):
+    return self
+
+  def __next__(self) -> Dict[str, torch.Tensor]:
+    kind, payload = self._queue.get()
+    if kind == 'end':
+      raise StopIteration
+    if kind == 'error':
+      raise payload
+    batch, event = payload
+    if event is not None:
+      compute = torch.cuda.current_stream(self._device)
+      compute.wait_event(event)
+      for t in batch.values():
+        t.record_stream(compute)
+    return batch
+
+  def stats(self) -> Dict[str, float]:
+    with self._lock:
+      launched = self._n_launched
+    overlapped = max(launched - 1, 0)
+    return {
+        'n_batch_launches': float(launched),
+        'n_batches_prefetched': float(overlapped),
+        'train_transfer_overlap_fraction': (
+            round(overlapped / launched, 4) if launched else 0.0),
+    }
+
+  def close(self) -> None:
+    self._stop.set()
+    while self._thread.is_alive():
+      try:
+        self._queue.get(timeout=0.1)
+      except queue_lib.Empty:
+        pass
+    self._thread.join()
+    close = getattr(self._batches, 'close', None)
+    if close is not None:
+      close()
 
 
 def train_step(model: model_lib.DeepConsensusModel, optimizer: Lamb,
@@ -273,16 +397,35 @@ def run_training(
   if not train_patterns or not eval_patterns:
     raise ValueError('training needs train and eval TFRecord patterns '
                      '(--train_path, --eval_path)')
+  try:
+    # One step a bucket width over one parameter set: the set must be
+    # valid (strictly ascending, the smallest max_length) from the start.
+    config_lib.resolve_window_buckets(params)
+  except ValueError as e:
+    raise WindowBucketError(str(e)) from e
   num_epochs = int(num_epochs or params.num_epochs)
   loss_fn = make_loss(params, plain)
-  train_ds = data_lib.DatasetIterator(
-      patterns=train_patterns, params=params, batch_size=params.batch_size,
-      seed=params.seed)
+  streaming = bool(params.get('streaming', False))
+  train_ds = None
+  if streaming:
+    # Epochs become fixed step counts; the stream itself is made after
+    # the checkpoint restore, reseeded by the resume step.
+    n_train = int(params.get('n_examples_train', 0) or 0)
+    if n_train < params.batch_size:
+      raise ValueError(
+          'streaming training requires params.n_examples_train (>= one '
+          'batch) to size the step budget')
+    steps_per_epoch = n_train // params.batch_size
+  else:
+    train_ds = data_lib.DatasetIterator(
+        patterns=train_patterns, params=params,
+        batch_size=params.batch_size, seed=params.seed)
+    steps_per_epoch = train_ds.steps_per_epoch
   eval_ds = data_lib.DatasetIterator(
       patterns=eval_patterns, params=params, batch_size=params.batch_size,
       shuffle=False)
-  decay_steps = train_ds.steps_per_epoch * params.get('num_epochs_for_decay',
-                                                      num_epochs)
+  decay_steps = steps_per_epoch * params.get('num_epochs_for_decay',
+                                             num_epochs)
   os.makedirs(out_dir, exist_ok=True)
   config_lib.save_params_as_json(out_dir, params)
   sidecars = _Sidecars(out_dir)
@@ -313,7 +456,26 @@ def run_training(
     os.replace(path + '.tmp', path)
     sidecars.checkpoint_row(at_step, eval_metrics)
 
+  stream_ds = None
+  if streaming:
+    # A restarted run draws a fresh stream, not the corpus' head again.
+    stream_ds = data_lib.StreamingDataset(
+        patterns=train_patterns, params=params,
+        batch_size=params.batch_size,
+        buffer_size=int(params.get('buffer_size', 100_000)),
+        workers=int(params.get('loader_workers', 0) or 0),
+        seed=int(params.seed) + step,
+        on_shard_error=params.get('on_shard_error', 'fail'))
+
   def train_batches() -> Iterator[Dict[str, np.ndarray]]:
+    if streaming:
+      it = iter(stream_ds)
+      try:
+        for _ in range(max(steps_per_epoch * num_epochs - step, 0)):
+          yield next(it)
+      finally:
+        it.close()
+      return
     steps_to_skip = step
     for _ in range(num_epochs):
       for batch in train_ds.epoch():
@@ -322,30 +484,54 @@ def run_training(
           continue
         yield batch
 
+  def maybe_augmented() -> Iterator[Dict[str, np.ndarray]]:
+    # Training batches only; seeded by the resume step, so a resumed run
+    # draws a fresh augmentation stream.
+    batches = train_batches()
+    if not params.get('augment', False):
+      yield from batches
+      return
+    aug_rng = np.random.default_rng(int(params.seed) + 7919 * (step + 1))
+    try:
+      for b in batches:
+        yield data_lib.augment_batch(b, params, aug_rng)
+    finally:
+      batches.close()
+
   eval_every = int(params.get('eval_every_n_steps', 3000))
   log_every = int(params.get('log_every_n_steps', 100))
   if device.type == 'cuda':
     torch.cuda.reset_peak_memory_stats(device)
   step_seconds = []
+  seconds_by_width: Dict[int, list] = {}
   final_metrics: Dict[str, float] = {}
-  for host_batch in train_batches():
-    t0 = time.perf_counter()
-    m = train_step(model, optimizer, loss_fn,
-                   batch_to_device(host_batch, device), generator)
-    if device.type == 'cuda':
-      torch.cuda.synchronize(device)
-    step_seconds.append(time.perf_counter() - t0)
-    step += 1
-    if step % log_every == 0:
-      m_host = {k: float(v) for k, v in m.items()}
-      m_host['train/accuracy'] = m_host['accuracy_correct'] / max(
-          m_host['accuracy_total'], 1)
-      m_host['step_seconds'] = step_seconds[-1]
-      sidecars.log(step, 'train', m_host)
-    if step % eval_every == 0:
-      final_metrics = run_eval(model, loss_fn, eval_ds, device)
-      sidecars.log(step, 'eval', final_metrics)
-      save(step, final_metrics)
+  # Two prefetch layers: the host loader on a thread, and the H2D copy
+  # of batch i + 1 under step i.
+  prefetcher = TrainBatchPrefetcher(
+      data_lib.prefetch_iterator(maybe_augmented()), device)
+  try:
+    for batch in prefetcher:
+      width = int(batch['rows'].shape[2])
+      t0 = time.perf_counter()
+      m = train_step(model, optimizer, loss_fn, batch, generator)
+      if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+      step_seconds.append(time.perf_counter() - t0)
+      seconds_by_width.setdefault(width, []).append(step_seconds[-1])
+      step += 1
+      if step % log_every == 0:
+        m_host = {k: float(v) for k, v in m.items()}
+        m_host['train/accuracy'] = m_host['accuracy_correct'] / max(
+            m_host['accuracy_total'], 1)
+        m_host['step_seconds'] = step_seconds[-1]
+        m_host['window_width'] = width
+        sidecars.log(step, 'train', m_host)
+      if step % eval_every == 0:
+        final_metrics = run_eval(model, loss_fn, eval_ds, device)
+        sidecars.log(step, 'eval', final_metrics)
+        save(step, final_metrics)
+  finally:
+    prefetcher.close()
   final_metrics = run_eval(model, loss_fn, eval_ds, device)
   sidecars.log(step, 'eval', final_metrics)
   save(step, final_metrics)
@@ -356,7 +542,21 @@ def run_training(
     p50 = statistics.median(step_seconds)
     summary.update(train_step_p50_s=p50,
                    train_examples_per_s=params.batch_size / p50)
+    for width, seconds in sorted(seconds_by_width.items()):
+      summary[f'train_step_p50_s_width_{width}'] = statistics.median(seconds)
   if device.type == 'cuda':
     summary['peak_bytes'] = float(torch.cuda.max_memory_allocated(device))
   sidecars.log(step, 'summary', summary)
+  # The loader's counters (batches per bucket, padding, shard faults,
+  # parses per worker), the distinct step geometries (one per bucket
+  # width on a clean run) and the transfer overlap.
+  counters: Dict[str, float] = {
+      k: float(v) for k, v in (stream_ds or train_ds).counters.items()}
+  counters['n_train_forward_shapes'] = float(len(seconds_by_width))
+  total = counters.get('n_train_window_positions', 0.0)
+  if total:
+    counters['train_padding_fraction'] = (
+        counters.get('n_train_padded_positions', 0.0) / total)
+  counters.update(prefetcher.stats())
+  sidecars.log(step, 'faults', counters)
   return final_metrics

@@ -1,18 +1,22 @@
-"""ZMW stream assembly for inference: subread groups + CCS draft.
+"""ZMW stream assembly: subread groups + CCS draft + optional labels.
 
 Equivalent of the reference's create_proc_feeder/subreads_to_dc_example
 (reference: deepconsensus/preprocess/pre_lib.py:1279-1384) on top of the
 dependency-free BAM reader, with the JAX package's fault paths
 (deepconsensus_tpu/preprocess/feeder.py): CCS drafts from a FASTA,
-`shard`, the per-ZMW quarantine and the resume skip.
+`shard`, the per-ZMW quarantine and the resume skip. With truth_bed,
+truth_to_ccs and truth_split (training mode) each ZMW also carries its
+truth alignment as the label and its contig's train/eval/test split.
 """
 from __future__ import annotations
 
+import logging
 from collections import Counter
-from typing import Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 
+from deepconsensus_tpu_torch import constants
 from deepconsensus_tpu_torch.io import bam
 from deepconsensus_tpu_torch.preprocess.alignment import (
     AlignedRead,
@@ -21,6 +25,68 @@ from deepconsensus_tpu_torch.preprocess.alignment import (
 )
 from deepconsensus_tpu_torch.preprocess.pileup import FeatureLayout, Pileup
 from deepconsensus_tpu_torch.preprocess.spacing import space_out_reads
+
+Issue = constants.Issue
+
+log = logging.getLogger(__name__)
+
+
+def read_truth_bedfile(truth_bed: str) -> Dict[str, Dict[str, Any]]:
+  """ccs_seqname -> {contig, begin, end} (reference: pre_lib.py:1017-1025)."""
+  bed_coords = {}
+  with open(truth_bed) as bedfile:
+    for line in bedfile:
+      contig, begin, end, ccs_seqname = line.strip().split('\t')[:4]
+      bed_coords[ccs_seqname] = {
+          'contig': contig,
+          'begin': int(begin),
+          'end': int(end),
+      }
+  return bed_coords
+
+
+def read_truth_split(split_fname: str) -> Dict[str, str]:
+  """contig -> train/eval/test, by the genome the file's path names
+  (chm13/hg00/human or maize; reference: pre_lib.py:1028-1058)."""
+  lower = split_fname.lower()
+  if any(x in lower for x in ('chm13', 'hg00', 'human')):
+    genome = 'HUMAN'
+  elif 'maize' in lower:
+    genome = 'MAIZE'
+  else:
+    raise ValueError(
+        f'{split_fname} does not correspond to a known genome; expected the '
+        'filename to contain one of chm13/hg00/human/maize'
+    )
+  split_regions = {}
+  for chrom in constants.TRAIN_REGIONS[genome]:
+    split_regions[chrom] = 'train'
+  for chrom in constants.EVAL_REGIONS[genome]:
+    split_regions[chrom] = 'eval'
+  for chrom in constants.TEST_REGIONS[genome]:
+    split_regions[chrom] = 'test'
+  contig_split = {}
+  with open(split_fname) as f:
+    for line in f:
+      contig, chrom = line.split()
+      if chrom in split_regions:
+        contig_split[contig] = split_regions[chrom]
+  return contig_split
+
+
+def fetch_label_alignment(
+    ccs_seqname: str,
+    truth_by_ref: Dict[str, List[bam.BamRecord]],
+    truth_range: Dict[str, Any],
+) -> Union[constants.Issue, AlignedRead]:
+  """Expands the truth alignment for one CCS (pre_lib.py:1001-1014)."""
+  records = truth_by_ref.get(ccs_seqname)
+  if not records:
+    return Issue.TRUTH_ALIGNMENT_NOT_FOUND
+  truth_alignment = records[0]
+  if truth_alignment.is_supplementary:
+    return Issue.SUPP_TRUTH_ALIGNMENT
+  return expand_aligned_record(truth_alignment, truth_range=truth_range)
 
 
 ZmwInput = Tuple[List[AlignedRead], str, FeatureLayout, str,
@@ -46,6 +112,9 @@ def create_proc_feeder(
     layout: FeatureLayout,
     ins_trim: int = 0,
     use_ccs_smart_windows: bool = False,
+    truth_bed: Optional[str] = None,
+    truth_to_ccs: Optional[str] = None,
+    truth_split: Optional[str] = None,
     limit: int = 0,
     ccs_fasta: Optional[str] = None,
     shard: Optional[Tuple[int, int]] = None,
@@ -53,8 +122,10 @@ def create_proc_feeder(
     resume_skip_groups: int = 0,
     max_record_bytes: int = bam.DEFAULT_MAX_RECORD_BYTES,
 ):
-  """Returns (generator_fn, counter) yielding per-ZMW inference work
-  items. The BAMs open (and, with the native decoder, inflate) here;
+  """Returns (generator_fn, counter) yielding per-ZMW work items: the
+  expanded reads (the label last in training mode), the name, the
+  layout, the split ('inference' without truth) and the window widths.
+  The BAMs open (and, with the native decoder, inflate) here;
   generator_fn.bam_decoder is 'native' when every BAM decoded natively,
   else 'python'.
 
@@ -69,7 +140,11 @@ def create_proc_feeder(
 
   resume_skip_groups skips the first N subread groups without expanding
   them (--resume past the committed groups; the lockstep CCS scan
-  catches up on its own)."""
+  catches up on its own).
+
+  truth_bed, truth_to_ccs and truth_split together turn on training
+  mode: a ZMW without a truth range, a truth alignment, with a
+  supplementary one or on a contig of no split is counted and dropped."""
   main_counter: Counter = Counter()
   # Under a quarantine the grouper yields a recoverable corrupt record
   # as a CorruptInputError item (handled below) instead of raising.
@@ -85,6 +160,12 @@ def create_proc_feeder(
     ccs_iter = _fasta_ccs_iter(ccs_fasta)
   else:
     raise ValueError('need ccs_bam or ccs_fasta')
+
+  is_training = bool(truth_bed and truth_to_ccs and truth_split)
+  if is_training:
+    truth_by_ref = bam.read_bam_by_name(truth_to_ccs)
+    truth_ref_coords = read_truth_bedfile(truth_bed)
+    truth_split_dict = read_truth_split(truth_split)
 
   def proc_feeder() -> Iterator[ZmwInput]:
     groups = iter(grouper)
@@ -167,9 +248,32 @@ def create_proc_feeder(
         if item is not None:
           yield item
         continue
-      main_counter['n_zmw_inference'] += 1
+
+      if is_training:
+        truth_range = truth_ref_coords.get(ccs_seqname)
+        if not truth_range:
+          log.info('No truth_range defined for %s.', ccs_seqname)
+          main_counter['n_zmw_missing_truth_range'] += 1
+          continue
+        label = fetch_label_alignment(ccs_seqname, truth_by_ref, truth_range)
+        if label is Issue.TRUTH_ALIGNMENT_NOT_FOUND:
+          log.info('Unable to fetch label alignment for %s.', ccs_seqname)
+          main_counter['n_zmw_no_label_alignment'] += 1
+          continue
+        if label is Issue.SUPP_TRUTH_ALIGNMENT:
+          main_counter['n_zmw_truth_label_supp_alignment'] += 1
+          continue
+        subreads.append(label)
+        split = truth_split_dict.get(truth_range['contig'])
+        if not split:
+          log.info('No split defined for %s.', ccs_seqname)
+          main_counter['n_zmw_missing_contig_split'] += 1
+          continue
+      else:
+        split = 'inference'
+      main_counter[f'n_zmw_{split}'] += 1
       main_counter['n_zmw_pass'] += 1
-      yield (subreads, ccs_seqname, layout, 'inference', window_widths)
+      yield (subreads, ccs_seqname, layout, split, window_widths)
       if limit and main_counter['n_zmw_pass'] >= limit:
         break
 

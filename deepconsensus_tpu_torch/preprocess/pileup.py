@@ -16,6 +16,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from deepconsensus_tpu_torch import constants
+from deepconsensus_tpu_torch.io.example_proto import Example
 from deepconsensus_tpu_torch.preprocess.alignment import AlignedRead
 from deepconsensus_tpu_torch.utils import phred
 
@@ -513,3 +514,23 @@ class Pileup:
         'rq': self.ccs.rq,
         'rg': self.ccs.rg,
     }
+
+  def to_example(self) -> Example:
+    """Serializable example, wire-compatible with the reference's
+    tf.Example schema (reference: pre_lib.py:764-787); in training mode
+    it carries the label row."""
+    data = self.extract_features()
+    ex = Example()
+    ex.add_bytes('subreads/encoded', [data.tobytes()])
+    ex.add_int64('subreads/shape', list(data.shape))
+    ex.add_int64('subreads/num_passes', [self.keep_subreads])
+    ex.add_bytes('name', [self.name.encode()])
+    ex.add_int64('window_pos', [self.ccs.ccs_bounds.start])
+    ex.add_int64(
+        'ccs_base_quality_scores', self.ccs.base_quality_scores.tolist()
+    )
+    if self.is_training:
+      label = self.label.bases.astype(constants.NP_DATA_TYPE)
+      ex.add_bytes('label/encoded', [label.tobytes()])
+      ex.add_int64('label/shape', [label.shape[0]])
+    return ex

@@ -1,11 +1,13 @@
 """Synthetic inputs for tests and chip runs: (subreads_to_ccs.bam,
-ccs.bam) pairs and training TFRecord shards.
+ccs.bam) pairs, the truth that labels them for `preprocess`, and
+training TFRecord shards.
 
-Copies of the reference repository's scripts/inject_faults.py
-`write_synthetic_zmw_bams` and `write_synthetic_tfrecords` on top of the
-port's own BAM and TFRecord writers (the originals import the reference
-package). Content and block layout come from a numpy RandomState seed,
-so the same arguments give the same bytes.
+`write_synthetic_zmw_bams` and `write_synthetic_tfrecords` are copies of
+the reference repository's scripts/inject_faults.py writers on top of
+the port's own BAM and TFRecord writers (the originals import the
+reference package); `write_synthetic_truth` is the port's own. Content
+and block layout come from a numpy RandomState seed, so the same
+arguments give the same bytes.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from deepconsensus_tpu_torch.io.bam import BamReader
 from deepconsensus_tpu_torch.io.bam_writer import BamWriter
 from deepconsensus_tpu_torch.io.example_proto import Example
 from deepconsensus_tpu_torch.io.tfrecord import TFRecordWriter
@@ -123,6 +126,101 @@ def write_synthetic_zmw_bams(
     ccs_writer.flush()
   ccs_writer.close()
   return subreads_path, ccs_path
+
+
+# Chromosomes the truth split file maps the synthetic contigs to: one of
+# each human split (constants.TRAIN/EVAL/TEST_REGIONS) and one of none.
+TRUTH_CHROMS = {'train': '1', 'eval': '21', 'test': '19', 'none': 'chrUn'}
+# What happens to the truth of ZMW i: i % 4 == 3 takes a fault in turn
+# (no BED line, no alignment, a supplementary alignment, a contig of no
+# split), the others a split.
+TRUTH_FAULTS = ('no_bed', 'no_alignment', 'supplementary', 'no_split')
+
+
+def truth_role(i: int) -> str:
+  """The split ('train', 'eval', 'test') or the fault of ZMW i's truth."""
+  if i % 4 == 3:
+    return TRUTH_FAULTS[(i // 4) % 4]
+  if i % 4 < 2:
+    return 'train'
+  return 'eval' if (i // 4) % 2 == 0 else 'test'
+
+
+def _truth_alignment(rng: np.random.RandomState, ccs: str, sub_rate: float,
+                     indel_rate: float) -> Tuple[str, List[Tuple[int, int]]]:
+  """A truth sequence drawn from the CCS with seeded substitutions,
+  insertions and deletions, and its CIGAR against the CCS (M, I, D; the
+  first and last CCS bases always match)."""
+  truth, ops = [], []
+  n = len(ccs)
+  for j, base in enumerate(ccs):
+    r = rng.random_sample()
+    edge = j in (0, n - 1)
+    if not edge and r < indel_rate / 2:
+      ops.append(2)  # the truth lacks this CCS base
+      continue
+    if not edge and r < indel_rate:
+      truth.append(chr(_BASES[rng.randint(0, 4)]))
+      ops.append(1)  # an extra truth base before this one
+    if rng.random_sample() < sub_rate:
+      others = [b for b in 'ACGT' if b != base]
+      truth.append(others[rng.randint(0, 3)])
+    else:
+      truth.append(base)
+    ops.append(0)
+  cigar: List[Tuple[int, int]] = []
+  for op in ops:
+    if cigar and cigar[-1][0] == op:
+      cigar[-1] = (op, cigar[-1][1] + 1)
+    else:
+      cigar.append((op, 1))
+  return ''.join(truth), cigar
+
+
+def write_synthetic_truth(
+    ccs_bam: str,
+    out_dir: str,
+    seed: int = 13,
+    sub_rate: float = 0.01,
+    indel_rate: float = 0.01,
+) -> Tuple[str, str, str]:
+  """Writes the truth of `preprocess`'s training mode for the CCS reads
+  of ccs_bam: (truth_to_ccs.bam, truth.bed, human_truth_split.tsv).
+
+  Each CCS's truth is the CCS with seeded substitutions and indels,
+  aligned to it (the CCS read is the reference) with its CIGAR, on a
+  contig of its own at begin 1000 i; the split file maps each contig to
+  a chromosome of its role (`truth_role`), and the reader infers the
+  genome from the 'human' in the split file's name. A test fixture:
+  every split and every label fault of the feeder occurs once 16 ZMWs
+  are written.
+  """
+  rng = np.random.RandomState(seed)
+  os.makedirs(out_dir, exist_ok=True)
+  with BamReader(ccs_bam) as reader:
+    ccs = [(r.qname, r.seq) for r in reader]
+  bam_path = os.path.join(out_dir, 'truth_to_ccs.bam')
+  bed_path = os.path.join(out_dir, 'truth.bed')
+  split_path = os.path.join(out_dir, 'human_truth_split.tsv')
+  writer = BamWriter(bam_path, header_text='@HD\tVN:1.5\tSO:unknown\n',
+                     references=[(name, len(seq)) for name, seq in ccs])
+  with open(bed_path, 'w') as bed, open(split_path, 'w') as split:
+    for i, (name, seq) in enumerate(ccs):
+      role = truth_role(i)
+      truth, cigar = _truth_alignment(rng, seq, sub_rate, indel_rate)
+      contig = f'ctg{i}'
+      if role != 'no_alignment':
+        writer.write(f'truth/{i}', truth, None, tags={},
+                     flag=2048 if role == 'supplementary' else 0,
+                     ref_id=i, pos=0, cigar=cigar)
+      if role != 'no_bed':
+        begin = 1000 * i
+        bed.write(f'{contig}\t{begin}\t{begin + len(truth)}\t{name}\n')
+      chrom = TRUTH_CHROMS['none' if role == 'no_split' else
+                           role if role in TRUTH_CHROMS else 'train']
+      split.write(f'{contig}\t{chrom}\n')
+  writer.close()
+  return bam_path, bed_path, split_path
 
 
 def write_synthetic_tfrecords(

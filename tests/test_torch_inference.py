@@ -146,9 +146,10 @@ def test_port_imports_no_jax():
   """A fresh interpreter imports every port module (the native library's
   bindings, the featurization pool's module and the fault surface's
   modules among them: inference/faults.py, obs/, io/fastx.py,
-  io/validate.py, testing/faults.py, ops/device_spin.py); neither jax
-  nor any deepconsensus_tpu module may load. A source scan backs it
-  up."""
+  io/validate.py, testing/faults.py, ops/device_spin.py; and the data
+  half of `train`: preprocess/driver.py, models/data.py,
+  testing/synthetic.py); neither jax nor any deepconsensus_tpu module
+  may load. A source scan backs it up."""
   code = (
       'import pkgutil, sys, deepconsensus_tpu_torch as p\n'
       'import deepconsensus_tpu_torch.cli\n'
@@ -166,7 +167,10 @@ def test_port_imports_no_jax():
       '"deepconsensus_tpu_torch.io.fastx", '
       '"deepconsensus_tpu_torch.io.validate", '
       '"deepconsensus_tpu_torch.testing.faults", '
-      '"deepconsensus_tpu_torch.ops.device_spin") '
+      '"deepconsensus_tpu_torch.ops.device_spin", '
+      '"deepconsensus_tpu_torch.preprocess.driver", '
+      '"deepconsensus_tpu_torch.models.data", '
+      '"deepconsensus_tpu_torch.testing.synthetic") '
       'if m not in sys.modules]\n'
       'print(bad)\n'
       'sys.exit(1 if bad else 0)\n')

@@ -24,11 +24,18 @@ What is held against JAX, with its tolerance:
   atol 1e-5;
 * LAMB, its schedule and decay mask vs optax (params atol 1e-6), one
   full float32 train step (loss rtol 1e-5, params atol 1e-5);
-* loader batches and synthetic shards: exact.
+* loader batches and synthetic shards: exact;
+* params.remat: gradients and the dropout generator's state equal to
+  those without it, with dropout on (f32 atol 1e-6);
+* a bucketed pair of steps (widths 20 and 40, one LAMB state) vs two JAX
+  steps: losses rtol 1e-5, parameters atol 1e-5;
+* `cli train --window_buckets` in memory and streamed through two loader
+  workers with augmentation and remat: one step geometry per bucket.
 
 JAX runs on the CPU; no JAX state is changed (no Trainer is built).
 """
 import json
+import multiprocessing
 import os
 
 import flax
@@ -789,3 +796,157 @@ def test_cli_train_defaults_to_the_card(train_shards, tmp_path,
   with pytest.raises(ValueError, match='unknown config override'):
     cli.main(['train', '--out_dir', str(tmp_path), '--device', 'cpu',
               '--set', 'no_such_key=1'])
+
+
+# ---------------------------------------------------------------------------
+# The data half of `cli train`: remat, bucketed steps, the new flags.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize('use_pallas_attention', [False, True])
+def test_remat_leaves_gradients_unchanged_with_dropout(flax_variables,
+                                                       use_pallas_attention):
+  """remat recomputes each sublayer in the backward pass; the dropout
+  generator is set back for the recompute, so the gradients (f32, atol
+  1e-6) and the generator's final state equal those without it. With
+  use_pallas_attention the keep-masks go through K7's plain version."""
+  rows, label = fake_rows(BATCH, 21), gapped_labels(BATCH, 22)
+  grads, states = [], []
+  for remat in (False, True):
+    model = port_model(flax_variables, remat=remat,
+                       use_pallas_attention=use_pallas_attention)
+    gen = torch.Generator().manual_seed(9)
+    preds = model.forward_train(torch.from_numpy(rows), gen)
+    loss = torch_train.make_loss(model.params)(
+        torch.from_numpy(label).long(), preds)
+    loss.backward()
+    grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+    states.append(gen.get_state())
+  assert torch.equal(states[0], states[1])
+  for name, g in grads[0].items():
+    np.testing.assert_allclose(grads[1][name].numpy(), g.numpy(), rtol=0,
+                               atol=1e-6, err_msg=name)
+
+
+def bucket_rows(batch, width, seed):
+  rng = np.random.default_rng(seed)
+  mp = MAX_PASSES
+  rows = np.zeros((batch, 4 * mp + 5, width, 1), np.float32)
+  rows[:, :mp] = rng.integers(0, 5, rows[:, :mp].shape)
+  rows[:, mp:3 * mp] = rng.integers(0, 256, rows[:, mp:3 * mp].shape)
+  rows[:, 3 * mp:4 * mp] = rng.integers(0, 3, rows[:, :mp].shape)
+  rows[:, 4 * mp] = rng.integers(0, 5, rows[:, 4 * mp].shape)
+  rows[:, 4 * mp + 1:] = rng.integers(0, 501, rows[:, 4 * mp + 1:].shape)
+  label = rng.integers(1, 5, (batch, width)).astype(np.float32)
+  label[:, -width // 4:] = 0
+  return rows, label
+
+
+def test_bucketed_train_steps_match_jax(flax_variables):
+  """One step at width 20, then one at width 40, over one parameter set
+  and one LAMB state (buckets (20, 40)), against two JAX steps that
+  carry the optimizer state: each loss rtol 1e-5, the parameters after
+  both atol 1e-5. Epsilon 1e-3 as in test_one_train_step_matches_jax."""
+  cfg = dict(warmup_steps=2, epsilon=1e-3, window_buckets=(20, 40),
+             **NO_DROPOUT)
+  batches = [bucket_rows(BATCH, 20, 31), bucket_rows(BATCH, 40, 32)]
+  jparams = jax_params(**cfg)
+  loss_jax = jax_train.make_loss(jparams)
+  tx = jax_train.create_optimizer(jparams, 10)
+
+  def jax_step(p, state, rows, label):
+    loss, grads = jax.value_and_grad(lambda q: loss_jax(
+        jnp.asarray(label), jax_apply({'params': q}, rows, **NO_DROPOUT)))(p)
+    updates, state = tx.update(grads, state, p)
+    return loss, optax.apply_updates(p, updates), state
+
+  p = flax_variables['params']
+  state = tx.init(p)
+  want_losses = []
+  for rows, label in batches:
+    loss, p, state = jax.jit(jax_step)(p, state, rows, label)
+    want_losses.append(float(loss))
+  params = torch_params(**cfg)
+  model = port_model(flax_variables, **cfg)
+  lamb = torch_train.Lamb(model.named_parameters(), params, 10)
+  loss_fn = torch_train.make_loss(params)
+  got_losses = []
+  for rows, label in batches:
+    batch = torch_train.batch_to_device({'rows': rows, 'label': label},
+                                        'cpu')
+    got_losses.append(float(torch_train.train_step(
+        model, lamb, loss_fn, batch, torch.Generator())['loss']))
+  np.testing.assert_allclose(got_losses, want_losses, rtol=1e-5)
+  assert_tree_close(weights_lib.to_flax_params(model.state_dict()),
+                    jax.device_get(p), rtol=0, atol=1e-5)
+
+
+@pytest.fixture(scope='module')
+def bucket_shards(tmp_path_factory):
+  root = tmp_path_factory.mktemp('bucket_shards')
+  for width, seed in ((20, 3), (40, 4)):
+    synthetic.write_synthetic_tfrecords(
+        str(root / f'w{width}'), n_shards=2, n_examples=16, max_passes=20,
+        max_length=width, seed=seed)
+  return str(root / 'w20' / '*'), str(root / 'w40' / '*')
+
+
+BUCKET_FLAGS = ('--batch_size', '4', '--num_epochs', '1', '--device', 'cpu',
+                '--set', 'num_hidden_layers=1', '--set', 'filter_size=32',
+                '--set', 'dtype=float32', '--set', 'log_every_n_steps=1',
+                '--set', 'max_length=20')
+
+
+@pytest.mark.parametrize('loader', ['in_memory', 'streaming_workers'])
+def test_cli_train_buckets_stream_augment_remat(bucket_shards, tmp_path,
+                                                loader):
+  """`cli train --window_buckets 20,40` on shards of both widths: one
+  step geometry per bucket, width-pure batches, every batch prefetched
+  but the first; streamed through two loader workers with --set
+  augment=true --set remat=true too. No worker is left running."""
+  from deepconsensus_tpu_torch import cli
+
+  out = str(tmp_path / 'model')
+  extra = []
+  if loader == 'streaming_workers':
+    extra = ['--set', 'streaming=true', '--set', 'n_examples_train=16',
+             '--set', 'loader_workers=2', '--set', 'buffer_size=8',
+             '--set', 'augment=true', '--set', 'remat=true',
+             '--on_shard_error', 'skip']
+  assert cli.main(['train', '--out_dir', out, '--train_path',
+                   *bucket_shards, '--eval_path', bucket_shards[0],
+                   '--window_buckets', '20,40', *BUCKET_FLAGS,
+                   *extra]) == 0
+  assert not multiprocessing.active_children()
+  entries = read_jsonl(os.path.join(out, 'metrics.jsonl'))
+  train = [e for e in entries if e['split'] == 'train']
+  faults = [e for e in entries if e['split'] == 'faults'][-1]
+  steps = 8 if loader == 'in_memory' else 4
+  assert len(train) == steps
+  assert {e['window_width'] for e in train} == {20, 40}
+  assert all(np.isfinite(e['loss']) for e in train)
+  assert faults['n_train_forward_shapes'] == 2
+  assert (faults['n_train_batches_by_bucket_20']
+          + faults['n_train_batches_by_bucket_40']) == steps
+  assert faults['n_batch_launches'] == steps
+  assert faults['train_transfer_overlap_fraction'] == round(
+      (steps - 1) / steps, 4)
+  saved = torch_config.read_params_from_json(out)
+  assert list(saved['window_buckets']) == [20, 40]
+  if loader == 'streaming_workers':
+    assert saved['remat'] and saved['augment'] and saved['streaming']
+    assert saved['on_shard_error'] == 'skip'
+    assert faults['n_parsed_worker_0'] > 0 or faults['n_parsed_worker_1'] > 0
+
+
+def test_cli_train_rejects_bad_bucket_sets_and_budgets(bucket_shards,
+                                                       tmp_path):
+  from deepconsensus_tpu_torch import cli
+  from deepconsensus_tpu_torch.faults import WindowBucketError
+
+  argv = ['train', '--out_dir', str(tmp_path), '--train_path',
+          bucket_shards[0], '--eval_path', bucket_shards[0], *BUCKET_FLAGS]
+  with pytest.raises(WindowBucketError, match='strictly ascending'):
+    cli.main(argv + ['--window_buckets', '40,20'])
+  with pytest.raises(ValueError, match='n_examples_train'):
+    cli.main(argv + ['--set', 'streaming=true'])
