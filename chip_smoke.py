@@ -106,7 +106,8 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    i. `int8`: a's `cli run` with --quantize_matmuls int8, over float32
       params: with --inference_dtype bfloat16, in float32, and float32
       through the plain versions;
-   j. `evaluate`: `cli evaluate` on c's float32 checkpoint over c's 256
+   j. `evaluate`: `cli evaluate` on c's float32 checkpoint (its newest
+      valid checkpoint directory) over c's 256
       eval examples, float32 and with --quantize_matmuls int8; and the
       same on a's seeded weights (--weights/--params);
    k. `softmax_bf16`: a's and b's `cli run` over params with
@@ -139,6 +140,42 @@ Phases, in order; any failure exits non-zero (nothing is caught):
       three without, serial stream: parameters within 1e-5, losses 1e-5,
       peak memory no higher. Prints the per-bucket step ms, peak bytes,
       loader examples/s and preprocess ZMWs/s.
+   o. `train_ckpt` (after c and k's train run, before j): the
+      checkpoint half of `cli train`, c's config at full width on c's
+      shards, float32, no augmentation, 2 epochs of 4 steps, eval and
+      save every 2 steps (--set eval_every_n_steps=2): a. two
+      uninterrupted runs (best_checkpoint_metric=eval/identity_pred),
+      whose max |parameter difference| is the bar for b-e; b.
+      DCTPU_FAULT_SIGTERM_AT_STEP=3: `cli.main` returns 0 with
+      preempted 1.0, checkpoint-3 committed without a TSV row, the
+      rerun resumes at step 4 and ends within the bar; c. `cli train` as
+      a subprocess SIGKILLed after step 6 (DCTPU_FAULT_KILL_TRAIN_AT_STEP
+      and a kill token), checkpoint-4's state.pt truncated by half: the
+      rerun quarantines it (its reason in .quarantine/), resumes from
+      checkpoint-2 and ends within the bar; the same kill of a streamed
+      run with two loader workers, none of which may run 10 s after the
+      kill; d. one weight of the first encoder layer set to NaN before
+      step 5's forward, --set nan_sentinel_steps=2
+      track_window_ids=true: one rollback, two dead letters of 256
+      window ids (the second a rollback), every tensor of every
+      committed checkpoint finite, the final losses finite; then
+      DCTPU_FAULT_NAN_AT_STEP=5 alone, its non-finite steps printed (NaN
+      rows embed as id 0: a finite loss); e. torch.OutOfMemoryError from
+      step 5 under the retry wrapper: one retry, resumed from
+      checkpoint-4, within the bar; f. `cli train --checkpoint` a's
+      final checkpoint into a fresh directory: the state before step 1
+      equals the source's weights bit for bit, LAMB count 0 and zero
+      moments; g. `cli run --checkpoint` a's final checkpoint over a's
+      BAMs in bfloat16 and float32 (--dtype): FASTQ byte-identical to
+      `--weights/--params`, K1-K3 launched; h. best_checkpoint.txt the
+      TSV row of the highest eval/identity_pred, the TSV's columns the
+      reference's eval keys. K11/K12 launch in every in-process run;
+      save_ms is the median save (state, fsync, digest, manifest). Gate
+      i runs at the end of n, on its preprocessed 100-wide windows:
+      embed_onehot on against off at train_data's width-100 step
+      (float32 loss within 1e-5 relative, gradients within 1e-4 of each
+      parameter's largest, bfloat16's loss within 2% of float32's), the
+      step p50 both ways in each dtype printed.
    m. `faults` (after l): a's `cli run` in bfloat16 at --batch_zmws 16
       with a fault injected, each against an unfaulted run of the same
       process: a corrupt ZMW under --on_zmw_error skip, ccs-fallback and
@@ -232,7 +269,8 @@ Phases, in order; any failure exits non-zero (nothing is caught):
 5. A `{"kernels": [...]}` line (K1-K14, K2_int8, the attention core and
    the bf16-softmax variant of K1, K2, K2 int8, K4 and the core; each
    row's launches_by_path includes `faults`, the OOM-bisected run,
-   `faults_ragged_resume` and `train_data`), the card line again, and
+   `faults_ragged_resume`, `train_ckpt` and `train_data`), the card
+   line again, and
    the last line
    `{"ok": true, "device": {...}}`.
 
@@ -3595,7 +3633,508 @@ def train_data_gates(bams, device: str = 'cuda') -> dict:
       (len(loss_rel) == 3 and max(loss_rel) <= 1e-5,
        'a remat step loss differs by > 1e-5 relative'),
       (peaks['True'] <= peaks['False'], 'remat raised the peak memory')])
+  embed_onehot_gates(train_paths, device)
   return runs['bfloat16']['launches']
+
+
+# train_ckpt: the checkpoint half of `cli train` at c's width on c's
+# shards, float32 without augmentation, 2 epochs of 4 steps, eval and
+# save every 2 steps (4 saves).
+CKPT_SET = {'dtype': 'float32', 'eval_every_n_steps': 2,
+            'log_every_n_steps': 1}
+CKPT_EPOCHS = 2
+CKPT_KILL_STEP = 6
+CKPT_FAULT_STEP = 5  # the NaN weight (gate d) and the OOM (gate e)
+CKPT_NAN_PARAM = 'encoder.self_attention_0.query.kernel'
+CKPT_STREAM_SET = {'streaming': True, 'loader_workers': 2,
+                   'n_examples_train': TRAIN_EXAMPLES,
+                   'buffer_size': TRAIN_DATA_BUFFER}
+EVAL_KEYS = sorted(['eval/loss', 'eval/per_example_accuracy',
+                    'eval/identity_ccs', 'eval/identity_pred',
+                    'eval/yield_over_ccs'] + [
+                        f'eval/class{c}_accuracy' for c in range(5)])
+
+
+def ckpt_out(tag: str) -> str:
+  return os.path.join(WORK, f'train_ckpt_{tag}')
+
+
+def read_jsonl(path: str) -> list:
+  if not os.path.exists(path):
+    return []
+  with open(path) as f:
+    return [json.loads(line) for line in f]
+
+
+def ckpt_argv(shards, out: str, sets: dict, extra=(),
+              epochs: int = CKPT_EPOCHS) -> list:
+  return ['train', '--config', TRAIN_CONFIG, '--out_dir', out,
+          '--train_path', shards[0], '--eval_path', shards[1],
+          '--num_epochs', str(epochs), '--batch_size', str(TRAIN_BATCH),
+          *(a for k, v in {**CKPT_SET, **sets}.items()
+            for a in ('--set', f'{k}={str(v).lower()}')), *extra]
+
+
+def run_ckpt_train(shards, tag: str, sets=None, extra=(), env=None,
+                   fresh: bool = True, epochs: int = CKPT_EPOCHS) -> dict:
+  """One in-process `cli train` of the train_ckpt path into
+  WORK/train_ckpt_<tag> (fresh: a new directory; else a rerun into it)
+  with env set for the call; returns its printed result, launches,
+  seconds and the metrics.jsonl entries this call wrote, and prints
+  its line."""
+  import contextlib
+  import io
+
+  from deepconsensus_tpu_torch import cli
+  from deepconsensus_tpu_torch import faults
+
+  out = ckpt_out(tag)
+  if fresh:
+    shutil.rmtree(out, ignore_errors=True)
+  n_before = len(read_jsonl(os.path.join(out, 'metrics.jsonl')))
+  saved = {k: os.environ.get(k) for k in (env or {})}
+  os.environ.update(env or {})
+  faults._fired.clear()
+  reset_launches()
+  buf = io.StringIO()
+  t0 = time.perf_counter()
+  try:
+    with contextlib.redirect_stdout(buf):
+      rc = cli.main(ckpt_argv(shards, out, sets or {}, extra, epochs))
+  finally:
+    for k, v in saved.items():
+      if v is None:
+        os.environ.pop(k, None)
+      else:
+        os.environ[k] = v
+  seconds = time.perf_counter() - t0
+  launches = read_launches()
+  if rc != 0:
+    raise AssertionError(f'train_ckpt {tag}: cli train returned {rc}')
+  entries = read_jsonl(os.path.join(out, 'metrics.jsonl'))[n_before:]
+  split = lambda s: [e for e in entries if e['split'] == s]  # noqa: E731
+  r = {'out': out, 'launches': launches, 'seconds': seconds,
+       'result': json.loads(buf.getvalue().strip().splitlines()[-1]),
+       'train_steps': [e['step'] for e in split('train')],
+       'losses': [e['loss'] for e in split('train')],
+       'evals': split('eval'), 'summary': (split('summary') or [{}])[-1],
+       'faults': (split('faults') or [{}])[-1]}
+  print(json.dumps({
+      'phase': 'main_path', 'path': 'train_ckpt', 'run': tag,
+      'launches': {k: launches[k] for k in ('K11', 'K12')},
+      'seconds': seconds, 'train_steps': r['train_steps'],
+      'losses': r['losses'], 'result': r['result'],
+      'save_ms': 1e3 * r['summary'].get('checkpoint_save_p50_s', math.nan),
+      'saves': r['summary'].get('checkpoint_saves'),
+      'step_p50_ms': 1e3 * r['summary'].get('train_step_p50_s', math.nan)}),
+        flush=True)
+  return r
+
+
+def npz_max_diff(out_a: str, out_b: str, where: bool = False):
+  """Max |a - b| over two runs' weights.npz (where: with the parameter
+  that holds it and that parameter's largest magnitude)."""
+  import numpy as np
+
+  with np.load(os.path.join(out_a, 'weights.npz')) as a, np.load(
+      os.path.join(out_b, 'weights.npz')) as b:
+    if sorted(a.files) != sorted(b.files):
+      raise AssertionError(f'{out_a} and {out_b}: other parameter sets')
+    diff, key = max((float(np.abs(a[k].astype(np.float64) - b[k]).max()), k)
+                    for k in a.files)
+    return (diff, key, float(np.abs(a[key]).max())) if where else diff
+
+
+def child_pids(pid: int) -> set:
+  """The processes whose parent is pid (from /proc)."""
+  out = set()
+  for entry in os.listdir('/proc'):
+    if not entry.isdigit():
+      continue
+    try:
+      with open(f'/proc/{entry}/stat') as f:
+        fields = f.read().rsplit(')', 1)[1].split()
+    except OSError:
+      continue
+    if int(fields[1]) == pid:
+      out.add(int(entry))
+  return out
+
+
+def pid_running(pid: int) -> bool:
+  """True while pid exists and is not a zombie."""
+  try:
+    with open(f'/proc/{pid}/stat') as f:
+      return f.read().rsplit(')', 1)[1].split()[0] != 'Z'
+  except OSError:
+    return False
+
+
+def killed_train(shards, tag: str, sets: dict) -> dict:
+  """`cli train` as a subprocess with DCTPU_FAULT_KILL_TRAIN_AT_STEP and
+  a fresh kill token: it must die by SIGKILL. Its children are
+  collected from /proc while it runs; returns the return code, the
+  children, those still running 10 s after its death, and the
+  checkpoints it left."""
+  from deepconsensus_tpu_torch import faults
+  from deepconsensus_tpu_torch.models import checkpoints as ckpt_lib
+
+  out = ckpt_out(tag)
+  shutil.rmtree(out, ignore_errors=True)
+  token = os.path.join(WORK, f'kill_token_{tag}')
+  if os.path.exists(token):
+    os.remove(token)
+  env = dict(os.environ, PYTHONPATH=REPO, **{
+      faults.ENV_KILL_TRAIN_AT_STEP: str(CKPT_KILL_STEP),
+      faults.ENV_KILL_TOKEN: token})
+  t0 = time.perf_counter()
+  with open(os.path.join(WORK, f'train_ckpt_{tag}.stderr'), 'w') as err:
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'deepconsensus_tpu_torch.cli',
+         *ckpt_argv(shards, out, sets)], env=env, cwd=REPO,
+        stdout=subprocess.DEVNULL, stderr=err)
+    children = set()
+    while proc.poll() is None:
+      children |= child_pids(proc.pid)
+      time.sleep(0.1)
+  seconds = time.perf_counter() - t0
+  time.sleep(10)
+  alive = sorted(p for p in children if pid_running(p))
+  ckpt_dir = os.path.join(out, 'checkpoints')
+  steps = sorted(s for s in (ckpt_lib.checkpoint_step(n)
+                             for n in os.listdir(ckpt_dir)) if s is not None)
+  r = {'rc': proc.returncode, 'children': sorted(children),
+       'alive_10s_after': alive, 'checkpoints': steps, 'seconds': seconds,
+       'train_steps': [e['step'] for e in read_jsonl(os.path.join(
+           out, 'metrics.jsonl')) if e['split'] == 'train']}
+  print(json.dumps({'phase': 'main_path', 'path': 'train_ckpt',
+                    'run': f'{tag}_killed', **r}), flush=True)
+  return r
+
+
+def train_ckpt_gates(shards) -> dict:
+  """The train_ckpt path (gates a-h; i runs with train_data, on its
+  windows): see the module docstring. Returns the uninterrupted run's
+  launches."""
+  import torch
+
+  from deepconsensus_tpu_torch import faults
+  from deepconsensus_tpu_torch.models import checkpoints as ckpt_lib
+  from deepconsensus_tpu_torch.models import train as train_lib
+
+  t_path = time.perf_counter()
+  step_fn = train_lib.train_step
+  run_fn = train_lib.run_training
+  steps = CKPT_EPOCHS * (TRAIN_EXAMPLES // TRAIN_BATCH)
+  # a. The determinism bar, and h on the same runs.
+  a = [run_ckpt_train(shards, f'a{i}', {
+      'best_checkpoint_metric': 'eval/identity_pred'}) for i in (1, 2)]
+  bar, bar_param, bar_scale = npz_max_diff(a[0]['out'], a[1]['out'],
+                                           where=True)
+  source = os.path.join(a[0]['out'], 'checkpoints', f'checkpoint-{steps}')
+  with open(os.path.join(a[0]['out'], 'checkpoint_metrics.tsv')) as f:
+    header, *rows = [line.rstrip('\n').split('\t') for line in f]
+  col = header.index('eval/identity_pred')
+  best_row = max(rows, key=lambda r: float(r[col]))[0]
+  with open(os.path.join(a[0]['out'], 'best_checkpoint.txt')) as f:
+    best = f.read().strip()
+  # b. Preemption at step 3, then the resume.
+  b1 = run_ckpt_train(shards, 'b', env={faults.ENV_SIGTERM_AT_STEP: '3'})
+  b_ckpt = os.path.join(b1['out'], 'checkpoints', 'checkpoint-3')
+  b_valid = ckpt_lib.validate_checkpoint(b_ckpt)
+  with open(os.path.join(b1['out'], 'checkpoint_metrics.tsv')) as f:
+    b_rows = [line.split('\t')[0] for line in f][1:]
+  b2 = run_ckpt_train(shards, 'b', fresh=False)
+  # c. SIGKILL at step 6, the newest checkpoint truncated by half, the
+  # rerun; and the same kill of a streamed run with two loader workers.
+  c_kill = killed_train(shards, 'c', {})
+  c_newest = os.path.join(ckpt_out('c'), 'checkpoints',
+                          f'checkpoint-{max(c_kill["checkpoints"])}')
+  state = os.path.join(c_newest, ckpt_lib.STATE_FILE)
+  with open(state, 'r+b') as f:
+    f.truncate(os.path.getsize(state) // 2)
+  c2 = run_ckpt_train(shards, 'c', fresh=False)
+  reason_file = os.path.join(ckpt_out('c'), 'checkpoints',
+                             ckpt_lib.QUARANTINE_DIRNAME,
+                             os.path.basename(c_newest) + '.reason.txt')
+  with open(reason_file) as f:
+    c_reason = f.read().strip()
+  c_stream = killed_train(shards, 'c_stream', CKPT_STREAM_SET)
+  # d. One NaN weight before step 5's forward; then the reference's
+  # NaN rows alone (printed, not gated).
+  calls = []
+
+  def nan_once(model, *args, **kwargs):
+    calls.append(1)
+    if len(calls) == CKPT_FAULT_STEP:
+      with torch.no_grad():
+        dict(model.named_parameters())[CKPT_NAN_PARAM].view(-1)[0] = (
+            float('nan'))
+    return step_fn(model, *args, **kwargs)
+
+  train_lib.train_step = nan_once
+  try:
+    d = run_ckpt_train(shards, 'd', {'nan_sentinel_steps': 2,
+                                     'track_window_ids': True})
+  finally:
+    train_lib.train_step = step_fn
+  letters = faults.read_dead_letters(
+      os.path.join(d['out'], 'training.failed.jsonl'))
+  d_finite = {}
+  d_ckpts = os.path.join(d['out'], 'checkpoints')
+  for name in sorted(os.listdir(d_ckpts)):
+    path = os.path.join(d_ckpts, name)
+    if ckpt_lib.validate_checkpoint(path)[0]:
+      saved = ckpt_lib.load_state(path)
+      tensors = list(saved['model'].values()) + list(
+          saved['optimizer']['mu'].values()) + list(
+              saved['optimizer']['nu'].values())
+      d_finite[name] = all(bool(torch.isfinite(t).all()) for t in tensors)
+  d_rows = run_ckpt_train(shards, 'd_nan_rows', {'nan_sentinel_steps': 2},
+                          env={faults.ENV_NAN_AT_STEP: str(CKPT_FAULT_STEP)})
+  # e. torch.OutOfMemoryError from step 5 under the retry wrapper.
+  calls.clear()
+  attempts = []
+
+  def oom_once(*args, **kwargs):
+    calls.append(1)
+    if len(calls) == CKPT_FAULT_STEP:
+      raise torch.OutOfMemoryError(
+          f'CUDA out of memory (injected at step {CKPT_FAULT_STEP})')
+    return step_fn(*args, **kwargs)
+
+  def counted_run(*args, **kwargs):
+    attempts.append(1)
+    return run_fn(*args, **kwargs)
+
+  train_lib.train_step, train_lib.run_training = oom_once, counted_run
+  try:
+    e = run_ckpt_train(shards, 'e')
+  finally:
+    train_lib.train_step, train_lib.run_training = step_fn, run_fn
+  # f. Warm start from a's final checkpoint: the state before step 1.
+  first = {}
+
+  def capture(model, optimizer, *args, **kwargs):
+    if not first:
+      first['params'] = {n: p.detach().cpu().clone()
+                         for n, p in model.named_parameters()}
+      first['count'] = optimizer.count
+      first['moments_zero'] = all(
+          not bool(t.any()) for t in list(optimizer.mu.values())
+          + list(optimizer.nu.values()))
+    return step_fn(model, optimizer, *args, **kwargs)
+
+  train_lib.train_step = capture
+  try:
+    f_run = run_ckpt_train(shards, 'f', extra=('--checkpoint', source),
+                           epochs=1)
+  finally:
+    train_lib.train_step = step_fn
+  want = ckpt_lib.load_state(source)['model']
+  f_equal = all(torch.equal(p, want[n]) for n, p in first['params'].items())
+  # g. `cli run --checkpoint` vs --weights/--params over L100's BAMs.
+  g = run_checkpoint_fastqs(source, a[0]['out'])
+  runs = {'a1': a[0], 'a2': a[1], 'b1': b1, 'b2': b2, 'c2': c2, 'd': d,
+          'd_nan_rows': d_rows, 'e': e, 'f': f_run}
+  gates = {
+      'determinism_bar': bar, 'bar_param': bar_param,
+      'bar_param_max_abs': bar_scale,
+      'losses_equal': a[0]['losses'] == a[1]['losses'],
+      'preempt': {'result': b1['result'], 'manifest': list(b_valid),
+                  'tsv_rows': b_rows, 'resumed_steps': b2['train_steps'],
+                  'max_diff': npz_max_diff(a[0]['out'], b1['out'])},
+      'kill': {'rc': c_kill['rc'], 'checkpoints': c_kill['checkpoints'],
+               'quarantine_reason': c_reason,
+               'resumed_steps': c2['train_steps'],
+               'max_diff': npz_max_diff(a[0]['out'], c2['out']),
+               'stream_rc': c_stream['rc'],
+               'stream_children': c_stream['children'],
+               'stream_alive_10s_after': c_stream['alive_10s_after']},
+      'nan': {'rollbacks': d['faults'].get('n_nan_rollbacks'),
+              'dead_letters': [(x['step'], x['action'],
+                                len(x.get('window_ids', ())))
+                               for x in letters],
+              'checkpoints_finite': d_finite,
+              'final_loss': d['losses'][-1],
+              'eval_loss': d['evals'][-1]['eval/loss'],
+              'nan_rows_nonfinite_steps': d_rows['faults'].get(
+                  'n_nonfinite_steps', 0.0)},
+      'retry': {'attempts': len(attempts), 'steps': e['train_steps'],
+                'max_diff': npz_max_diff(a[0]['out'], e['out'])},
+      'warm_start': {'params_equal_source': f_equal,
+                     'lamb_count': first['count'],
+                     'moments_zero': first['moments_zero'],
+                     'first_step': f_run['train_steps'][0]},
+      'run_checkpoint': g,
+      'best': {'file': best, 'tsv_best_row': best_row,
+               'columns': header[1:]},
+      'save_ms': 1e3 * a[0]['summary']['checkpoint_save_p50_s'],
+      'saves': a[0]['summary']['checkpoint_saves'],
+      'seconds': {k: r['seconds'] for k, r in runs.items()},
+      'launches': {k: {n: r['launches'][n] for n in ('K11', 'K12')}
+                   for k, r in runs.items()},
+      'path_seconds': time.perf_counter() - t_path,
+  }
+  b_want = {'preempted': 1.0, 'stop_step': 3.0}
+  checks = [
+      (all(v['K11'] and v['K12'] for v in gates['launches'].values()),
+       'a train_ckpt run did not launch K11 and K12'),
+      (a[0]['train_steps'] == list(range(1, steps + 1))
+       and a[0]['summary']['checkpoint_saves'] == 5,
+       f'a: not {steps} steps and 5 saves (4 evals and the final save)'),
+      (b1['result'] == b_want and b_valid == (True, 'ok')
+       and b_rows == ['checkpoint-2'],
+       'b: the preempted run did not return preempted at step 3 with a '
+       'committed checkpoint-3 and no TSV row for it'),
+      (b2['train_steps'] == list(range(4, steps + 1))
+       and gates['preempt']['max_diff'] <= bar,
+       'b: the resume did not start at step 4 or ended beyond bar a'),
+      (c_kill['rc'] == -9 and c_kill['checkpoints'] == [2, 4],
+       'c: the run did not die by SIGKILL after checkpoints 2 and 4'),
+      (c_reason.startswith('size mismatch for state.pt')
+       and c2['train_steps'] == list(range(3, steps + 1))
+       and gates['kill']['max_diff'] <= bar,
+       'c: the truncated checkpoint-4 was not quarantined, the rerun did '
+       'not resume from checkpoint-2, or it ended beyond bar a'),
+      (c_stream['rc'] == -9 and len(c_stream['children']) >= 2
+       and not c_stream['alive_10s_after'],
+       'c: a loader worker of the killed streamed run outlived it by 10 s'),
+      (gates['nan']['rollbacks'] == 1
+       and gates['nan']['dead_letters'] == [
+           (CKPT_FAULT_STEP, 'recorded', TRAIN_BATCH),
+           (CKPT_FAULT_STEP + 1, 'rollback', TRAIN_BATCH)]
+       and d_finite and all(d_finite.values())
+       and math.isfinite(gates['nan']['final_loss'])
+       and math.isfinite(gates['nan']['eval_loss']),
+       'd: not one rollback after two dead letters of 256 window ids, a '
+       'committed checkpoint holds a non-finite tensor, or the final loss '
+       'is not finite'),
+      (len(attempts) == 2 and e['train_steps'] == list(range(1, steps + 1))
+       and gates['retry']['max_diff'] <= bar,
+       'e: not one retry resuming from checkpoint-4 within bar a'),
+      (f_equal and first['count'] == 0 and first['moments_zero']
+       and f_run['train_steps'][0] == 1,
+       'f: the warm start did not begin at step 0 from the source\'s '
+       'weights with fresh LAMB moments'),
+      (all(v['identical'] and v['launched'] for v in g.values()),
+       'g: `run --checkpoint` FASTQ differs from --weights/--params, or '
+       'K1-K3 did not launch'),
+      (best == best_row and header[1:] == EVAL_KEYS,
+       'h: best_checkpoint.txt is not the TSV row of the highest '
+       'eval/identity_pred, or the TSV columns are not the reference\'s'),
+  ]
+  enforce('train_ckpt', gates, checks)
+  return a[0]['launches']
+
+
+def run_checkpoint_fastqs(checkpoint: str, train_out: str) -> dict:
+  """`cli run --checkpoint` and `--weights/--params` of one train run
+  over L100's BAMs in bfloat16 and float32 (--dtype): FASTQ bytes equal,
+  K1-K3 launched on the checkpoint runs."""
+  from deepconsensus_tpu_torch import cli
+
+  bams = [os.path.join(WORK, 'bams_L100', n)
+          for n in ('subreads_to_ccs.bam', 'ccs.bam')]
+  out = {}
+  for dtype in ('bfloat16', 'float32'):
+    data = {}
+    for source, args in (
+        ('checkpoint', ['--checkpoint', checkpoint]),
+        ('weights', ['--weights', os.path.join(train_out, 'weights.npz'),
+                     '--params', os.path.join(train_out, 'params.json')])):
+      fastq = os.path.join(WORK, f'out_ckpt_{source}_{dtype}.fastq')
+      reset_launches()
+      if cli.main(['run', '--subreads_to_ccs', bams[0], '--ccs_bam', bams[1],
+                   '--output', fastq, '--batch_size', str(BATCH),
+                   '--min_quality', '0', '--skip_windows_above', '0',
+                   '--dtype', dtype, *args]) != 0:
+        raise AssertionError(f'cli run --{source} failed ({dtype})')
+      launches = read_launches()
+      with open(fastq, 'rb') as f:
+        data[source] = (f.read(), launches)
+    out[dtype] = {
+        'identical': data['checkpoint'][0] == data['weights'][0],
+        'bytes': len(data['checkpoint'][0]),
+        'launches': {k: data['checkpoint'][1][k] for k in ('K1', 'K2', 'K3')},
+        'launched': all(data['checkpoint'][1][k] for k in ('K1', 'K2', 'K3'))}
+  return out
+
+
+def embed_onehot_gates(train_paths, device: str = 'cuda') -> dict:
+  """train_ckpt's gate i: train_data's width-100 step
+  (use_pallas_attention, no attention dropout, seeded weights with
+  non-zero alphas, one fixed batch of the preprocessed 100-wide windows)
+  with embed_onehot on against off, the same dropout masks: float32 loss
+  within 1e-5 relative, each parameter's gradient within 1e-4 of its
+  largest magnitude (the one-hot product sums the embedding gradient in
+  another order than the gather's scatter); bfloat16's loss (on) within
+  2% of float32's (off); then full steps (LAMB included) timed both ways
+  in each dtype, p50 of 6 after one."""
+  import torch
+
+  from deepconsensus_tpu_torch.models import data as data_lib
+  from deepconsensus_tpu_torch.models import model as model_lib
+  from deepconsensus_tpu_torch.models import train as train_lib
+
+  dev = torch.device(device)
+  base = make_params('float32')
+  base.update(use_pallas_attention=True, attention_dropout=0.0)
+  host = next(iter(data_lib.DatasetIterator(
+      train_paths[:1], base, TRAIN_BATCH, shuffle=False).epoch()))
+  batch = train_lib.batch_to_device(host, dev)
+  state = None
+  results, times = {}, {}
+  for dtype in ('float32', 'bfloat16'):
+    for onehot in (False, True):
+      params = make_params(dtype)
+      params.update(use_pallas_attention=True, attention_dropout=0.0,
+                    embed_onehot=onehot)
+      model = model_lib.DeepConsensusModel(params, device=dev)
+      if state is None:
+        model.init_weights(torch.Generator().manual_seed(SEED))
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+      model.load_state_dict(state)
+      model.requires_grad_(True)
+      loss_fn = train_lib.make_loss(params)
+      preds = model.forward_train(
+          batch['rows'], torch.Generator(device=dev).manual_seed(SEED))
+      loss = loss_fn(batch['label'], preds)
+      loss.backward()
+      results[(dtype, onehot)] = (float(loss.detach()), {
+          n: p.grad.detach().float().clone()
+          for n, p in model.named_parameters()})
+      lamb = train_lib.Lamb(model.named_parameters(), params, 10)
+      gen = torch.Generator(device=dev).manual_seed(SEED)
+      seconds = []
+      for _ in range(7):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        train_lib.train_step(model, lamb, loss_fn, batch, gen)
+        torch.cuda.synchronize(dev)
+        seconds.append(time.perf_counter() - t0)
+      times[f'{dtype}_{"on" if onehot else "off"}'] = 1e3 * (
+          statistics.median(seconds[1:]))
+  off, on = results[('float32', False)], results[('float32', True)]
+  gates = {
+      'f32_loss_rel_diff': abs(on[0] - off[0]) / abs(off[0]),
+      'f32_loss': off[0],
+      'f32_max_grad_rel_diff': max(
+          float((on[1][n] - g).abs().max()) / max(float(g.abs().max()),
+                                                  1e-30)
+          for n, g in off[1].items()),
+      'bf16_vs_f32_first_loss_rel_diff': abs(
+          results[('bfloat16', True)][0] - off[0]) / abs(off[0]),
+      'step_p50_ms': times, 'card': card_line(),
+  }
+  return enforce('train_ckpt_embed_onehot', gates, [
+      (gates['f32_loss_rel_diff'] <= 1e-5,
+       'embed_onehot: the float32 loss differs by > 1e-5 relative'),
+      (gates['f32_max_grad_rel_diff'] <= 1e-4,
+       'embed_onehot: a float32 gradient differs by > 1e-4 of its largest'),
+      (gates['bf16_vs_f32_first_loss_rel_diff'] <= 0.02,
+       'embed_onehot: bf16 first loss differs by > 2% from f32'),
+  ])
 
 
 def make_run_inputs():
@@ -3872,9 +4411,10 @@ def main(argv) -> int:
       'step_p50_ms': 1e3 * r['summary']['train_step_p50_s'],
       'eval_loss': r['eval']['eval/loss']}), flush=True)
   softmax_bf16_train_gates(r, runs['float32'])
-  from deepconsensus_tpu_torch.models import train as train_lib
+  launches_by_path['train_ckpt'] = train_ckpt_gates(shards)
+  from deepconsensus_tpu_torch.models import checkpoints as ckpt_lib
 
-  checkpoint = train_lib.latest_checkpoint(
+  checkpoint = ckpt_lib.latest_valid_checkpoint(
       os.path.join(WORK, 'train_float32', 'checkpoints'))
   eval_runs = {}
   for quantize in (False, True):

@@ -24,13 +24,22 @@ Mixed-width windows from the CCS `wl` tag: add --use_ccs_smart_windows
       --config transformer_learn_values+custom --out_dir model_out \\
       --train_path 'train/*.tfrecord.gz' --eval_path 'eval/*.tfrecord.gz'
 
-writes model_out/params.json, checkpoints and weights.npz, which `run`
-takes as --params and --weights. --window_buckets 100,200 trains on
-windows of both widths (width-pure batches, one step each); --set
-streaming=true --set n_examples_train=N streams the shards (--set
-loader_workers=2 decodes them in two processes; --on_shard_error skip
-reads past a bad shard); --set augment=true augments training batches;
---set remat=true recomputes each encoder sublayer in the backward pass.
+writes model_out/params.json, checkpoints/checkpoint-<step>/ (each with
+a manifest under checkpoints/.manifests/), checkpoint_metrics.tsv,
+best_checkpoint.txt and weights.npz; `run` takes --checkpoint
+model_out/checkpoints/checkpoint-<step> or the --weights/--params pair.
+A rerun resumes from the newest valid checkpoint (a truncated one is
+quarantined), SIGTERM saves and exits cleanly, transient errors (CUDA
+out of memory among them) restart from the last checkpoint, and a
+non-finite step rolls back (training.failed.jsonl says which windows);
+--checkpoint <dir> warm-starts from another run's weights.
+--window_buckets 100,200 trains on windows of both widths (width-pure
+batches, one step each); --set streaming=true --set n_examples_train=N
+streams the shards (--set loader_workers=2 decodes them in two
+processes; --on_shard_error skip reads past a bad shard); --set
+augment=true augments training batches; --set remat=true recomputes
+each encoder sublayer in the backward pass; --set embed_onehot=true
+looks bases and strand up as one-hot products.
 
 Inference levers, on `run` and `evaluate`: --inference_dtype bfloat16
 casts the weights once at load and runs the model in bfloat16;
@@ -38,7 +47,7 @@ casts the weights once at load and runs the model in bfloat16;
 channel (K2's int8 variant on the card).
 
   python -m deepconsensus_tpu_torch.cli evaluate \\
-      --checkpoint model_out/checkpoints/checkpoint-4.pt \\
+      --checkpoint model_out/checkpoints/checkpoint-4 \\
       --eval_path 'eval/*.tfrecord.gz' --out_dir eval_out \\
       [--quantize_matmuls int8]
 
@@ -215,6 +224,11 @@ def _add_train(sub) -> None:
                  help='Streaming-loader policy for an undecodable shard: '
                  'fail (default) aborts, skip counts and logs the shard '
                  'and keeps training.')
+  p.add_argument('--checkpoint', default=None,
+                 help='Warm start: a checkpoint directory of another run '
+                 '(checkpoints/checkpoint-<step>) whose weights seed this '
+                 'run; LAMB starts fresh at step 0. Ignored (with a '
+                 'warning) once --out_dir has a checkpoint of its own.')
   p.add_argument('--window_buckets', default=None,
                  type=_parse_window_buckets, metavar='L1,L2,...',
                  help='Bucketed training, e.g. 100,200: each window pads '
@@ -241,10 +255,10 @@ def _train(args) -> int:
     params.on_shard_error = args.on_shard_error
   if args.window_buckets:
     params.window_buckets = args.window_buckets
-  metrics = train_lib.run_training(
-      params, args.out_dir, train_patterns=args.train_path,
+  metrics = train_lib.run_training_with_retry(
+      params=params, out_dir=args.out_dir, train_patterns=args.train_path,
       eval_patterns=args.eval_path, num_epochs=args.num_epochs,
-      device=device)
+      device=device, warm_start=args.checkpoint)
   print(json.dumps(metrics))
   return 0
 
@@ -268,8 +282,9 @@ def _add_evaluate(sub) -> None:
       'inference.csv.')
   source = p.add_mutually_exclusive_group(required=True)
   source.add_argument('--checkpoint',
-                      help='A `train` checkpoint-<step>.pt; params.json '
-                      'is read from beside its checkpoints directory.')
+                      help='A `train` checkpoint directory '
+                      '(checkpoints/checkpoint-<step>); params.json is read '
+                      'from beside its checkpoints directory.')
   source.add_argument('--weights', help='Params tree as .npz (with '
                       '--params), as `run` takes it.')
   p.add_argument('--params', help='params.json of the model (with '
@@ -318,9 +333,17 @@ def _add_run(sub) -> None:
                      '(or BAM, for an --output ending in .bam).')
   p.add_argument('--subreads_to_ccs', required=True)
   p.add_argument('--ccs_bam', required=True)
-  p.add_argument('--weights', required=True,
-                 help='Params tree as .npz with "/"-joined keys.')
-  p.add_argument('--params', required=True, help='params.json of the model.')
+  source = p.add_mutually_exclusive_group(required=True)
+  source.add_argument('--checkpoint',
+                      help='A `train` checkpoint directory '
+                      '(checkpoints/checkpoint-<step>), validated by its '
+                      'manifest; params.json is read from beside its '
+                      'checkpoints directory.')
+  source.add_argument('--weights',
+                      help='Params tree as .npz with "/"-joined keys (with '
+                      '--params).')
+  p.add_argument('--params', help='params.json of the model (with '
+                 '--weights; optional with --checkpoint).')
   p.add_argument('--output', required=True)
   p.add_argument('--batch_size', type=int, default=1024)
   p.add_argument('--batch_zmws', type=int, default=100)
@@ -508,7 +531,9 @@ def main(argv: Optional[List[str]] = None) -> int:
   from deepconsensus_tpu_torch.models import weights as weights_lib
 
   device = resolve_device(args.device)
-  params = config_lib.read_params_from_json(args.params)
+  if args.weights and not args.params:
+    raise ValueError('--weights needs --params')
+  params = config_lib.read_params_from_json(args.params or args.checkpoint)
   if args.dtype:
     params.dtype = args.dtype
   dc_cal = args.dc_calibration or params.get('dc_calibration') or 'skip'
@@ -543,8 +568,13 @@ def main(argv: Optional[List[str]] = None) -> int:
       ccs_calibration_values=calibration_lib.parse_calibration_string(
           args.ccs_calibration),
   )
-  state = weights_lib.from_flax_params(
-      weights_lib.load_npz(args.weights), params)
+  if args.checkpoint:
+    from deepconsensus_tpu_torch.models import evaluate as evaluate_lib
+
+    state = evaluate_lib.load_checkpoint_state(args.checkpoint)
+  else:
+    state = weights_lib.from_flax_params(
+        weights_lib.load_npz(args.weights), params)
   runner = runner_lib.ModelRunner(params, state, options, device=device)
   counters = runner_lib.run_inference(
       args.subreads_to_ccs, args.ccs_bam, args.output, runner)

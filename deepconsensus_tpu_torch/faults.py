@@ -1,11 +1,11 @@
 """Shared fault taxonomy, dead-letter sidecars and injection hooks.
 
 Port of the reference package's faults.py, trimmed to what `run`,
-`validate` and `trace` use: the transient/permanent classification,
-the typed input and device faults, the dead-letter JSONL sidecar and
-the env-var fault-injection hooks that `run_inference` reads. The
-serve, fleet, flywheel, training and elastic-pod types and hooks are
-not part of the port yet.
+`validate`, `trace` and `train` use: the transient/permanent
+classification, the typed input, device and training faults, the
+dead-letter JSONL sidecar and the env-var fault-injection hooks that
+`run_inference` and `run_training` read. The serve, fleet, flywheel
+and elastic-pod types and hooks are not part of the port yet.
 
 Besides the reference's message markers, classify_device_error maps
 PyTorch's own device errors: `torch.cuda.OutOfMemoryError` to
@@ -85,6 +85,19 @@ class CorruptInputError(IOError):
 
 class WindowBucketError(ValueError):
   """A window's width is not one the model was configured for."""
+
+
+class CrashLoopError(RuntimeError):
+  """Raised by run_training_with_retry when restarts stop making
+  progress: the same resume step across K consecutive transient
+  failures means retrying cannot help."""
+
+
+class NonFiniteTrainingError(RuntimeError):
+  """Raised when the NaN sentinel exhausts its rollback budget (or has
+  no valid checkpoint to roll back to). Permanent by construction: the
+  message carries no transient markers, so the retry loop re-raises
+  instead of looping on a diverged model."""
 
 
 class DeviceFault(RuntimeError):
@@ -243,7 +256,11 @@ def read_dead_letters(path: str) -> List[Dict[str, Any]]:
 # ENV_DEVICE_HANG_S seconds (default 30) so the dispatch watchdog must
 # fire. ENV_KILL_SHARD_READER SIGKILLs the streaming loader's worker
 # process that is about to read a shard whose path contains the value
-# (once, with ENV_KILL_TOKEN set).
+# (once, with ENV_KILL_TOKEN set). The training hooks target a 1-based
+# step: NAN_AT_STEP fills that step's batch rows with NaN (once a
+# process), SIGTERM_AT_STEP sends this process SIGTERM after the step
+# (once a process), KILL_TRAIN_AT_STEP SIGKILLs it after the step (once
+# across restarts with ENV_KILL_TOKEN set).
 
 ENV_KILL_ZMW = 'DCTPU_FAULT_KILL_ZMW'
 ENV_KILL_TOKEN = 'DCTPU_FAULT_KILL_TOKEN'
@@ -254,6 +271,9 @@ ENV_DEVICE_LOST_AT_PACK = 'DCTPU_FAULT_DEVICE_LOST_AT_PACK'
 ENV_DEVICE_HANG_AT_PACK = 'DCTPU_FAULT_DEVICE_HANG_AT_PACK'
 ENV_DEVICE_HANG_S = 'DCTPU_FAULT_DEVICE_HANG_S'
 ENV_KILL_SHARD_READER = 'DCTPU_FAULT_KILL_SHARD_READER'
+ENV_NAN_AT_STEP = 'DCTPU_FAULT_NAN_AT_STEP'
+ENV_SIGTERM_AT_STEP = 'DCTPU_FAULT_SIGTERM_AT_STEP'
+ENV_KILL_TRAIN_AT_STEP = 'DCTPU_FAULT_KILL_TRAIN_AT_STEP'
 
 # Hooks that already fired in this process (consume-once semantics).
 _fired: set = set()
@@ -318,6 +338,42 @@ def maybe_kill_shard_reader(shard_path: str) -> None:
 def injected_crash_after_batches() -> int:
   """>0: the run raises after this many emitted batches."""
   return _env_int(ENV_CRASH_AFTER_BATCHES)
+
+
+def maybe_poison_batch(step: int, batch: Dict[str, Any]) -> bool:
+  """Overwrites the batch's rows with NaN when ENV_NAN_AT_STEP targets
+  this step (once per process)."""
+  if not _fire_once(ENV_NAN_AT_STEP, step):
+    return False
+  import numpy as np
+
+  batch['rows'] = np.full_like(batch['rows'], np.nan)
+  log.warning('fault injection: poisoned training batch at step %d', step)
+  return True
+
+
+def maybe_sigterm_at_step(step: int) -> bool:
+  """Delivers SIGTERM to this process at the target step (once per
+  process): a preemption notice."""
+  if not _fire_once(ENV_SIGTERM_AT_STEP, step):
+    return False
+  import signal
+
+  log.warning('fault injection: SIGTERM at step %d', step)
+  os.kill(os.getpid(), signal.SIGTERM)
+  return True
+
+
+def maybe_kill_train_at_step(step: int) -> None:
+  """SIGKILLs the training process at the target step: a preemption
+  with no grace period (once across restarts with ENV_KILL_TOKEN)."""
+  if _env_int(ENV_KILL_TRAIN_AT_STEP) != step:
+    return
+  if not _claim_token():
+    return
+  import signal
+
+  os.kill(os.getpid(), signal.SIGKILL)
 
 
 def injected_device_fault(pack_ordinal: int) -> None:

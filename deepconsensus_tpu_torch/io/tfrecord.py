@@ -105,6 +105,9 @@ class TFRecordWriter:
     self._f.write(record)
     self._f.write(struct.pack('<I', _masked_crc(record)))
 
+  def flush(self) -> None:
+    self._f.flush()
+
   def close(self) -> None:
     self._f.close()
 

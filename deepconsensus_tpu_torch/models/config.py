@@ -241,6 +241,20 @@ def get_config(config_name: Optional[str] = None) -> Params:
   # keeping its activations (torch.utils.checkpoint): less device
   # memory for more time.
   params.remat = False
+  # Embedding lookups of vocabularies of at most 32 (bases, strand) as a
+  # one-hot matrix times the table instead of a gather (the module
+  # route; the fused route's condenser is unchanged).
+  params.embed_onehot = False
+  # The eval metric that picks best_checkpoint.txt (higher is better).
+  params.best_checkpoint_metric = 'eval/per_example_accuracy'
+  # NaN sentinel: after this many consecutive non-finite steps, roll
+  # back to the last valid checkpoint (0 disables); past
+  # nan_max_rollbacks rollbacks a NonFiniteTrainingError ends the run.
+  params.nan_sentinel_steps = 3
+  params.nan_max_rollbacks = 2
+  # Window ids ('name') in training batches, for the sentinel's dead
+  # letters.
+  params.track_window_ids = False
   if config_name is None:
     return params
 

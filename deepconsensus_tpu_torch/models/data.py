@@ -13,9 +13,11 @@ seeded draws, so the batches are the same:
 
 This module imports no torch, so a loader worker (`_shard_reader_main`,
 a `spawn` process that imports it) starts in about half a second.
-Multi-host shard assignment (the reference's host_rank / host_count /
-reassign_hosts) and window ids in batches (track_window_ids) are not
-ported (ROADMAP: multi-GPU training, the NaN sentinel).
+With params.track_window_ids every loader decodes the window ids too
+and batches carry them under 'name' (the NaN sentinel's dead letters
+name a diverged batch's windows). Multi-host shard assignment (the
+reference's host_rank / host_count / reassign_hosts) is not ported
+(ROADMAP: multi-GPU training).
 """
 from __future__ import annotations
 
@@ -92,22 +94,48 @@ def format_rows_batch(subreads: np.ndarray, params,
 _MINIMAL_FIELDS = frozenset({
     'subreads/encoded', 'subreads/shape', 'label/encoded', 'label/shape',
 })
+_MINIMAL_FIELDS_WITH_NAME = _MINIMAL_FIELDS | {'name'}
 
 
-def parse_example_minimal(raw: bytes) -> Dict[str, np.ndarray]:
-  """Decodes only the subreads tensor (raw, unformatted) and the label;
-  row formatting and label gap-shifting happen per batch."""
-  ex = Example.parse(raw, fields=_MINIMAL_FIELDS)
-  return {
+def parse_example_minimal(raw: bytes, with_name: bool = False
+                          ) -> Dict[str, np.ndarray]:
+  """Decodes only the subreads tensor (raw, unformatted) and the label
+  (with_name: and the window id, 'name'); row formatting and label
+  gap-shifting happen per batch."""
+  ex = Example.parse(
+      raw, fields=_MINIMAL_FIELDS_WITH_NAME if with_name else _MINIMAL_FIELDS)
+  out = {
       name: np.frombuffer(ex[f'{name}/encoded'][0],
                           dtype=constants.NP_DATA_TYPE).reshape(
                               ex[f'{name}/shape'])
       for name in ('subreads', 'label')
   }
+  if with_name and 'name' in ex:
+    out['name'] = ex['name'][0]
+  return out
+
+
+def _exit_with_parent() -> None:
+  """Ends this worker process once its parent is gone: a parent killed
+  by SIGKILL terminates nothing, and a worker blocked on its full queue
+  would wait for ever. A daemon thread polls the parent's pid."""
+  import os
+  import threading
+  import time
+
+  parent = os.getppid()
+
+  def watch():
+    while os.getppid() == parent:
+      time.sleep(0.5)
+    os._exit(0)
+
+  threading.Thread(target=watch, daemon=True, name='parent-watch').start()
 
 
 def _shard_reader_main(paths, seed: int, out_queue, chunk: int = 64,
-                       on_shard_error: str = 'fail') -> None:
+                       on_shard_error: str = 'fail',
+                       with_name: bool = False) -> None:
   """StreamingDataset worker: reads its shard subset forever (inflate,
   framing and the minimal parse in this process) and ships parsed
   chunks to the parent on its own queue as ('chunk', parses). Under
@@ -116,10 +144,11 @@ def _shard_reader_main(paths, seed: int, out_queue, chunk: int = 64,
   ('corrupt_record', description), and the worker reads on; under
   'fail' it exits non-zero and the parent's liveness check raises. The
   parent terminates it; a blocking put keeps it idle while the
-  consumer is behind."""
+  consumer is behind; it exits by itself once the parent is gone."""
   from deepconsensus_tpu_torch import faults as faults_lib
   from deepconsensus_tpu_torch.io.tfrecord import TFRecordReader
 
+  _exit_with_parent()
   rng = np.random.default_rng(seed)
   pending: List[Dict[str, np.ndarray]] = []
   while True:
@@ -133,7 +162,7 @@ def _shard_reader_main(paths, seed: int, out_queue, chunk: int = 64,
       try:
         for raw in TFRecordReader(path, native_decode=True):
           try:
-            parsed = parse_example_minimal(raw)
+            parsed = parse_example_minimal(raw, with_name)
           except Exception as e:  # noqa: BLE001 - policy-gated
             if on_shard_error != OnShardError.SKIP:
               raise
@@ -172,6 +201,7 @@ def _pad_minimal(parsed: Dict[str, np.ndarray], pad_to: int
   if w == pad_to:
     return parsed
   return {
+      **parsed,
       'subreads': np.pad(parsed['subreads'], ((0, 0), (0, pad_to - w),
                                               (0, 0))),
       'label': np.pad(parsed['label'], (0, pad_to - w)),
@@ -180,16 +210,20 @@ def _pad_minimal(parsed: Dict[str, np.ndarray], pad_to: int
 
 def _batch_from_minimal(chosen: List[Dict[str, np.ndarray]], params,
                         pad_to: int) -> Dict[str, np.ndarray]:
-  """Stacks minimal parses into a formatted (rows, label) batch."""
+  """Stacks minimal parses into a formatted (rows, label) batch, with
+  their window ids under 'name' when the parses carry them."""
   chosen = [_pad_minimal(c, pad_to) for c in chosen]
   label = np.stack([c['label'] for c in chosen])
   if params.get('remove_label_gaps', False):
     label = phred.left_shift(label)
-  return {
+  batch = {
       'rows': format_rows_batch(
           np.stack([c['subreads'] for c in chosen]), params),
       'label': label,
   }
+  if 'name' in chosen[0]:
+    batch['name'] = np.asarray([c['name'] for c in chosen], dtype=object)
+  return batch
 
 
 @dataclasses.dataclass
@@ -217,17 +251,20 @@ class DatasetIterator:
   limit: int = -1
 
   def __post_init__(self):
+    with_name = bool(self.params.get('track_window_ids', False))
     buckets = config.resolve_window_buckets(self.params)
     grouped: Dict[int, List[Dict[str, np.ndarray]]] = {}
     for i, raw in enumerate(read_tfrecords(self.patterns)):
       if 0 <= self.limit <= i:
         break
-      parsed = parse_example_minimal(raw)
+      parsed = parse_example_minimal(raw, with_name)
       width = _window_width(parsed)
       bucket = config.bucket_for(width, buckets)
       if bucket is None:
+        who = parsed.get('name')
         raise WindowBucketError(
-            f'window width {width} overflows window buckets {buckets}')
+            f'window width {width} overflows window buckets {buckets}'
+            + (f' (window id {who!r})' if who is not None else ''))
       grouped.setdefault(bucket, []).append(parsed)
     if not grouped:
       raise ValueError(f'no examples matched {self.patterns!r}')
@@ -242,8 +279,9 @@ class DatasetIterator:
     if len(self._groups) == 1:
       group = next(iter(self._groups.values()))
       self.rows, self.labels = group['rows'], group['label']
+      self.names = group.get('name')
     else:
-      self.rows = self.labels = None
+      self.rows = self.labels = self.names = None
     self._rng = np.random.default_rng(self.seed)
 
   def __len__(self) -> int:
@@ -275,7 +313,10 @@ class DatasetIterator:
                          self.batch_size):
         idx = order[start:start + self.batch_size]
         self._count_emit(bucket, g['width'][idx])
-        yield {'rows': self.rows[idx], 'label': self.labels[idx]}
+        batch = {'rows': self.rows[idx], 'label': self.labels[idx]}
+        if self.names is not None:
+          batch['name'] = self.names[idx]
+        yield batch
       return
     # Several buckets: shuffle within each, then interleave the batch
     # slots (seeded when shuffling, narrow to wide otherwise), so a
@@ -295,7 +336,10 @@ class DatasetIterator:
       g = self._groups[b]
       idx = orders[b][start:start + self.batch_size]
       self._count_emit(b, g['width'][idx])
-      yield {'rows': g['rows'][idx], 'label': g['label'][idx]}
+      batch = {'rows': g['rows'][idx], 'label': g['label'][idx]}
+      if 'name' in g:
+        batch['name'] = g['name'][idx]
+      yield batch
 
 
 @dataclasses.dataclass
@@ -343,6 +387,7 @@ class StreamingDataset:
     self._rng = np.random.default_rng(self.seed)
     self._shard_rng = np.random.default_rng([1, self.seed])
     self._buckets = config.resolve_window_buckets(self.params)
+    self._with_name = bool(self.params.get('track_window_ids', False))
     # The producer side (shard and record faults, per-worker parses) and
     # the consumer side (per-bucket emission) bump disjoint keys.
     self.counters: collections.Counter = collections.Counter()
@@ -384,7 +429,7 @@ class StreamingDataset:
         if stop.is_set():
           return
         try:
-          parsed = parse_example_minimal(raw)
+          parsed = parse_example_minimal(raw, self._with_name)
         except Exception as e:  # noqa: BLE001 - policy-gated
           if self.on_shard_error != OnShardError.SKIP:
             raise
@@ -414,7 +459,7 @@ class StreamingDataset:
     procs = [ctx.Process(
         target=_shard_reader_main,
         args=(worker_paths[w], self.seed + w, queues[w], 64,
-              self.on_shard_error), daemon=True)
+              self.on_shard_error, self._with_name), daemon=True)
              for w in range(n_workers)]
 
     def check_liveness():

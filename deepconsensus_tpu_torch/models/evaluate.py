@@ -19,6 +19,7 @@ import torch
 
 from deepconsensus_tpu_torch import constants
 from deepconsensus_tpu_torch.devices import resolve_device
+from deepconsensus_tpu_torch.models import checkpoints as checkpoints_lib
 from deepconsensus_tpu_torch.models import data as data_lib
 from deepconsensus_tpu_torch.models import metrics as metrics_lib
 from deepconsensus_tpu_torch.models import model as model_lib
@@ -26,8 +27,12 @@ from deepconsensus_tpu_torch.models import train as train_lib
 
 
 def load_checkpoint_state(path: str) -> Dict[str, torch.Tensor]:
-  """The model state dict of a `cli train` checkpoint-<step>.pt."""
-  return torch.load(path, map_location='cpu')['model']
+  """The model state dict of a `cli train` checkpoint directory, which
+  must pass checkpoints.validate_checkpoint (else ValueError with its
+  reason: a source handed to `evaluate` or `run` has nothing to fall
+  back to)."""
+  checkpoints_lib.require_valid(path)
+  return checkpoints_lib.load_state(path)['model']
 
 
 @torch.no_grad()

@@ -33,14 +33,37 @@ def left_shift_sequence(y: torch.Tensor) -> torch.Tensor:
   return torch.gather(y, 1, sort_order)
 
 
+class _LabelGather(torch.autograd.Function):
+  """[B, m, n] log_p[b, j, y_true[b, i]] of log_p [B, n, V]: an exact
+  gather forward. The backward sums each class's gradient with one
+  reduction per class, not with gather's scatter-add, whose atomics on
+  the card add in another order each run: training stays bit for bit
+  repeatable, so a resumed run ends on the uninterrupted one's weights."""
+
+  @staticmethod
+  def forward(ctx, log_p: torch.Tensor, y_true: torch.Tensor):
+    b, n, vocab = log_p.shape
+    ctx.save_for_backward(y_true)
+    ctx.vocab = vocab
+    index = y_true[:, :, None].expand(b, y_true.shape[1], n)
+    return torch.gather(log_p.transpose(1, 2), 1, index)
+
+  @staticmethod
+  def backward(ctx, grad: torch.Tensor):
+    (y_true,) = ctx.saved_tensors
+    zero = grad.new_zeros(())
+    grad_log_p = torch.stack(
+        [torch.where((y_true == c)[:, :, None], grad, zero).sum(1)
+         for c in range(ctx.vocab)], dim=-1)
+    return grad_log_p, None
+
+
 def xentropy_subs_cost(y_true: torch.Tensor, y_pred: torch.Tensor,
                        eps: float = 1e-7) -> torch.Tensor:
   """[B, m, n] costs -log y_pred[b, j, y_true[b, i]] (an exact gather,
   as the reference takes it)."""
   log_p = torch.log(torch.clamp(y_pred, eps, 1 - eps))  # [B, n, V]
-  b, n, _ = y_pred.shape
-  index = y_true.long()[:, :, None].expand(b, y_true.shape[1], n)
-  return -torch.gather(log_p.transpose(1, 2), 1, index)
+  return -_LabelGather.apply(log_p, y_true.long())
 
 
 def xentropy_ins_cost(y_pred: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:

@@ -187,17 +187,47 @@ class Dense(nn.Module):
     return y.reshape(*lead, *self.out_shape)
 
 
-class MaskedEmbed(nn.Module):
-  """Embedding with zero vectors for id 0 and sqrt(dim) output scaling."""
+# The largest vocabulary the one-hot route takes (the reference's
+# _ONEHOT_MAX_VOCAB): past it the one-hot matrix outweighs the gather.
+ONEHOT_MAX_VOCAB = 32
 
-  def __init__(self, vocab_size: int, features: int, device):
+
+def _onehot_lookup(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+  """one_hot(ids) @ table with every float32 product exact, not in
+  TF32 (the reference's Precision.HIGHEST): each output row is one table
+  row, as the gather gives it."""
+  onehot = torch.nn.functional.one_hot(ids, table.shape[0]).to(table.dtype)
+  if table.dtype != torch.float32:
+    return torch.matmul(onehot, table)
+  precision = torch.get_float32_matmul_precision()
+  torch.set_float32_matmul_precision('highest')
+  try:
+    return torch.matmul(onehot, table)
+  finally:
+    torch.set_float32_matmul_precision(precision)
+
+
+class MaskedEmbed(nn.Module):
+  """Embedding with zero vectors for id 0 and sqrt(dim) output scaling.
+  onehot=True looks vocabularies of at most ONEHOT_MAX_VOCAB up as a
+  one-hot matrix times the table (params.embed_onehot): the same values,
+  and a matrix product in place of the gather's scatter in the
+  backward pass."""
+
+  def __init__(self, vocab_size: int, features: int, device,
+               onehot: bool = False):
     super().__init__()
     self.embedding = _param(vocab_size, features, device=device)
     self.features = features
+    self.onehot = onehot and vocab_size <= ONEHOT_MAX_VOCAB
 
   def forward(self, ids: torch.Tensor, dtype) -> torch.Tensor:
     vocab = self.embedding.shape[0]
-    emb = self.embedding.to(dtype)[ids.clamp(0, vocab - 1).long()]
+    clipped = ids.clamp(0, vocab - 1).long()
+    if self.onehot:
+      emb = _onehot_lookup(clipped, self.embedding.to(dtype))
+    else:
+      emb = self.embedding.to(dtype)[clipped]
     emb = emb * torch.tensor(self.features ** 0.5, dtype=dtype)
     return emb * (ids != 0).to(dtype)[..., None]
 
@@ -512,7 +542,8 @@ class DeepConsensusModel(nn.Module):
         vocab = params[vocab_key] + (0 if name == 'ccs_bq' else 1)
       if enabled:
         self.add_module(f'{name}_embedding',
-                        MaskedEmbed(vocab, params[width_key], device))
+                        MaskedEmbed(vocab, params[width_key], device,
+                                    bool(params.get('embed_onehot', False))))
     specs, _, cond_in = fwa.build_family_specs(params)
     self.specs = specs
     self.condenser = Dense((cond_in,), (params.transformer_input_size,),
@@ -582,8 +613,8 @@ class DeepConsensusModel(nn.Module):
     blocks = []
     for spec in self.specs:
       table = 'bases' if spec.name == 'ccs' else spec.name
-      ids = rows[:, spec.row_start:spec.row_start + spec.n_rows].to(
-          torch.int32) + spec.shift
+      ids = fwa.rows_to_ids(
+          rows[:, spec.row_start:spec.row_start + spec.n_rows]) + spec.shift
       emb = getattr(self, f'{table}_embedding')(ids, self.compute_dtype)
       b, r, l, e = emb.shape
       blocks.append(emb.permute(0, 2, 1, 3).reshape(b, l, r * e))

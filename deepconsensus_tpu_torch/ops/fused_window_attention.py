@@ -167,11 +167,25 @@ def softmax_chain(logits: torch.Tensor, softmax_dtype: Any) -> torch.Tensor:
   return torch.where(w < tiny, zero, w)
 
 
+def rows_to_ids(rows: torch.Tensor) -> torch.Tensor:
+  """Raw pileup rows -> int32 as XLA converts floats (jnp astype, and a
+  CUDA cast): truncation toward zero, NaN to 0, values past int32's
+  range (and +-inf) to its ends. A plain .to(torch.int32) leaves those
+  undefined: on the CPU a NaN row becomes -2**31, not id 0."""
+  if not rows.is_floating_point():
+    return rows.to(torch.int32)
+  r = torch.nan_to_num(rows.float(), nan=0.0)
+  # 2147483520 is the largest float32 below 2**31.
+  ids = r.clamp(-2.0 ** 31, 2147483520.0).to(torch.int32)
+  return torch.where(r >= 2.0 ** 31,
+                     torch.full_like(ids, torch.iinfo(torch.int32).max), ids)
+
+
 def prepare_ids(rows: torch.Tensor, specs: Sequence[FamilySpec]
                 ) -> torch.Tensor:
-  """[B, R, L] raw rows -> int32 ids, truncated, then shifted and clipped
-  per family to [0, vocab-1]."""
-  ids = rows.to(torch.int32)
+  """[B, R, L] raw rows -> int32 ids (rows_to_ids), then shifted and
+  clipped per family to [0, vocab-1]."""
+  ids = rows_to_ids(rows)
   for spec in specs:
     sl = slice(spec.row_start, spec.row_start + spec.n_rows)
     ids[:, sl] = torch.clamp(ids[:, sl] + spec.shift, 0, spec.vocab - 1)

@@ -35,6 +35,7 @@ from deepconsensus_tpu.models import model as jax_model
 from deepconsensus_tpu.models import quantize as jax_quantize
 from deepconsensus_tpu.ops import fused_encoder_block as jax_feb
 from deepconsensus_tpu_torch import cli
+from deepconsensus_tpu_torch.models import checkpoints as torch_checkpoints
 from deepconsensus_tpu_torch.models import config as torch_config
 from deepconsensus_tpu_torch.models import evaluate as torch_evaluate
 from deepconsensus_tpu_torch.models import metrics as torch_metrics
@@ -523,11 +524,10 @@ def test_cli_evaluate_on_cpu(eval_runs, variables, tmp_path):
   tp = torch_params()
   out_dir = tmp_path / 'model_out'
   torch_config.save_params_as_json(str(out_dir), tp)
-  (out_dir / 'checkpoints').mkdir()
-  ckpt = str(out_dir / 'checkpoints' / 'checkpoint-3.pt')
   state = weights_lib.from_flax_params(
       jax.device_get(variables['params']), tp)
-  torch.save({'model': state, 'step': 3}, ckpt)
+  ckpt = torch_checkpoints.save_checkpoint(
+      str(out_dir / 'checkpoints'), 3, {'model': state, 'step': 3})
   weights = str(tmp_path / 'w.npz')
   weights_lib.save_npz(weights, jax.device_get(variables['params']))
   for lever, source in (('int8', ['--checkpoint', ckpt]),

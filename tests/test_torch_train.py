@@ -17,14 +17,16 @@ What is held against JAX, with its tolerance:
   banded_alignment_scores_vjp(interpret=True), and at a score on band
   row 1 vs jax.grad through the plain scan: rtol 1e-4, atol 1e-5;
 * AlignmentLoss value (rtol 1e-5) and gradient wrt y_pred (rtol 1e-4),
-  unbanded and with width 4;
+  unbanded and with width 4; the substitution costs' label gather: its
+  value rtol 1e-6, its gradient rtol 1e-4, atol 1e-6, and repeatable;
 * the training forward with dropout 0 vs model.apply(train=True): atol
   1e-5, and its loss gradients leaf by leaf: rtol 1e-4, atol 1e-5;
   each dropout rate at 1.0 alone (both frameworks then drop everything):
   atol 1e-5;
 * LAMB, its schedule and decay mask vs optax (params atol 1e-6), one
   full float32 train step (loss rtol 1e-5, params atol 1e-5);
-* loader batches and synthetic shards: exact;
+* loader batches and synthetic shards: exact; with track_window_ids the
+  batches' window ids equal the JAX loader's;
 * params.remat: gradients and the dropout generator's state equal to
   those without it, with dropout on (f32 atol 1e-6);
 * a bucketed pair of steps (widths 20 and 40, one LAMB state) vs two JAX
@@ -485,6 +487,35 @@ def test_alignment_loss_value_and_gradient_match_jax(loss_reg):
           jnp.asarray(label, jnp.int32))))
 
 
+def test_substitution_costs_and_gradient_match_jax():
+  """The label gather equals torch.gather bit for bit (JAX's log: rtol
+  1e-6), its per-class backward gives jax.vjp's gradient (rtol 1e-4,
+  atol 1e-6), and two backward passes give the same bits."""
+  rng = np.random.default_rng(6)
+  label = gapped_labels(6, 6).astype(np.int32)
+  y_pred = np.array(jax.nn.softmax(jnp.asarray(
+      rng.normal(0, 2, (6, LENGTH, 5)).astype(np.float32)), -1))
+  cotangent = rng.normal(0, 1, (6, label.shape[1], LENGTH)).astype(
+      np.float32)
+  want, vjp = jax.vjp(lambda p: jax_losses.xentropy_subs_cost(
+      jnp.asarray(label), p), jnp.asarray(y_pred))
+  (want_grad,) = vjp(jnp.asarray(cotangent))
+  grads = []
+  for _ in range(2):
+    pred = torch.from_numpy(y_pred).requires_grad_(True)
+    got = torch_losses.xentropy_subs_cost(torch.from_numpy(label), pred)
+    got.backward(torch.from_numpy(cotangent))
+    grads.append(pred.grad)
+  log_p = torch.log(torch.clamp(torch.from_numpy(y_pred), 1e-7, 1 - 1e-7))
+  index = torch.from_numpy(label).long()[:, :, None].expand(got.shape)
+  assert torch.equal(got, -torch.gather(log_p.transpose(1, 2), 1, index))
+  np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                             rtol=1e-6)
+  np.testing.assert_allclose(grads[0].numpy(), np.asarray(want_grad),
+                             rtol=1e-4, atol=1e-6)
+  assert torch.equal(grads[0], grads[1])
+
+
 def test_accuracy_counts_match_jax():
   from deepconsensus_tpu.models import metrics as jax_metrics
   from deepconsensus_tpu_torch.models import metrics as torch_metrics
@@ -692,6 +723,41 @@ def test_dataset_iterator_batches_match_jax(tmp_path):
         np.testing.assert_array_equal(g['label'], w['label'])
 
 
+def test_loaders_carry_window_ids_as_jax(tmp_path):
+  """track_window_ids: the in-memory loader's batches carry the JAX
+  package's window ids (and rows), and the streamed ones (serial and
+  two workers) carry the ids of their own rows."""
+  synthetic.write_synthetic_tfrecords(
+      str(tmp_path), n_shards=2, n_examples=16, max_passes=MAX_PASSES,
+      max_length=LENGTH, seed=9)
+  pattern = str(tmp_path / '*.tfrecord.gz')
+  want = jax_data.DatasetIterator(
+      pattern, jax_params(track_window_ids=True), batch_size=4, seed=3)
+  got = torch_data.DatasetIterator(
+      pattern, torch_params(track_window_ids=True), batch_size=4, seed=3)
+  for g, w in zip(got.epoch(), want.epoch()):
+    np.testing.assert_array_equal(g['rows'], w['rows'])
+    assert list(g['name']) == list(w['name'])
+  by_name = {}
+  for batch in got.epoch():
+    for name, rows in zip(batch['name'], batch['rows']):
+      by_name[name] = rows
+  assert len(by_name) == 16
+  for workers in (0, 2):
+    ds = torch_data.StreamingDataset(
+        pattern, torch_params(track_window_ids=True), batch_size=4,
+        buffer_size=8, seed=5, workers=workers)
+    it = iter(ds)
+    try:
+      for _ in range(3):
+        batch = next(it)
+        assert len(batch['name']) == 4
+        for name, rows in zip(batch['name'], batch['rows']):
+          np.testing.assert_array_equal(rows, by_name[name])
+    finally:
+      it.close()
+
+
 @pytest.fixture(scope='module')
 def train_shards(tmp_path_factory):
   root = tmp_path_factory.mktemp('shards')
@@ -726,7 +792,7 @@ def test_cli_train_on_cpu_resumes_and_feeds_run(train_shards, tmp_path):
   assert [e['step'] for e in train] == [1, 2, 3]
   assert all(np.isfinite(e['loss']) and np.isfinite(e['grad_norm'])
              for e in train)
-  assert os.path.exists(os.path.join(out, 'checkpoints', 'checkpoint-3.pt'))
+  assert os.path.isdir(os.path.join(out, 'checkpoints', 'checkpoint-3'))
   # A second run with two epochs resumes at step 3 and runs steps 4-6.
   assert cli.main(argv + ['--num_epochs', '2']) == 0
   second = read_jsonl(os.path.join(out, 'metrics.jsonl'))[len(first):]
