@@ -186,6 +186,33 @@ Phases, in order; any failure exits non-zero (nothing is caught):
       --batch_timeout 30 with a worker killed; --trace and `cli trace`;
       `cli validate` on the clean and a truncated BAM pair
       (faults_gates says what each gate holds).
+   p. `serve` (after h): `cli serve` on a's params in bfloat16 (batch
+      1024, --min_quality 0 --skip_windows_above 0), its serve_main in a
+      thread of this process: a's 128 ZMWs featurized on the client side
+      by the port's feeder and posted from 8 concurrent clients (every
+      read of a's bfloat16 `cli run` FASTQ back `ok` and byte-identical,
+      K1 and K3 once per pack, K2 once per layer and pack, no other
+      kernel, /metricz's n_model_packs the packs finalized), then a
+      request poisoned with DCTPU_FAULT_POISON_WINDOW among 8 clean ones
+      (quarantined to its CCS, its request_id in the dead letter, the
+      clean ones byte-identical to their first answers). A request holds
+      windows of one width, so the mixed-width runs take BAMs whose
+      molecules each hold windows of one bucket (half 100, half 200):
+      with --window_buckets 100,200 and use_pallas_attention, byte
+      identity to `cli run` on those BAMs with the same flags, K8 once
+      per layer of each 200-wide pack and K3 on every pack; with
+      --use_ragged_kernel, one `ok` response per ZMW and K4 once per
+      pack, its diff to the ragged `cli run` printed, not gated. Then
+      `cli serve` as a subprocess (--port 0, its ready line), with `cli
+      featurize-worker` and `cli route` as CPU subprocesses in front: 8
+      one-ZMW bam/1 bodies through the router, each answer equal to its
+      features/1 body posted straight to the replica, the router's
+      n_routed_featurize 8, both drained on SIGTERM with exit 0; and 16
+      clients posting in a loop when the replica gets SIGTERM: every
+      admitted request answered, every client then refused, `drained:
+      true`, exit 0. Prints warmup_s, the latency p50/p99 at 8 clients,
+      requests/s and windows/s through serve, and a's `cli run`
+      windows/s.
    Every `run` prints its stage seconds (BAM decode, featurize,
    triage/format, model, stitch), the untimed remainder, the card's
    H2D / forward / D2H time by CUDA events, the model stage's idle share
@@ -269,7 +296,8 @@ Phases, in order; any failure exits non-zero (nothing is caught):
 5. A `{"kernels": [...]}` line (K1-K14, K2_int8, the attention core and
    the bf16-softmax variant of K1, K2, K2 int8, K4 and the core; each
    row's launches_by_path includes `faults`, the OOM-bisected run,
-   `faults_ragged_resume`, `train_ckpt` and `train_data`), the card
+   `faults_ragged_resume`, `train_ckpt`, `train_data`, `serve`,
+   `serve_buckets` and `serve_ragged`), the card
    line again, and
    the last line
    `{"ok": true, "device": {...}}`.
@@ -4137,6 +4165,547 @@ def embed_onehot_gates(train_paths, device: str = 'cuda') -> dict:
   ])
 
 
+SERVE_CLIENTS = 8        # concurrent clients of the in-process service
+SERVE_DRAIN_CLIENTS = 16  # clients in flight when `cli serve` gets SIGTERM
+SERVE_BAM_BODIES = 8     # one-ZMW bam/1 bodies through `cli route`
+SERVE_READY_S = 300      # a subprocess's ready line, at the latest
+NAMED_KERNELS = ('K1', 'K2', 'K2_int8', 'K3', 'K4', 'K5', 'K6', 'K7', 'K8',
+                 'K8_lse', 'K9', 'K10', 'K11', 'K12', 'K13', 'K14',
+                 'K1_bf16_softmax', 'K2_bf16_softmax', 'K2_int8_bf16_softmax',
+                 'K4_bf16_softmax')
+
+
+def serve_features(bams, buckets=None, ins_trim: int = 5) -> list:
+  """Client-side featurize: each ZMW's window feature dicts through the
+  port's feeder, as `cli run` featurizes them (its --ins_trim 5; the
+  featurize worker's default is 0)."""
+  from deepconsensus_tpu_torch.inference import runner as runner_lib
+  from deepconsensus_tpu_torch.models import config as config_lib
+  from deepconsensus_tpu_torch.preprocess import feeder as feeder_lib
+  from deepconsensus_tpu_torch.preprocess.pileup import FeatureLayout
+
+  layout = FeatureLayout(20, LENGTH, window_buckets=(
+      config_lib.normalize_window_buckets(buckets, LENGTH)))
+  feed, _ = feeder_lib.create_proc_feeder(
+      bams[0], bams[1], layout=layout, ins_trim=ins_trim,
+      use_ccs_smart_windows=buckets is not None)
+  return [runner_lib.preprocess_zmw(z)[0] for z in feed()]
+
+
+class InProcessServe:
+  """`cli serve` with these flags, its serve_main in a thread of this
+  process (so the launch counters see its kernels), stopped through
+  serve_main's stop_event. `packs` records each pack the service
+  finalizes after ready (its width, 'ragged' for a ragged pack)."""
+
+  def __init__(self, argv):
+    import threading
+
+    from deepconsensus_tpu_torch import cli
+    from deepconsensus_tpu_torch.inference import runner as runner_lib
+    from deepconsensus_tpu_torch.serve import server as server_lib
+
+    runner, options, serve_options, host, port = cli.serve_setup(argv)
+    self.stop = threading.Event()
+    self.ready, self.stats, self.error = {}, {}, []
+    self.packs = []
+    self._finalize = runner_lib.ModelRunner.finalize
+
+    def main():
+      try:
+        self.stats.update(server_lib.serve_main(
+            runner, options, serve_options, host=host, port=port,
+            ready_fn=self.ready.update, stop_event=self.stop))
+      except BaseException as e:  # re-raised on the calling thread
+        self.error.append(e)
+
+    self.thread = threading.Thread(target=main, name='chip-smoke-serve')
+    self.thread.start()
+    while 'port' not in self.ready:
+      if not self.thread.is_alive():
+        raise AssertionError(f'serve exited before ready: {self.error}')
+      self.thread.join(0.05)
+    finalize, packs = self._finalize, self.packs
+
+    def recording_finalize(runner_self, handle):
+      packs.append('ragged' if handle.ragged else handle.width)
+      return finalize(runner_self, handle)
+
+    runner_lib.ModelRunner.finalize = recording_finalize
+
+  @property
+  def port(self) -> int:
+    return self.ready['port']
+
+  def close(self) -> dict:
+    from deepconsensus_tpu_torch.inference import runner as runner_lib
+
+    runner_lib.ModelRunner.finalize = self._finalize
+    self.stop.set()
+    self.thread.join(300)
+    if self.error:
+      raise self.error[0]
+    if not self.stats.get('drained'):
+      raise AssertionError(f'serve did not drain: {self.stats}')
+    return self.stats
+
+
+def post_all(port: int, bodies, clients: int = SERVE_CLIENTS):
+  """POSTs (name, body) pairs from `clients` threads, each taking every
+  clients-th body in turn; returns ({name: (response, seconds)}, wall
+  seconds). Raises on any failed request."""
+  import threading
+
+  from deepconsensus_tpu_torch.serve.client import ServeClient
+
+  out, errors = {}, []
+
+  def worker(k):
+    client = ServeClient(port=port, timeout=300)
+    for name, body in bodies[k::clients]:
+      t0 = time.perf_counter()
+      try:
+        resp = client.polish_body(body, name=name)
+      except Exception as e:  # surfaced below
+        errors.append(f'{name}: {e!r}')
+        return
+      out[name] = (resp, time.perf_counter() - t0)
+
+  threads = [threading.Thread(target=worker, args=(k,))
+             for k in range(clients)]
+  t0 = time.perf_counter()
+  for t in threads:
+    t.start()
+  for t in threads:
+    t.join(600)
+  wall = time.perf_counter() - t0
+  if errors:
+    raise AssertionError(f'serve requests failed: {errors[:4]}')
+  return out, wall
+
+
+def served_vs_fastq(responses, fastq: str) -> dict:
+  """Served reads against a `cli run` FASTQ: every read it holds must
+  come back `ok` with its record's bytes, every other ZMW `filtered`."""
+  from deepconsensus_tpu_torch.postprocess import stitch
+
+  with open(fastq, 'rb') as f:
+    records = {record_name(r): r for r in fastq_records(f.read())}
+  diff = {'responses': len(responses), 'fastq_reads': len(records),
+          'identical': 0, 'differ': [], 'filtered': 0, 'wrong_status': []}
+  for name, (resp, _) in sorted(responses.items()):
+    if name in records:
+      if resp['status'] != 'ok':
+        diff['wrong_status'].append((name, resp['status']))
+      elif stitch.format_fastq_bytes(name, resp['seq'],
+                                     resp['quals']) == records[name]:
+        diff['identical'] += 1
+      else:
+        diff['differ'].append(name)
+    elif resp['status'] == 'filtered':
+      diff['filtered'] += 1
+    else:
+      diff['wrong_status'].append((name, resp['status']))
+  diff['missing'] = sorted(set(records) - set(responses))
+  return diff
+
+
+def served_fastq(responses) -> bytes:
+  """The served reads as a FASTQ in name order (ok reads only)."""
+  from deepconsensus_tpu_torch.postprocess import stitch
+
+  return b''.join(
+      stitch.format_fastq_bytes(name, resp['seq'], resp['quals'])
+      for name, (resp, _) in sorted(responses.items())
+      if resp['status'] == 'ok')
+
+
+def serve_launch_want(packs, ragged: bool = False) -> dict:
+  """The named kernels a service's packs must launch, the rest 0: K1 (K4
+  on ragged packs) and K3 once per pack, K2 once per layer and pack of
+  the fused route (100-wide or ragged), K8 once per layer of each
+  200-wide pack (use_pallas_attention)."""
+  layers = make_params('float32').num_hidden_layers
+  fused = sum(1 for p in packs if p in (LENGTH, 'ragged'))
+  wide = sum(1 for p in packs if p == BUCKETS[1])
+  want = dict.fromkeys(NAMED_KERNELS, 0)
+  want.update({'K4' if ragged else 'K1': fused, 'K2': layers * fused,
+               'K3': len(packs), 'K8': layers * wide})
+  return want
+
+
+def serve_path(tag: str, argv, bams, buckets, fastq: str,
+               byte_identical: bool = True, poison: bool = False) -> dict:
+  """One in-process service over every ZMW of `bams` (client-side
+  featurize, SERVE_CLIENTS concurrent clients), its reads against the
+  `cli run` FASTQ and its launches against its packs; with poison, a
+  poisoned request among clean ones afterwards. Raises on a failed
+  gate; returns the gate values and the launches."""
+  import numpy as np
+
+  from deepconsensus_tpu_torch import faults
+  from deepconsensus_tpu_torch.serve import protocol
+  from deepconsensus_tpu_torch.serve.client import ServeClient
+
+  feats = serve_features(bams, buckets)
+  bodies = [(f[0]['name'], protocol.request_from_features(f)) for f in feats]
+  n_windows = sum(len(f) for f in feats)
+  dead_letter = os.path.join(WORK, f'serve_{tag}.failed.jsonl')
+  if os.path.exists(dead_letter):
+    os.remove(dead_letter)
+  service = InProcessServe([*argv, '--port', '0', '--dead_letter',
+                            dead_letter])
+  try:
+    client = ServeClient(port=service.port, timeout=60)
+    reset_launches()
+    responses, wall = post_all(service.port, bodies)
+    launches = read_launches()
+    packs = list(service.packs)
+    metricz = client.metricz()
+    poisoned = None
+    if poison:
+      target = bodies[len(bodies) // 2][0]
+      os.environ[faults.ENV_POISON_WINDOW] = f'/{target.split("/")[1]}/'
+      try:
+        clean = [b for b in bodies[:SERVE_CLIENTS + 1] if b[0] != target]
+        poisoned, _ = post_all(service.port,
+                               clean[:SERVE_CLIENTS] + [
+                                   b for b in bodies if b[0] == target],
+                               clients=SERVE_CLIENTS + 1)
+      finally:
+        del os.environ[faults.ENV_POISON_WINDOW]
+      poison_metricz = client.metricz()
+  finally:
+    stats = service.close()
+  seconds = sorted(t for _, t in responses.values())
+  diff = served_vs_fastq(responses, fastq)
+  want = serve_launch_want(packs, ragged='ragged' in packs)
+  gates = {
+      'warmup_s': service.ready['warmup_s'], 'requests': len(bodies),
+      'windows': n_windows, 'packs': len(packs),
+      'packs_by_width': {str(w): packs.count(w) for w in set(packs)},
+      'metricz_n_model_packs': metricz['n_model_packs'],
+      'latency_p50_s': float(np.percentile(seconds, 50)),
+      'latency_p99_s': float(np.percentile(seconds, 99)),
+      'service_latency': metricz['latency'],
+      'requests_per_s': len(bodies) / wall,
+      'windows_per_s': n_windows / wall, 'wall_seconds': wall,
+      'launches': {k: launches[k] for k in launches
+                   if launches[k] or want.get(k)},
+      'vs_cli_run': {k: v for k, v in diff.items() if k != 'differ'},
+      'vs_cli_run_differ': diff['differ'][:8],
+      'drained': stats['drained'],
+  }
+  checks = [
+      (diff['responses'] == len(bodies) == N_ZMWS,
+       f'{diff["responses"]} responses to {len(bodies)} requests'),
+      ({k: launches[k] for k in want} == want,
+       f'launches {gates["launches"]} differ from {want}'),
+      (metricz['n_model_packs'] == len(packs),
+       '/metricz n_model_packs differs from the packs finalized'),
+  ]
+  if byte_identical:
+    checks.append((not diff['differ'] and not diff['wrong_status']
+                   and not diff['missing']
+                   and diff['identical'] == diff['fastq_reads'],
+                   f'served reads differ from cli run: {diff}'))
+  else:
+    checks.append((all(r['status'] == 'ok' for r, _ in responses.values()),
+                   'a ragged request did not come back ok'))
+    with open(fastq, 'rb') as f:
+      gates['fastq_diff'] = fastq_diff(f.read(), served_fastq(responses))
+  if poison:
+    target_resp = poisoned[target][0]
+    with open(dead_letter) as f:
+      letters = [json.loads(line) for line in f]
+    same = [name for name, (resp, _) in poisoned.items() if name != target
+            and (resp['status'], resp['seq'], resp['quals'].tobytes())
+            == (responses[name][0]['status'], responses[name][0]['seq'],
+                responses[name][0]['quals'].tobytes())]
+    counters = poison_metricz['counters']
+    gates['poison'] = {
+        'target': target, 'status': target_resp['status'],
+        'error': target_resp['error'][:200], 'clean_identical': len(same),
+        'clean': len(poisoned) - 1, 'dead_letters': letters,
+        'n_quarantined_by_request': counters['n_quarantined_by_request'],
+        'n_isolation_retries': counters['n_isolation_retries']}
+    checks += [
+        (target_resp['status'] == 'fallback'
+         and 'poison' in target_resp['error'],
+         'the poisoned request was not quarantined to its CCS'),
+        (len(same) == len(poisoned) - 1 == SERVE_CLIENTS,
+         'a clean request differs from its solo answer'),
+        (len(letters) == 1 and letters[0]['zmw'] == target
+         and letters[0]['stage'] == 'model'
+         and letters[0]['request_id'] > 0 and 'model_pack' in letters[0],
+         f'dead letters {letters} lack the request attribution'),
+        (counters['n_quarantined_by_request'] == 1,
+         'n_quarantined_by_request is not 1'),
+    ]
+  return enforce(f'serve_{tag}', gates, checks), launches
+
+
+class Subprocess:
+  """One `cli` subcommand as a subprocess: its stdout's JSON lines are
+  read by a thread; ready() waits for the ready line."""
+
+  def __init__(self, argv):
+    import queue
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=REPO)
+    self.proc = subprocess.Popen(
+        [sys.executable, '-m', 'deepconsensus_tpu_torch.cli', *argv],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, text=True)
+    self.lines = queue.Queue()
+    self.events = []
+    threading.Thread(target=self._read, daemon=True).start()
+
+  def _read(self):
+    for line in self.proc.stdout:
+      try:
+        event = json.loads(line)
+      except ValueError:
+        continue
+      self.events.append(event)
+      self.lines.put(event)
+    self.lines.put(None)
+
+  def wait_event(self, name: str, timeout: float) -> dict:
+    import queue
+
+    deadline = time.monotonic() + timeout
+    while True:
+      try:
+        event = self.lines.get(timeout=max(0.0, deadline - time.monotonic()))
+      except queue.Empty:
+        raise AssertionError(f'no {name} line within {timeout} s')
+      if event is None:
+        raise AssertionError(f'exited (rc {self.proc.poll()}) before its '
+                             f'{name} line')
+      if event.get('event') == name:
+        return event
+
+  def terminate(self, timeout: float = 300) -> tuple:
+    """SIGTERM, then (rc, drained line)."""
+    import signal
+
+    self.proc.send_signal(signal.SIGTERM)
+    drained = self.wait_event('drained', timeout)
+    return self.proc.wait(timeout=60), drained
+
+  def kill(self) -> None:
+    if self.proc.poll() is None:
+      self.proc.kill()
+      self.proc.wait(timeout=60)
+
+
+def front_tier_gates(replica_port: int) -> dict:
+  """`cli featurize-worker` and `cli route` as CPU subprocesses in front
+  of the replica: SERVE_BAM_BODIES one-ZMW bam/1 bodies through the
+  router, each answer against its features/1 body posted straight to
+  the replica; the router counts them as featurize-routed; both drain
+  on SIGTERM. Raises on a failed gate."""
+  from deepconsensus_tpu_torch.serve import protocol
+  from deepconsensus_tpu_torch.serve.client import ServeClient
+  from deepconsensus_tpu_torch.testing import synthetic
+
+  t0 = time.perf_counter()
+  worker = Subprocess(['featurize-worker', '--port', '0', '--config',
+                       'transformer_learn_values+custom'])
+  router = None
+  try:
+    worker_port = worker.wait_event('ready', SERVE_READY_S)['port']
+    router = Subprocess(['route', '--port', '0', '--probe_interval_s', '0.2',
+                         '--replica', f'127.0.0.1:{replica_port}',
+                         '--featurize_worker', f'127.0.0.1:{worker_port}'])
+    router_port = router.wait_event('ready', SERVE_READY_S)['port']
+    rc = ServeClient(port=router_port, timeout=120)
+    if not rc.wait_ready(60):
+      raise AssertionError(f'the router never became ready: {rc.readyz()}')
+    replica = ServeClient(port=replica_port, timeout=120)
+    ready_s = time.perf_counter() - t0
+    same, statuses = 0, []
+    t0 = time.perf_counter()
+    for i in range(SERVE_BAM_BODIES):
+      bams = synthetic.write_synthetic_zmw_bams(
+          os.path.join(WORK, f'serve_bam1_{i}'), n_zmws=1,
+          n_subreads=N_SUBREADS, seq_len=SEQ_LEN,
+          movie=f'm{i:05d}_000000_000000', seed=SEED + 10 + i)
+      feats = serve_features(bams, ins_trim=0)
+      want = replica.polish_body(protocol.features_pack_from_features(
+          feats[0]))
+      with open(bams[0], 'rb') as a, open(bams[1], 'rb') as b:
+        got = rc.polish_bam(a.read(), b.read())
+      statuses.append(got['status'])
+      same += (got['status'], got['seq'], got['quals'].tobytes()) == (
+          want['status'], want['seq'], want['quals'].tobytes())
+    routed_s = time.perf_counter() - t0
+    counters = rc.metricz()['counters']
+    router_rc, router_drained = router.terminate()
+    worker_rc, worker_drained = worker.terminate()
+  finally:
+    for p in (router, worker):
+      if p is not None:
+        p.kill()
+  gates = {'ready_s': ready_s, 'routed_seconds': routed_s,
+           'identical': same, 'statuses': statuses,
+           'n_routed_featurize': counters['n_routed_featurize'],
+           'router_rc': router_rc, 'router_drained': router_drained['drained'],
+           'worker_rc': worker_rc, 'worker_drained': worker_drained['drained']}
+  return enforce('serve_front_tier', gates, [
+      (same == SERVE_BAM_BODIES and set(statuses) == {'ok'},
+       'a routed bam/1 answer differs from its direct features/1 answer'),
+      (counters['n_routed_featurize'] == SERVE_BAM_BODIES,
+       'the router did not count every bam/1 body'),
+      (router_rc == worker_rc == 0 and router_drained['drained']
+       and worker_drained['drained'], 'router or worker did not drain'),
+  ])
+
+
+def sigterm_drill(proc: Subprocess, port: int, bodies) -> dict:
+  """SERVE_DRAIN_CLIENTS clients post in a loop; SIGTERM once they have
+  3 answers each. Every request the service admitted must be answered:
+  the clients' 200s equal the requests the service finished, none was
+  cancelled. The rest end refused: a 503 (draining) or, once the
+  listener is gone, no connection (refused, or reset for a connection
+  still in the listen queue when it closed). The process prints a
+  drained line and exits 0."""
+  import http.client
+  import threading
+
+  from deepconsensus_tpu_torch.serve.client import ServeClient
+  from deepconsensus_tpu_torch.serve.client import ServeClientError
+
+  answered, refused, cut, errors = [], [], [], []
+  stop = threading.Event()
+  sent_at = []
+  finished_before = ServeClient(port=port).metricz()['histograms'][
+      'serve_request_latency_s']['count']
+
+  def worker(k):
+    client = ServeClient(port=port, timeout=300)
+    i = k
+    while not stop.is_set():
+      name, body = bodies[i % len(bodies)]
+      i += SERVE_DRAIN_CLIENTS
+      try:
+        resp = client.polish_body(body, name=name)
+      except ServeClientError as e:
+        (refused if e.status == 503 else errors).append(e.status)
+        return
+      except ConnectionRefusedError:
+        refused.append('refused')
+        return
+      except (ConnectionResetError, BrokenPipeError,
+              http.client.RemoteDisconnected) as e:
+        cut.append(repr(e))  # reconciled against the service's count
+        return
+      except Exception as e:  # an admitted request lost: the gate fails
+        errors.append(repr(e))
+        return
+      answered.append((time.perf_counter(), resp['status']))
+
+  threads = [threading.Thread(target=worker, args=(k,))
+             for k in range(SERVE_DRAIN_CLIENTS)]
+  for t in threads:
+    t.start()
+  deadline = time.monotonic() + 300
+  while len(answered) < 3 * SERVE_DRAIN_CLIENTS and time.monotonic() < deadline:
+    threads[0].join(0.01)
+  sent_at.append(time.perf_counter())
+  rc, drained = proc.terminate()
+  stop.set()
+  for t in threads:
+    t.join(300)
+  after = sum(1 for t, _ in answered if t > sent_at[0])
+  latency = (drained['histograms']['serve_request_latency_s']['count']
+             - finished_before)
+  gates = {'answered': len(answered), 'answered_after_sigterm': after,
+           'refused': len(refused), 'cut_unadmitted': len(cut),
+           'errors': errors[:8], 'rc': rc,
+           'drained': drained['drained'], 'service_finished': latency,
+           'n_requests': drained['counters']['n_requests'],
+           'n_deadline_cancelled': drained['counters'][
+               'n_deadline_cancelled']}
+  return enforce('serve_sigterm', gates, [
+      (not errors, f'requests failed: {errors[:4]}'),
+      (rc == 0 and drained['drained'], 'serve did not drain and exit 0'),
+      (len(answered) == latency
+       and drained['counters']['n_deadline_cancelled'] == 0,
+       'an admitted request was not answered'),
+      (all(s == 'ok' for _, s in answered), 'an answer is not ok'),
+      (after >= 1, 'no request was in flight at SIGTERM'),
+      (len(refused) + len(cut) == SERVE_DRAIN_CLIENTS,
+       'a client never saw the drain refuse it'),
+  ])
+
+
+def serve_gates(bams, weights, l100_bf16_counters) -> dict:
+  """The serve path (docstring, phase 3 p): in-process services on the
+  L100 BAMs (with the poisoned request), on per-width BAMs per bucket
+  and ragged, then `cli serve` as a subprocess with the front tier and
+  the SIGTERM drill. Returns launches by path."""
+  from deepconsensus_tpu_torch.serve import protocol
+  from deepconsensus_tpu_torch.testing import synthetic
+
+  t_path = time.perf_counter()
+  common = ['--weights', weights, '--batch_size', str(BATCH),
+            '--min_quality', '0', '--skip_windows_above', '0']
+  params = os.path.join(WORK, 'params_bfloat16.json')
+  launches = {}
+  l100, launches['serve'] = serve_path(
+      'L100', [*common, '--params', params], bams['L100'], None,
+      os.path.join(WORK, 'out_L100_bfloat16.fastq'), poison=True)
+  # A request carries windows of one width (npz arrays are rectangular),
+  # so the mixed-width clients send molecules whose windows share one
+  # bucket: half of the ZMWs 100-wide, half 200-wide.
+  per_width = synthetic.write_synthetic_zmw_bams(
+      os.path.join(WORK, 'bams_serve'), n_zmws=N_ZMWS,
+      n_subreads=N_SUBREADS, seq_len=SEQ_LEN, seed=SEED + 5,
+      smart_windows=True, window_width_cycle=BUCKETS)
+  buckets_flags = ['--window_buckets', ','.join(map(str, BUCKETS))]
+  for path, attn in (('buckets', True), ('ragged', False)):
+    run = run_main_path(path, per_width, weights, 'bfloat16', attn=attn,
+                        tag='_serve')
+    if run[0]['success'] != N_ZMWS:
+      raise AssertionError(f'serve reference {path}: {run[0]["success"]} '
+                           f'reads, want {N_ZMWS}')
+  _, launches['serve_buckets'] = serve_path(
+      'buckets', [*common, '--params',
+                  os.path.join(WORK, 'params_bfloat16_attn.json'),
+                  *buckets_flags], per_width, BUCKETS,
+      os.path.join(WORK, 'out_buckets_bfloat16_attn_serve.fastq'))
+  _, launches['serve_ragged'] = serve_path(
+      'ragged', [*common, '--params', params, *buckets_flags,
+                 '--use_ragged_kernel'], per_width, BUCKETS,
+      os.path.join(WORK, 'out_ragged_bfloat16_serve.fastq'),
+      byte_identical=False)
+  t0 = time.perf_counter()
+  replica = Subprocess(['serve', *common, '--params', params, '--port', '0'])
+  try:
+    ready = replica.wait_event('ready', SERVE_READY_S)
+    ready_s = time.perf_counter() - t0
+    front_tier_gates(ready['port'])
+    bodies = [(f[0]['name'], protocol.request_from_features(f))
+              for f in serve_features(bams['L100'])]
+    sigterm_drill(replica, ready['port'], bodies)
+  finally:
+    replica.kill()
+  n_win = l100_bf16_counters['n_windows_to_model']
+  print(json.dumps({
+      'phase': 'serve_numbers', 'card': card_line(),
+      'warmup_s': l100['warmup_s'], 'clients': SERVE_CLIENTS,
+      'latency_p50_s': l100['latency_p50_s'],
+      'latency_p99_s': l100['latency_p99_s'],
+      'requests_per_s': l100['requests_per_s'],
+      'windows_per_s': l100['windows_per_s'],
+      'cli_run_windows_per_s': n_win / l100_bf16_counters['total_seconds'],
+      'cli_serve_ready_s': ready_s,
+      'seconds': time.perf_counter() - t_path}), flush=True)
+  return launches
+
+
 def make_run_inputs():
   """The `run` paths' synthetic BAMs ({'L100': ..., 'ragged': ...}) and
   the seeded full-width weights (.npz), under WORK."""
@@ -4376,6 +4945,8 @@ def main(argv) -> int:
                            'int8 weights')
   buckets_gates(runs)
   launches_by_path['buckets'] = runs['bfloat16'][1]
+  launches_by_path.update(serve_gates(
+      bams, weights, main_runs['L100']['bfloat16'][0]))
 
   shards = []
   for split, count, seed in (('train', TRAIN_EXAMPLES, SEED),

@@ -1,7 +1,8 @@
 """Command line of the port: `preprocess` (BAMs -> TFRecord examples),
 `run` (BAMs -> polished FASTQ), `train`, `evaluate`, `validate`
-(preflight checks of the inputs) and `trace` (summary of a `run
---trace` span file).
+(preflight checks of the inputs), `trace` (summary of a `run --trace`
+span file), `serve` (a resident service on one card), and the fleet's
+front tier: `route` and `featurize-worker`.
 
   python -m deepconsensus_tpu_torch.cli preprocess \\
       --subreads_to_ccs subreads_to_ccs.bam --ccs_bam ccs.bam \\
@@ -73,7 +74,28 @@ summarizes (exit 2 on a corrupt trace), and
 checks a BAM pair or TFRecord shards end to end (exit 1 on a failed
 check, the JSON report on stdout).
 
-`run`, `train`, `evaluate` and `preprocess` run on the card unless
+  python -m deepconsensus_tpu_torch.cli serve \\
+      --weights weights.npz --params params.json --port 0
+
+loads the model as `run` does (or --checkpoint, or --random_init for a
+seeded model of --config), warms one pack of each shape on the card and
+prints one JSON ready line ({"event": "ready", "host", "port",
+"warmup_s"}); POST /v1/polish takes one molecule's windows
+(serve/protocol.py, serve/client.py's ServeClient) and answers with its
+polished read, byte-identical to the read `run` writes for it. SIGTERM
+drains: admitted requests finish, the process prints {"event":
+"drained", "drained": true, ...} and exits 0. Multi-card serving
+(--dp, --tp) is not ported yet.
+
+  python -m deepconsensus_tpu_torch.cli featurize-worker --port 0
+  python -m deepconsensus_tpu_torch.cli route --replica HOST:PORT \\
+      --featurize_worker HOST:PORT --port 0
+
+`route` balances /v1/polish over `serve` replicas and sends bam/1
+bodies (one molecule's raw BAM bytes) through a featurize worker first;
+neither touches the card.
+
+`run`, `train`, `evaluate`, `serve` and `preprocess` run on the card unless
 --device cpu is given; without a card the default raises (`preprocess`
 does no work on the card, and still asks for it, as the others do). Weights are a
 `models/weights.save_npz` file (see the README for the one-liner that
@@ -353,20 +375,7 @@ def _add_run(sub) -> None:
   p.add_argument('--ins_trim', type=int, default=5)
   p.add_argument('--use_ccs_smart_windows', action='store_true',
                  help='Window widths from the CCS record\'s wl tag.')
-  p.add_argument('--window_buckets', default=None,
-                 type=_parse_window_buckets, metavar='L1,L2,...',
-                 help='Window length buckets, e.g. 100,200: each window '
-                 'pads to the smallest bucket that fits; wider ones '
-                 'adopt the CCS. The smallest must equal max_length. '
-                 'Each bucket runs in its own packs of --batch_size. '
-                 'Default: params.json "window_buckets" (one bucket when '
-                 'unset).')
-  p.add_argument('--use_ragged_kernel', action='store_true',
-                 help='Pack windows of every bucket back to back into '
-                 'slots of the largest bucket with a per-slot lengths '
-                 'vector, and run the ragged forward (K4, K2 with '
-                 'lengths). Needs buckets that form a divisibility '
-                 'chain.')
+  _add_window_flags(p)
   p.add_argument('--max_base_quality', type=int, default=93)
   p.add_argument('--dc_calibration', default=None)
   p.add_argument('--ccs_calibration', default='skip')
@@ -416,21 +425,341 @@ def _add_run(sub) -> None:
                  help='Per-record allocation cap of the BAM decoders: a '
                  'record claiming more is corrupt (quarantined under '
                  '--on_zmw_error skip), never allocated.')
+  _add_device_fault_flags(p)
+  _add_trace_flag(p)
+  _add_quant_flags(p)
+  p.add_argument('--device', default=None,
+                 help='cuda (default) or cpu.')
+
+
+def _add_window_flags(p) -> None:
+  p.add_argument('--window_buckets', default=None,
+                 type=_parse_window_buckets, metavar='L1,L2,...',
+                 help='Window length buckets, e.g. 100,200: each window '
+                 'pads to the smallest bucket that fits; wider ones '
+                 'adopt the CCS. The smallest must equal max_length. '
+                 'Each bucket runs in its own packs of --batch_size. '
+                 'Default: params.json "window_buckets" (one bucket when '
+                 'unset).')
+  p.add_argument('--use_ragged_kernel', action='store_true',
+                 help='Pack windows of every bucket back to back into '
+                 'slots of the largest bucket with a per-slot lengths '
+                 'vector, and run the ragged forward (K4, K2 with '
+                 'lengths). Needs buckets that form a divisibility '
+                 'chain.')
+
+
+def _add_device_fault_flags(p) -> None:
   p.add_argument('--on_device_error', default='fail',
                  choices=['fail', 'degrade'],
                  help='Device fault policy: fail hands a failed pack to '
-                 '--on_zmw_error; degrade retries a pack that ran out of '
-                 'device memory as halves at half the batch.')
+                 'the per-ZMW (or per-request) policy; degrade retries a '
+                 'pack that ran out of device memory as halves at half '
+                 'the batch.')
   p.add_argument('--dispatch_timeout', type=float, default=0.0,
                  help='Bound each pack\'s wait on the card to this many '
                  'seconds; a hung pack fails with DispatchTimeoutError '
                  'instead of wedging the run (0 disables).')
+
+
+def _add_trace_flag(p) -> None:
   p.add_argument('--trace', default=None, metavar='TRACE.jsonl',
                  help='Append Chrome-trace-event spans to this file (the '
                  'same as setting DCTPU_TRACE); summarize it with `trace`.')
+
+
+def _add_serve(sub) -> None:
+  p = sub.add_parser(
+      'serve', help='Resident consensus service: keep the model on the '
+      'card and polish molecules over a local HTTP endpoint.')
+  p.add_argument('--checkpoint', default=None,
+                 help='A `train` checkpoint directory, as `run` takes it '
+                 '(an exported artifact is refused: `cli export` is not '
+                 'ported yet).')
+  p.add_argument('--weights', default=None,
+                 help='Params tree as .npz (with --params), as `run` '
+                 'takes it.')
+  p.add_argument('--params', default=None, help='params.json of the model.')
+  p.add_argument('--random_init', action='store_true',
+                 help='Serve a model of --config initialized from a '
+                 'torch.Generator seeded 0 instead of trained weights '
+                 '(tests, demos).')
+  p.add_argument('--config', default='transformer_learn_values+test',
+                 help='Model preset for --random_init.')
+  p.add_argument('--dtype', default=None, choices=['float32', 'bfloat16'],
+                 help='Compute dtype (default: params.json "dtype").')
+  p.add_argument('--host', default='127.0.0.1')
+  p.add_argument('--port', type=int, default=8764,
+                 help='Listen port (0 = pick a free port; the bound port '
+                 'is printed in the ready line).')
+  p.add_argument('--batch_size', type=int, default=1024)
+  p.add_argument('--dispatch_depth', type=int, default=8)
+  p.add_argument('--min_length', type=int, default=0)
+  p.add_argument('--min_quality', type=int, default=20)
+  p.add_argument('--skip_windows_above', type=int, default=45)
+  p.add_argument('--max_base_quality', type=int, default=93)
+  p.add_argument('--dc_calibration', default=None)
+  p.add_argument('--ccs_calibration', default='skip')
+  p.add_argument('--max_pending', type=int, default=64,
+                 help='Outstanding admitted requests before new ones are '
+                 'shed with 429 backpressure.')
+  p.add_argument('--admit_queue_depth', type=int, default=32,
+                 help='Requests queued ahead of the model loop before '
+                 'admission sheds with 429.')
+  p.add_argument('--max_windows_per_request', type=int, default=512)
+  p.add_argument('--max_body_mb', type=int, default=64,
+                 help='Request bodies above this are rejected (413) '
+                 'before any bytes are read.')
+  p.add_argument('--default_deadline_s', type=float, default=120.0,
+                 help='Per-request deadline when the client sends no '
+                 'X-Dctpu-Deadline-S header; expiry cancels the request '
+                 '(504).')
+  p.add_argument('--max_deadline_s', type=float, default=600.0)
+  p.add_argument('--io_timeout_s', type=float, default=20.0,
+                 help='Per-request read deadline; a slow-drip or '
+                 'half-dead client is cut after this long.')
+  p.add_argument('--on_request_error', default='ccs-fallback',
+                 choices=['skip', 'ccs-fallback'],
+                 help='Policy for a request whose windows fail the model '
+                 'stage twice (shared pack and isolation retry).')
+  p.add_argument('--dead_letter', default=None,
+                 help='Append quarantined-request records (with request '
+                 'attribution) to this JSONL sidecar.')
+  p.add_argument('--dp', type=int, default=0,
+                 help='Data-parallel cards. Not ported yet: above 0 it '
+                 'raises; the port serves on one card.')
+  p.add_argument('--tp', type=int, default=1,
+                 help='Tensor-parallel cards. Not ported yet: above 1 it '
+                 'raises.')
   _add_quant_flags(p)
-  p.add_argument('--device', default=None,
-                 help='cuda (default) or cpu.')
+  _add_window_flags(p)
+  _add_device_fault_flags(p)
+  _add_trace_flag(p)
+  p.add_argument('--device', default=None, help='cuda (default) or cpu.')
+
+
+def _serve_setup(args):
+  """(runner, options, serve_options) of a `serve` command line: the
+  model loaded as `run` loads it, on the card unless --device cpu."""
+  from deepconsensus_tpu_torch import faults
+  from deepconsensus_tpu_torch.calibration import lib as calibration_lib
+  from deepconsensus_tpu_torch.devices import resolve_device
+  from deepconsensus_tpu_torch.inference import runner as runner_lib
+  from deepconsensus_tpu_torch.serve.service import ServeOptions
+
+  if args.dp or args.tp > 1:
+    raise faults.NotPortedError(
+        f'--dp {args.dp} --tp {args.tp}: multi-card serving is not ported '
+        'yet; the port serves on one card (--dp 0 --tp 1)')
+  if not (args.random_init or args.checkpoint or args.weights):
+    raise ValueError('serve needs --checkpoint, --weights/--params or '
+                     '--random_init')
+  if args.trace:
+    import os
+
+    os.environ['DCTPU_TRACE'] = args.trace
+  device = resolve_device(args.device)
+  params, state = runner_lib.load_model(
+      checkpoint=args.checkpoint, weights=args.weights,
+      params_path=args.params, dtype=args.dtype,
+      random_init_config=args.config if args.random_init else None)
+  dc_cal = args.dc_calibration or params.get('dc_calibration') or 'skip'
+  options = runner_lib.InferenceOptions(
+      batch_size=args.batch_size,
+      dispatch_depth=args.dispatch_depth,
+      min_length=args.min_length,
+      min_quality=args.min_quality,
+      skip_windows_above=args.skip_windows_above,
+      max_base_quality=args.max_base_quality,
+      on_device_error=args.on_device_error,
+      dispatch_timeout=args.dispatch_timeout,
+      inference_dtype=args.inference_dtype,
+      quantize_matmuls=args.quantize_matmuls,
+      window_buckets=args.window_buckets,
+      use_ragged_kernel=args.use_ragged_kernel,
+      dc_calibration_values=calibration_lib.parse_calibration_string(dc_cal),
+      ccs_calibration_values=calibration_lib.parse_calibration_string(
+          args.ccs_calibration),
+  )
+  runner = runner_lib.ModelRunner(params, state, options, device=device)
+  options.max_passes = runner.params.max_passes
+  options.max_length = runner.params.max_length
+  options.use_ccs_bq = runner.params.use_ccs_bq
+  serve_options = ServeOptions(
+      max_pending=args.max_pending,
+      admit_queue_depth=args.admit_queue_depth,
+      max_windows_per_request=args.max_windows_per_request,
+      max_body_bytes=args.max_body_mb << 20,
+      default_deadline_s=args.default_deadline_s,
+      max_deadline_s=args.max_deadline_s,
+      io_timeout_s=args.io_timeout_s,
+      on_request_error=args.on_request_error,
+      dead_letter_path=args.dead_letter,
+  )
+  return runner, options, serve_options
+
+
+def serve_setup(argv: List[str]):
+  """(runner, options, serve_options, host, port) that `serve` runs with
+  these flags, for a caller that runs serve.server.serve_main itself
+  (in a thread, stopped by its stop_event)."""
+  args = _parser().parse_args(['serve', *argv])
+  return (*_serve_setup(args), args.host, args.port)
+
+
+def _serve(args) -> int:
+  from deepconsensus_tpu_torch.serve import server as server_lib
+
+  runner, options, serve_options = _serve_setup(args)
+  stats = server_lib.serve_main(
+      runner, options, serve_options, host=args.host, port=args.port,
+      ready_fn=lambda info: print(json.dumps(info), flush=True))
+  print(json.dumps({'event': 'drained', **stats}, default=str), flush=True)
+  return 0 if stats.get('drained') else 1
+
+
+def _add_route(sub) -> None:
+  p = sub.add_parser(
+      'route', help='Fleet front tier: balance /v1/polish over `serve` '
+      'replicas, sending bam/1 bodies through featurize workers first.')
+  p.add_argument('--replica', action='append', default=[],
+                 metavar='HOST:PORT',
+                 help='Model replica address; repeatable. Replicas join '
+                 'health-gated (no traffic until /readyz passes); more '
+                 'can join at run time via POST /v1/register.')
+  p.add_argument('--featurize_worker', action='append', default=[],
+                 metavar='HOST:PORT',
+                 help='Featurize worker address; repeatable.')
+  p.add_argument('--host', default='127.0.0.1')
+  p.add_argument('--port', type=int, default=8765)
+  p.add_argument('--probe_interval_s', type=float, default=0.5,
+                 help='Health probe cadence per replica (/readyz and '
+                 '/metricz).')
+  p.add_argument('--max_inflight', type=int, default=8,
+                 help='Bounded in-flight requests per replica; when every '
+                 'ready replica is at its bound the router sheds with a '
+                 'typed 503.')
+  p.add_argument('--max_attempts', type=int, default=3,
+                 help='Distinct replicas tried per request; only requests '
+                 'a replica provably never accepted are retried.')
+  p.add_argument('--io_timeout_s', type=float, default=20.0)
+  p.add_argument('--upstream_timeout_s', type=float, default=300.0,
+                 help='End-to-end budget for one forwarded request.')
+  p.add_argument('--max_body_mb', type=int, default=64)
+  p.add_argument('--default_class', default='interactive',
+                 help='Priority class of requests without an '
+                 'X-Dctpu-Class header.')
+  p.add_argument('--class_weight', action='append', default=[],
+                 metavar='CLASS=WEIGHT',
+                 help='Weighted-fair admission share of a priority class; '
+                 'repeatable (default: interactive=4 bulk=1).')
+  p.add_argument('--client_quota', type=int, default=0,
+                 help='Max concurrent requests per client id (429 above '
+                 'it); 0 = unlimited.')
+  p.add_argument('--queue_wait_s', type=float, default=0.0,
+                 help='How long a saturated request may wait its '
+                 'weighted-fair turn before it is shed (0 = at once).')
+  p.add_argument('--max_queued_per_class', type=int, default=16,
+                 help='Waiting requests per class before that class (and '
+                 'only that class) sheds.')
+  _add_trace_flag(p)
+
+
+def _route(args) -> int:
+  from deepconsensus_tpu_torch.fleet import router as router_lib
+
+  if not args.replica and not args.featurize_worker:
+    raise ValueError('route needs at least one --replica or '
+                     '--featurize_worker')
+  if args.trace:
+    import os
+
+    os.environ['DCTPU_TRACE'] = args.trace
+  class_weights = None
+  if args.class_weight:
+    class_weights = {}
+    for spec in args.class_weight:
+      name, sep, weight = spec.partition('=')
+      if not sep:
+        raise ValueError(f'--class_weight expects CLASS=WEIGHT, got {spec!r}')
+      class_weights[name] = float(weight)
+  options = router_lib.RouterOptions(
+      max_body_bytes=args.max_body_mb << 20,
+      io_timeout_s=args.io_timeout_s,
+      upstream_timeout_s=args.upstream_timeout_s,
+      probe_interval_s=args.probe_interval_s,
+      max_inflight=args.max_inflight,
+      max_attempts=args.max_attempts,
+      class_weights=class_weights,
+      default_class=args.default_class,
+      client_quota=args.client_quota,
+      queue_wait_s=args.queue_wait_s,
+      max_queued_per_class=args.max_queued_per_class,
+  )
+  stats = router_lib.route_main(
+      replicas=args.replica, featurize_workers=args.featurize_worker,
+      options=options, host=args.host, port=args.port,
+      ready_fn=lambda info: print(json.dumps(info), flush=True))
+  print(json.dumps({'event': 'drained', **stats}, default=str), flush=True)
+  return 0 if stats.get('drained') else 1
+
+
+def _add_featurize_worker(sub) -> None:
+  p = sub.add_parser(
+      'featurize-worker', help='Disaggregated featurize tier: BAM decode '
+      'and pileup on the CPU, shipping compact uint8 window packs to '
+      'model replicas.')
+  p.add_argument('--host', default='127.0.0.1')
+  p.add_argument('--port', type=int, default=8766)
+  p.add_argument('--config', default='transformer_learn_values+test',
+                 help='Model preset naming the feature layout (max_passes, '
+                 'max_length, use_ccs_bq) this worker produces; it must '
+                 'match the replicas behind the same router.')
+  p.add_argument('--ins_trim', type=int, default=0)
+  p.add_argument('--use_ccs_smart_windows', action='store_true')
+  p.add_argument('--work_dir', default=None,
+                 help='Scratch directory for per-request BAMs.')
+  p.add_argument('--no_compact', action='store_true',
+                 help='Always ship the float32 request frame instead of '
+                 'features/1 uint8 packs.')
+  p.add_argument('--io_timeout_s', type=float, default=20.0)
+  p.add_argument('--max_body_mb', type=int, default=64)
+  p.add_argument('--window_buckets', default=None,
+                 type=_parse_window_buckets, metavar='L1,L2,...',
+                 help='Window length buckets the windows pad to (default: '
+                 'the preset\'s, one bucket when unset).')
+  _add_trace_flag(p)
+
+
+def _featurize_worker(args) -> int:
+  from deepconsensus_tpu_torch.fleet import featurize_worker as worker_lib
+  from deepconsensus_tpu_torch.models import config as config_lib
+
+  if args.trace:
+    import os
+
+    os.environ['DCTPU_TRACE'] = args.trace
+  params = config_lib.get_config(args.config)
+  config_lib.finalize_params(params)
+  buckets = config_lib.normalize_window_buckets(
+      args.window_buckets or params.get('window_buckets'), params.max_length)
+  options = worker_lib.FeaturizeWorkerOptions(
+      max_passes=params.max_passes,
+      max_length=params.max_length,
+      use_ccs_bq=params.use_ccs_bq,
+      window_buckets=tuple(buckets or ()),
+      ins_trim=args.ins_trim,
+      use_ccs_smart_windows=args.use_ccs_smart_windows,
+      work_dir=args.work_dir,
+      compact=not args.no_compact,
+      max_body_bytes=args.max_body_mb << 20,
+      io_timeout_s=args.io_timeout_s,
+  )
+  stats = worker_lib.worker_main(
+      options, host=args.host, port=args.port,
+      ready_fn=lambda info: print(json.dumps(info), flush=True))
+  print(json.dumps({'event': 'drained', **stats}, default=str), flush=True)
+  return 0 if stats.get('drained') else 1
 
 
 def _add_validate(sub) -> None:
@@ -498,7 +827,7 @@ def _trace(args) -> int:
   return 0
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def _parser() -> argparse.ArgumentParser:
   parser = argparse.ArgumentParser(prog='deepconsensus_tpu_torch')
   sub = parser.add_subparsers(dest='command', required=True)
   _add_preprocess(sub)
@@ -507,7 +836,14 @@ def main(argv: Optional[List[str]] = None) -> int:
   _add_evaluate(sub)
   _add_validate(sub)
   _add_trace(sub)
-  args = parser.parse_args(argv)
+  _add_serve(sub)
+  _add_route(sub)
+  _add_featurize_worker(sub)
+  return parser
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+  args = _parser().parse_args(argv)
   if args.command == 'preprocess':
     return _preprocess(args)
   if args.command == 'train':
@@ -518,6 +854,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     return _validate(args)
   if args.command == 'trace':
     return _trace(args)
+  if args.command == 'serve':
+    return _serve(args)
+  if args.command == 'route':
+    return _route(args)
+  if args.command == 'featurize-worker':
+    return _featurize_worker(args)
   if args.trace:
     # --trace is DCTPU_TRACE, which run_inference reads.
     import os
@@ -527,15 +869,10 @@ def main(argv: Optional[List[str]] = None) -> int:
   from deepconsensus_tpu_torch.calibration import lib as calibration_lib
   from deepconsensus_tpu_torch.devices import resolve_device
   from deepconsensus_tpu_torch.inference import runner as runner_lib
-  from deepconsensus_tpu_torch.models import config as config_lib
-  from deepconsensus_tpu_torch.models import weights as weights_lib
-
   device = resolve_device(args.device)
-  if args.weights and not args.params:
-    raise ValueError('--weights needs --params')
-  params = config_lib.read_params_from_json(args.params or args.checkpoint)
-  if args.dtype:
-    params.dtype = args.dtype
+  params, state = runner_lib.load_model(
+      checkpoint=args.checkpoint, weights=args.weights,
+      params_path=args.params, dtype=args.dtype)
   dc_cal = args.dc_calibration or params.get('dc_calibration') or 'skip'
   options = runner_lib.InferenceOptions(
       batch_size=args.batch_size,
@@ -568,13 +905,6 @@ def main(argv: Optional[List[str]] = None) -> int:
       ccs_calibration_values=calibration_lib.parse_calibration_string(
           args.ccs_calibration),
   )
-  if args.checkpoint:
-    from deepconsensus_tpu_torch.models import evaluate as evaluate_lib
-
-    state = evaluate_lib.load_checkpoint_state(args.checkpoint)
-  else:
-    state = weights_lib.from_flax_params(
-        weights_lib.load_npz(args.weights), params)
   runner = runner_lib.ModelRunner(params, state, options, device=device)
   counters = runner_lib.run_inference(
       args.subreads_to_ccs, args.ccs_bam, args.output, runner)

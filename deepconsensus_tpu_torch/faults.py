@@ -1,11 +1,13 @@
 """Shared fault taxonomy, dead-letter sidecars and injection hooks.
 
 Port of the reference package's faults.py, trimmed to what `run`,
-`validate`, `trace` and `train` use: the transient/permanent
-classification, the typed input, device and training faults, the
-dead-letter JSONL sidecar and the env-var fault-injection hooks that
-`run_inference` and `run_training` read. The serve, fleet, flywheel
-and elastic-pod types and hooks are not part of the port yet.
+`validate`, `trace`, `train`, `serve`, `route` and `featurize-worker`
+use: the transient/permanent classification, the typed input, device,
+training, serve and fleet faults, the dead-letter JSONL sidecar and the
+env-var fault-injection hooks. The flywheel and elastic-pod types and
+hooks are not part of the port yet. The serve and fleet rejections keep
+the reference's messages, `kind` and HTTP status, so clients of either
+package see the same errors.
 
 Besides the reference's message markers, classify_device_error maps
 PyTorch's own device errors: `torch.cuda.OutOfMemoryError` to
@@ -85,6 +87,101 @@ class CorruptInputError(IOError):
 
 class WindowBucketError(ValueError):
   """A window's width is not one the model was configured for."""
+
+
+class NotPortedError(NotImplementedError):
+  """An option the reference offers that the port does not run yet:
+  multi-card serving (`serve --dp/--tp`) and exported artifacts (`cli
+  export`). Permanent: the same flags fail the same way."""
+
+
+class ServeRejection(RuntimeError):
+  """Base for typed `serve` admission rejections. Carries an HTTP status
+  so the server maps taxonomy to wire code without parsing messages;
+  `kind` feeds the transient/permanent classification (clients retry
+  transient rejections with backoff)."""
+
+  http_status = 500
+
+  @property
+  def kind(self) -> str:
+    return classify_error(str(self))
+
+
+class BackpressureError(ServeRejection):
+  """Admission queue full: the service sheds load instead of growing
+  without bound. Transient (RESOURCE_EXHAUSTED): retry after backoff."""
+
+  http_status = 429
+
+  def __init__(self, detail: str):
+    super().__init__(f'RESOURCE_EXHAUSTED: {detail}')
+
+
+class DrainingError(ServeRejection):
+  """The service stopped admitting (SIGTERM or a preemption notice);
+  admitted work is finishing. Transient (UNAVAILABLE): retry against
+  another replica."""
+
+  http_status = 503
+
+  def __init__(self, detail: str = 'service is draining'):
+    super().__init__(f'UNAVAILABLE: {detail}')
+
+
+class DeadlineExceededError(ServeRejection):
+  """The request's deadline passed before its result was ready; its
+  remaining windows were cancelled. Transient (DEADLINE_EXCEEDED)."""
+
+  http_status = 504
+
+  def __init__(self, detail: str):
+    super().__init__(f'DEADLINE_EXCEEDED: {detail}')
+
+
+class BadRequestError(ServeRejection):
+  """Malformed request payload (undecodable npz, missing fields, shapes
+  that do not match the loaded model). Permanent: clients must not
+  retry the same bytes."""
+
+  http_status = 400
+
+
+class RequestTooLargeError(BadRequestError):
+  """Request body over the byte or window cap, rejected before decode."""
+
+  http_status = 413
+
+
+class FleetRejection(ServeRejection):
+  """`route` could not place the request: every eligible replica of the
+  tier is saturated, draining or dead. Transient (UNAVAILABLE)."""
+
+  http_status = 503
+
+  def __init__(self, detail: str):
+    super().__init__(f'UNAVAILABLE: {detail}')
+
+
+class ReplicaLostError(FleetRejection):
+  """A replica died after the router finished sending it a request (it
+  may have accepted the work), so the router does not place it again:
+  a retry could duplicate an accepted request. A transient 503."""
+
+  http_status = 503
+
+
+class QuotaExceededError(FleetRejection):
+  """A client is at its per-client concurrent-request quota at the
+  router's admission gate. Transient (RESOURCE_EXHAUSTED), and charged
+  to that one tenant, never to fleet capacity."""
+
+  http_status = 429
+
+  def __init__(self, detail: str):
+    # Not FleetRejection's UNAVAILABLE prefix: the quota is the client's
+    # own concurrency, not fleet capacity.
+    ServeRejection.__init__(self, f'RESOURCE_EXHAUSTED: {detail}')
 
 
 class CrashLoopError(RuntimeError):
@@ -260,7 +357,15 @@ def read_dead_letters(path: str) -> List[Dict[str, Any]]:
 # step: NAN_AT_STEP fills that step's batch rows with NaN (once a
 # process), SIGTERM_AT_STEP sends this process SIGTERM after the step
 # (once a process), KILL_TRAIN_AT_STEP SIGKILLs it after the step (once
-# across restarts with ENV_KILL_TOKEN set).
+# across restarts with ENV_KILL_TOKEN set). The serve hooks: with
+# ENV_POISON_WINDOW set, a serve request whose molecule name contains it
+# poisons its pack and its isolation retry, so it is quarantined;
+# ENV_SERVE_CLIENT_FAULT makes ServeClient misbehave on the wire
+# (disconnect, garbage, oversized or slowloris) for molecule names
+# containing ENV_SERVE_CLIENT_FAULT_ZMW (every request when unset);
+# ENV_PREEMPT_AT_S makes a serve replica deliver itself a preemption
+# notice that many seconds after it starts (it then drains as after
+# SIGUSR1).
 
 ENV_KILL_ZMW = 'DCTPU_FAULT_KILL_ZMW'
 ENV_KILL_TOKEN = 'DCTPU_FAULT_KILL_TOKEN'
@@ -274,6 +379,9 @@ ENV_KILL_SHARD_READER = 'DCTPU_FAULT_KILL_SHARD_READER'
 ENV_NAN_AT_STEP = 'DCTPU_FAULT_NAN_AT_STEP'
 ENV_SIGTERM_AT_STEP = 'DCTPU_FAULT_SIGTERM_AT_STEP'
 ENV_KILL_TRAIN_AT_STEP = 'DCTPU_FAULT_KILL_TRAIN_AT_STEP'
+ENV_SERVE_CLIENT_FAULT = 'DCTPU_FAULT_SERVE_CLIENT'
+ENV_SERVE_CLIENT_FAULT_ZMW = 'DCTPU_FAULT_SERVE_CLIENT_ZMW'
+ENV_PREEMPT_AT_S = 'DCTPU_FAULT_PREEMPT_AT_S'
 
 # Hooks that already fired in this process (consume-once semantics).
 _fired: set = set()
@@ -399,3 +507,16 @@ def injected_device_hang(pack_ordinal: int) -> float:
   log.warning('fault injection: device hang %.1fs at pack %d',
               hang_s, pack_ordinal)
   return hang_s
+
+
+def preempt_notice_after_s() -> float:
+  """Seconds after serve start at which the replica delivers itself a
+  preemption notice (0.0: the hook is unarmed); serve/server.py's
+  _PreemptionWatch arms a timer with it."""
+  raw = os.environ.get(ENV_PREEMPT_AT_S, '')
+  if not raw:
+    return 0.0
+  try:
+    return max(0.0, float(raw))
+  except ValueError:
+    return 0.0

@@ -28,6 +28,10 @@ Port of deepconsensus_tpu/inference/engine.py, the model stage of `run`
   reference's degrade_mesh does without a mesh.
 * poison_ticket() makes the pack holding a ticket fail at dispatch
   (faults.ENV_POISON_WINDOW).
+* The serving hooks (serve/service.py): submit_formatted() re-submits
+  rows already formatted (the isolation retry), has_work says whether a
+  window is buffered or in flight, and stats() gives the pack counters
+  that `/metricz` shows.
 
 The engine is not thread-safe: one thread drives it.
 """
@@ -175,6 +179,10 @@ class _WindowPacker:
     self.n_pack_rows = 0
     self.n_pad_rows = 0
     self.n_starvation_flushes = 0
+    # The pad rows of starvation flushes (also counted in n_pad_rows).
+    self.n_flush_pad_rows = 0
+    # Host seconds spent resolving packs (finalize and delivery).
+    self.model_wall = 0.0
     self.n_oom_bisections = 0
     self.n_device_faults = 0
     self.n_dispatch_timeouts = 0
@@ -196,6 +204,7 @@ class _WindowPacker:
     so a rarely fed bucket's windows are not held back."""
     if self._buffered and self._pack_clock[0] - self._starve_mark >= limit:
       self.n_starvation_flushes += 1
+      self.n_flush_pad_rows += self._batch - self._buffered
       self._cut_packs(flush=True)
 
   def _cut_packs(self, flush: bool) -> None:
@@ -254,6 +263,7 @@ class _WindowPacker:
     ids_u8 = pred_ids.astype(np.uint8)
     quals_u8 = quality.astype(np.uint8)
     elapsed = time.perf_counter() - t0
+    self.model_wall += elapsed
     for ticket, row_ids, row_quals in zip(tickets, ids_u8, quals_u8):
       self._deliver(ticket, row_ids, row_quals)
     self._timing_rows.append(dict(
@@ -313,6 +323,14 @@ class _WindowPacker:
     self._cut_packs(flush=True)
     while drain and self._in_flight:
       self._drain_one()
+
+  @property
+  def batch(self) -> int:
+    return self._batch
+
+  @property
+  def has_work(self) -> bool:
+    return bool(self._buffered or self._in_flight)
 
 
 # ----------------------------------------------------------------------
@@ -397,10 +415,23 @@ class _RaggedPacker:
     self.n_pad_rows = 0
     self.n_device_faults = 0
     self.n_dispatch_timeouts = 0
+    self.model_wall = 0.0
 
   @property
   def slot_len(self) -> int:
     return self._slot_len
+
+  @property
+  def n_slots(self) -> int:
+    return self._n_slots
+
+  @property
+  def windows_per_slot(self) -> int:
+    return self._wps
+
+  @property
+  def has_work(self) -> bool:
+    return bool(self._buffered or self._in_flight)
 
   def add(self, rows: np.ndarray, tickets: Sequence[Ticket]) -> None:
     """Buffers formatted rows [k, R, w, 1] of one bucket width (aligned
@@ -524,6 +555,7 @@ class _RaggedPacker:
     ids_u8 = pred_ids.astype(np.uint8)
     quals_u8 = quality.astype(np.uint8)
     elapsed = time.perf_counter() - t0
+    self.model_wall += elapsed
     for ticket, slot, off, width in placements:
       self._deliver(ticket, ids_u8[slot, off:off + width],
                     quals_u8[slot, off:off + width])
@@ -584,6 +616,14 @@ class ConsensusEngine:
     self._ragged = bool(getattr(options, 'use_ragged_kernel', False))
     self._ragged_packer: Optional[_RaggedPacker] = None
 
+  @property
+  def window_buckets(self) -> Tuple[int, ...]:
+    return self._buckets
+
+  @property
+  def params(self):
+    return self.runner.params
+
   def _packer_for(self, width: int):
     if width not in self._buckets:
       raise ValueError(
@@ -615,6 +655,25 @@ class ConsensusEngine:
     for width in sorted(self._packers):
       self._packers[width].maybe_flush_starved(BUCKET_FLUSH_PACKS)
 
+  @staticmethod
+  def _by_width(windows, tickets):
+    """(width, stacked windows, their tickets) per trailing window width,
+    in ascending width; submission order within a width."""
+    if len(windows) != len(tickets):
+      raise ValueError(f'{len(windows)} windows vs {len(tickets)} tickets')
+    groups: Dict[int, Tuple[list, list]] = {}
+    for w, t in zip(windows, tickets):
+      ws, ts = groups.setdefault(int(np.shape(w)[-2]), ([], []))
+      ws.append(w)
+      ts.append(t)
+    return [(width, np.stack(ws), ts)
+            for width, (ws, ts) in sorted(groups.items())]
+
+  def _add_rows(self, width: int, rows: np.ndarray, tickets) -> None:
+    self._n_windows_by_bucket[width] = (
+        self._n_windows_by_bucket.get(width, 0) + len(rows))
+    self._packer_for(width).add(rows, tickets)
+
   def submit(self, raw_windows, tickets: Sequence[Ticket]) -> None:
     """Feeds featurized window tensors (one ticket per window) through
     format -> pack -> dispatch: a uniform [k, total_rows, L, 1] array
@@ -622,23 +681,22 @@ class ConsensusEngine:
     per bucket in submission order. Full packs dispatch at once; each
     bucket's tail waits for more windows, the starvation flush or
     flush()."""
-    if len(raw_windows) != len(tickets):
-      raise ValueError(
-          f'{len(raw_windows)} windows vs {len(tickets)} tickets')
-    if not len(raw_windows):
-      return
-    groups: Dict[int, Tuple[list, list]] = {}
-    for w, t in zip(raw_windows, tickets):
-      ws, ts = groups.setdefault(int(np.shape(w)[-2]), ([], []))
-      ws.append(w)
-      ts.append(t)
-    for width, (ws, ts) in sorted(groups.items()):
-      rows = data_lib.format_rows_batch(
-          np.stack(ws), self.runner.params, window_buckets=self._buckets)
-      self._n_windows_by_bucket[width] = (
-          self._n_windows_by_bucket.get(width, 0) + len(rows))
-      self._packer_for(width).add(rows, ts)
+    for width, windows, ts in self._by_width(raw_windows, tickets):
+      self._add_rows(width, data_lib.format_rows_batch(
+          windows, self.runner.params, window_buckets=self._buckets), ts)
     self._flush_starved()
+
+  def submit_formatted(self, rows, tickets: Sequence[Ticket]) -> None:
+    """submit() for rows already through data.format_rows_batch (the
+    serve isolation retry dispatches them again without formatting)."""
+    for width, stacked, ts in self._by_width(rows, tickets):
+      self._add_rows(width, stacked, ts)
+    self._flush_starved()
+
+  @property
+  def has_work(self) -> bool:
+    """True while a submitted window is buffered or in flight."""
+    return any(p.has_work for p in self._all_packers())
 
   def flush(self, drain: bool = True) -> None:
     """Cuts every bucket's buffered tail as a padded pack; with drain,
@@ -675,6 +733,32 @@ class ConsensusEngine:
     return sum(p.n_starvation_flushes for p in self._packers.values())
 
   @property
+  def model_wall(self) -> float:
+    return self._agg('model_wall')
+
+  @property
+  def flush_padding_fraction(self) -> float:
+    """Share of all dispatched positions that were starvation-flush
+    padding: sum_b(n_flush_pad_rows_b * L_b) / sum_b(n_packs_b * B * L_b);
+    0.0 on the ragged path, which has no starvation flush."""
+    dispatched = flushed = 0
+    for width, packer in sorted(self._packers.items()):
+      dispatched += packer.n_packs * packer.batch * width
+      flushed += packer.n_flush_pad_rows * width
+    return flushed / dispatched if dispatched else 0.0
+
+  @property
+  def padding_fraction(self) -> float:
+    """Share of positions a pad-to-max policy would have dispatched on
+    top of the bucketed dispatch: 1 - sum(n_b * L_b) / (N * L_max); 0.0
+    with one bucket or before any window arrives."""
+    total = sum(self._n_windows_by_bucket.values())
+    if not total or len(self._buckets) < 2:
+      return 0.0
+    bucketed = sum(n * w for w, n in self._n_windows_by_bucket.items())
+    return 1.0 - bucketed / (total * max(self._buckets))
+
+  @property
   def n_oom_bisections(self) -> int:
     return self._agg('n_oom_bisections')
 
@@ -705,3 +789,29 @@ class ConsensusEngine:
   @property
   def n_windows_by_bucket(self) -> Dict[int, int]:
     return {w: self._n_windows_by_bucket.get(w, 0) for w in self._buckets}
+
+  def stats(self) -> Dict[str, Any]:
+    """The pack counters of serve's `/metricz` (the reference engine's
+    stats() keys), with the runner's transfer counters."""
+    out = {
+        'n_model_packs': self.n_packs,
+        'n_model_pack_rows': self.n_pack_rows,
+        'n_model_pad_rows': self.n_pad_rows,
+        'n_starvation_flushes': self.n_starvation_flushes,
+        'flush_padding_fraction': round(self.flush_padding_fraction, 4),
+        'model_wall_s': round(self.model_wall, 3),
+        'n_oom_bisections': self.n_oom_bisections,
+        'n_device_faults': self.n_device_faults,
+        'n_dispatch_timeouts': self.n_dispatch_timeouts,
+    }
+    dispatch_stats = getattr(self.runner, 'dispatch_stats', None)
+    if dispatch_stats is not None:
+      out.update(dispatch_stats())
+    out['window_buckets'] = list(self._buckets)
+    out['use_ragged_kernel'] = int(self._ragged)
+    out['n_packs_by_bucket'] = self.n_packs_by_bucket
+    out['n_windows_by_bucket'] = {
+        w: self._n_windows_by_bucket[w]
+        for w in sorted(self._n_windows_by_bucket)}
+    out['padding_fraction'] = round(self.padding_fraction, 4)
+    return out

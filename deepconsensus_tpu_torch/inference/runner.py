@@ -250,6 +250,52 @@ def _apply_quant_levers(params, options: InferenceOptions) -> None:
     params.quantize_matmuls = options.quantize_matmuls
 
 
+def load_model(checkpoint: Optional[str] = None,
+               weights: Optional[str] = None,
+               params_path: Optional[str] = None,
+               dtype: Optional[str] = None,
+               random_init_config: Optional[str] = None):
+  """(params, state dict) of the model `run` and `serve` load: a `train`
+  checkpoint directory (validated by its manifest; params.json from
+  beside it unless params_path names one), the --weights .npz with its
+  params.json, or, with random_init_config, that preset's model
+  initialized from a torch.Generator seeded 0 (serve --random_init).
+  dtype overrides params.dtype. An exported artifact (a directory with
+  export_meta.json) is refused: `cli export` is not ported yet."""
+  if random_init_config:
+    params = config_lib.get_config(random_init_config)
+    config_lib.finalize_params(params)
+    if dtype:
+      params.dtype = dtype
+    model = model_lib.DeepConsensusModel(params, device='cpu')
+    model.init_weights(torch.Generator().manual_seed(0))
+    return params, model.state_dict()
+  if checkpoint and os.path.exists(
+      os.path.join(checkpoint, 'export_meta.json')):
+    raise faults_lib.NotPortedError(
+        f'{checkpoint} is an exported artifact; the port loads `train` '
+        'checkpoints and --weights/--params only (cli export is not '
+        'ported yet)')
+  if weights and not params_path:
+    raise ValueError('--weights needs --params')
+  if not (checkpoint or weights):
+    raise ValueError('need a checkpoint, --weights/--params or a random '
+                     'init config')
+  params = config_lib.read_params_from_json(params_path or checkpoint)
+  if dtype:
+    params.dtype = dtype
+  if checkpoint:
+    from deepconsensus_tpu_torch.models import evaluate as evaluate_lib
+
+    state = evaluate_lib.load_checkpoint_state(checkpoint)
+  else:
+    from deepconsensus_tpu_torch.models import weights as weights_lib
+
+    state = weights_lib.from_flax_params(weights_lib.load_npz(weights),
+                                         params)
+  return params, state
+
+
 # glibc mallopt parameters (malloc.h) and what run_inference sets them
 # to: keep up to 1 GiB of freed heap, grow the heap 1 GiB at a time,
 # and serve blocks under 256 MiB from the heap rather than from mmap.
@@ -785,9 +831,9 @@ class ModelRunner:
     return dict(zip(keys, sums + [busy, wall, 1.0 - busy / wall]))
 
   def dispatch_stats(self) -> Dict[str, Any]:
-    """Transfer counters for the sidecar. A transfer counts as
-    overlapped when the pack before it had not finished on the card
-    when its copy was queued."""
+    """Transfer counters and the inference levers, for the sidecar and
+    serve's `/metricz`. A transfer counts as overlapped when the pack
+    before it had not finished on the card when its copy was queued."""
     launches = self.n_transfer_overlapped + self.n_transfer_direct
     return {
         'n_transfer_overlapped': self.n_transfer_overlapped,
@@ -795,6 +841,10 @@ class ModelRunner:
         'transfer_overlap_fraction': (
             round(self.n_transfer_overlapped / launches, 4)
             if launches else 0.0),
+        'inference_dtype': self.inference_dtype,
+        'n_quantized_matmuls': self.n_quantized_matmuls,
+        'device_epilogue': int(self.device_epilogue),
+        'd2h_bytes_per_pack': self.d2h_bytes_per_pack,
     }
 
 

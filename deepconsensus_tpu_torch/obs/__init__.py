@@ -1,5 +1,6 @@
-"""Observability of `run`: metrics registry, trace spans and trace
-summarization (port of deepconsensus_tpu/obs, without its profiler).
+"""Observability of `run` and `serve`: metrics registry, trace spans,
+trace summarization and, in obs/profiler.py, the on-demand
+torch.profiler capture (port of deepconsensus_tpu/obs).
 
 ``record_stage`` is the helper every instrumentation site calls: it
 feeds the same measured interval to the stage histogram

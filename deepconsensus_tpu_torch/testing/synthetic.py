@@ -52,6 +52,7 @@ def write_synthetic_zmw_bams(
     base_qual: int = 30,
     plain_names: bool = False,
     smart_windows: bool = False,
+    window_width_cycle: Tuple[int, ...] = (),
 ) -> Tuple[str, str]:
   """Writes (subreads_to_ccs.bam, ccs.bam) for n_zmws molecules.
 
@@ -62,7 +63,12 @@ def write_synthetic_zmw_bams(
   movie/zmw/ccs structure (exercises the defensive zm-tag parse).
   smart_windows adds a `wl` tag of seeded window widths
   (`smart_window_widths`) to each CCS record; without it the bytes are
-  those of the reference's writer.
+  those of the reference's writer. window_width_cycle (with
+  smart_windows) gives ZMW i windows of one width instead,
+  window_width_cycle[i % len], the last taking the remainder: with
+  (100, 200) and seq_len a multiple of 200, every molecule's windows
+  fall in one bucket, half of the molecules in each (a `serve` request
+  carries windows of one width).
   """
   rng = np.random.RandomState(seed)
   os.makedirs(out_dir, exist_ok=True)
@@ -110,14 +116,20 @@ def write_synthetic_zmw_bams(
       header_text='@HD\tVN:1.5\tSO:unknown\n'
       '@RG\tID:rg1\tPL:PACBIO\tSM:synthetic\n',
   )
-  for name, seq in zip(ccs_names, seqs):
+  for i, (name, seq) in enumerate(zip(ccs_names, seqs)):
     tags = {
         'ec': float(n_subreads),
         'np': int(n_subreads),
         'rq': 0.99,
         'RG': 'rg1',
     }
-    if smart_windows:
+    if smart_windows and window_width_cycle:
+      width = window_width_cycle[i % len(window_width_cycle)]
+      widths = [width] * (seq_len // width)
+      if seq_len % width:
+        widths.append(seq_len % width)
+      tags['wl'] = np.asarray(widths, dtype=np.int32)
+    elif smart_windows:
       tags['wl'] = smart_window_widths(rng, seq_len)
     ccs_writer.write(
         name, seq, np.full(seq_len, base_qual, dtype=np.uint8),

@@ -146,10 +146,11 @@ def test_port_imports_no_jax():
   """A fresh interpreter imports every port module (the native library's
   bindings, the featurization pool's module and the fault surface's
   modules among them: inference/faults.py, obs/, io/fastx.py,
-  io/validate.py, testing/faults.py, ops/device_spin.py; and the data
+  io/validate.py, testing/faults.py, ops/device_spin.py; the data
   half of `train`: preprocess/driver.py, models/data.py,
-  testing/synthetic.py); neither jax nor any deepconsensus_tpu module
-  may load. A source scan backs it up."""
+  testing/synthetic.py; and `serve` and the fleet tier: serve/,
+  fleet/, obs/profiler.py); neither jax nor any deepconsensus_tpu
+  module may load. A source scan backs it up."""
   code = (
       'import pkgutil, sys, deepconsensus_tpu_torch as p\n'
       'import deepconsensus_tpu_torch.cli\n'
@@ -170,7 +171,16 @@ def test_port_imports_no_jax():
       '"deepconsensus_tpu_torch.ops.device_spin", '
       '"deepconsensus_tpu_torch.preprocess.driver", '
       '"deepconsensus_tpu_torch.models.data", '
-      '"deepconsensus_tpu_torch.testing.synthetic") '
+      '"deepconsensus_tpu_torch.testing.synthetic", '
+      '"deepconsensus_tpu_torch.serve.protocol", '
+      '"deepconsensus_tpu_torch.serve.client", '
+      '"deepconsensus_tpu_torch.serve.service", '
+      '"deepconsensus_tpu_torch.serve.server", '
+      '"deepconsensus_tpu_torch.fleet.registry", '
+      '"deepconsensus_tpu_torch.fleet.balancer", '
+      '"deepconsensus_tpu_torch.fleet.router", '
+      '"deepconsensus_tpu_torch.fleet.featurize_worker", '
+      '"deepconsensus_tpu_torch.obs.profiler") '
       'if m not in sys.modules]\n'
       'print(bad)\n'
       'sys.exit(1 if bad else 0)\n')
